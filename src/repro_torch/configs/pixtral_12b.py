@@ -1,0 +1,14 @@
+"""pixtral-12b [vlm]: pixtral-ViT (stub frontend) + mistral-nemo backbone.
+[hf:mistralai/Pixtral-12B-2409; unverified]
+
+The modality frontend is a STUB per the assignment: input_specs() provides
+precomputed patch embeddings (batch, num_patches, d_model)."""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="pixtral-12b", family="dense", n_layers=40, d_model=5120,
+        n_heads=32, n_kv_heads=8, head_dim=128, d_ff=14336, vocab=131072,
+        act="swiglu", norm="rmsnorm", pos="rope", rope_theta=1e6,
+        num_patches=256, max_seq=32768)

@@ -1,0 +1,12 @@
+"""whisper-base [audio]: enc-dec; conv frontend is a STUB -- input_specs()
+provides precomputed frame embeddings. [arXiv:2212.04356; unverified]"""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="whisper-base", family="encdec", n_layers=6, d_model=512,
+        n_heads=8, n_kv_heads=8, d_ff=2048, vocab=51865,
+        act="gelu", norm="layernorm", pos="learned",
+        enc_layers=6, dec_layers=6, enc_len=1500, use_tp=False,
+        max_seq=32768)

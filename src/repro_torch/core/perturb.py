@@ -1,0 +1,62 @@
+"""Seed-replay perturbation of a flat parameter dict: theta + c * z(seed).
+
+Port of the JAX package's ``core/perturb.py`` for unquantized leaves.
+Parameters are a flat ``dict[str, Tensor]`` keyed by the JAX package's
+``/``-joined leaf paths (``blocks/attn/wq/w``); a leaf's z-field salt is
+the crc32 of that path, and z spans the leaf's whole (stacked) shape.
+
+Dispatch follows the device: a CUDA leaf goes through the hand-written
+``zo_add`` kernel -- every floating leaf, of any shape, since the kernel
+masks its own edges -- and a CPU leaf through its plain version. The
+values are the same either way (bit for bit with Rademacher z).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core import rng as zrng
+from repro_torch.kernels import ops as kops
+
+Params = Dict[str, torch.Tensor]
+
+
+def _path_str(path) -> str:
+    """``/``-join a key path (strings, ints or objects with ``key``/``idx``,
+    as JAX's tree paths carry them)."""
+    parts = []
+    for p in path:
+        if hasattr(p, "key"):
+            parts.append(str(p.key))
+        elif hasattr(p, "idx"):
+            parts.append(str(p.idx))
+        else:
+            parts.append(str(p))
+    return "/".join(parts)
+
+
+def leaf_salts(params: Params) -> Dict[str, int]:
+    """Per-leaf salts (python ints), keyed like ``params``."""
+    return {path: zrng.leaf_salt(path) for path in params}
+
+
+def add_scaled_z(params: Params, seed, coeff, dist: str = "rademacher",
+                 use_kernel: bool = False) -> Params:
+    """theta + coeff * z(seed), leaf-wise, z regenerated (never stored).
+
+    ``coeff`` is rounded to float32 once, as the JAX package does.
+    ``use_kernel`` mirrors the JAX signature and has no effect: the
+    leaf's device picks the kernel or the plain version.
+    """
+    del use_kernel
+    coeff = torch.as_tensor(coeff, dtype=torch.float32)
+    out = {}
+    for path, leaf in params.items():
+        if not leaf.is_floating_point():
+            out[path] = leaf
+            continue
+        out[path] = kops.zo_add(leaf, seed, zrng.leaf_salt(path), coeff,
+                                dist=dist)
+    return out

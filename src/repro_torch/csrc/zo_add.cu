@@ -1,0 +1,159 @@
+// zo_add: out = W + coeff * z(seed, salt) over a leaf of rank 0..8.
+//
+// Replaces the Pallas kernel _zo_add_kernel (src/repro/kernels/
+// zo_perturb.py:90, launched by zo_add at :129): the seed-replay sweep
+// that materializes a user's adapter (base + every logged update).
+//
+// Bound: memory. Each element is read once and written once (4 bytes an
+// element in bf16), about 12 integer operations an element hash it. The
+// design: one thread takes VEC contiguous elements with one 16-byte load
+// and one 16-byte store; the hash of the outer coordinates (all but the
+// last) is folded once per thread and only the last coordinate is folded
+// per element. z never touches device memory. The TPU's (256, 256) tiles
+// and the N % 128 alignment gate do not carry over: the kernel takes any
+// shape and masks its own ragged tail.
+//
+// W + c*z is computed in f32 with explicit round-to-nearest intrinsics
+// (no FMA contraction), then rounded to the leaf's dtype with
+// __float2bfloat16_rn -- the plain version's arithmetic exactly.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "zo_hash.cuh"
+
+namespace repro_torch {
+namespace {
+
+struct Shape {
+  int64_t dim[kMaxRank];
+  int nd;
+};
+
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// hash of the outer coordinates of row `row` (all dims but the last)
+__device__ __forceinline__ uint32_t row_hash(uint32_t base, int64_t row,
+                                             const Shape& s,
+                                             int prime_offset) {
+  uint32_t coord[kMaxRank];
+  for (int d = s.nd - 2; d >= 0; --d) {
+    int64_t n = s.dim[d];
+    coord[d] = static_cast<uint32_t>(row % n);
+    row /= n;
+  }
+  uint32_t h = base;
+  for (int d = 0; d < s.nd - 1; ++d) h = fold(h, coord[d], prime_offset + d);
+  return h;
+}
+
+template <typename T, int VEC>
+__global__ void zo_add_kernel(const T* __restrict__ w, T* __restrict__ out,
+                              int64_t n, Shape s, uint32_t base,
+                              int prime_offset, float coeff, int dist) {
+  int64_t start = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x) * VEC;
+  if (start >= n) return;
+  if (s.nd == 0) {  // a scalar leaf: one extra avalanche unless a slice
+    uint32_t h = prime_offset == 0 ? avalanche(base) : base;
+    float z = z_from_bits(h, dist);
+    out[0] = from_f32<T>(__fadd_rn(to_f32(w[0]), __fmul_rn(coeff, z)));
+    return;
+  }
+  const int64_t last = s.dim[s.nd - 1];
+  const int last_d = prime_offset + s.nd - 1;
+  int64_t row = start / last;
+  int64_t col = start - row * last;
+  uint32_t h_row = row_hash(base, row, s, prime_offset);
+  if (VEC > 1 && start + VEC <= n) {
+    Vec<T, VEC> x = *reinterpret_cast<const Vec<T, VEC>*>(w + start);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      if (col == last) {  // the vector crosses into the next row
+        ++row;
+        col = 0;
+        h_row = row_hash(base, row, s, prime_offset);
+      }
+      float z = z_from_bits(fold(h_row, static_cast<uint32_t>(col), last_d),
+                            dist);
+      x.v[i] = from_f32<T>(__fadd_rn(to_f32(x.v[i]), __fmul_rn(coeff, z)));
+      ++col;
+    }
+    *reinterpret_cast<Vec<T, VEC>*>(out + start) = x;
+    return;
+  }
+  for (int64_t i = start; i < n && i < start + VEC; ++i) {  // ragged tail
+    if (col == last) {
+      ++row;
+      col = 0;
+      h_row = row_hash(base, row, s, prime_offset);
+    }
+    float z = z_from_bits(fold(h_row, static_cast<uint32_t>(col), last_d),
+                          dist);
+    out[i] = from_f32<T>(__fadd_rn(to_f32(w[i]), __fmul_rn(coeff, z)));
+    ++col;
+  }
+}
+
+template <typename T, int VEC>
+void launch(const void* w, void* out, int64_t n, const Shape& s,
+            uint32_t base, int prime_offset, float coeff, int dist,
+            cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  int64_t threads_needed = (n + VEC - 1) / VEC;
+  unsigned blocks =
+      static_cast<unsigned>((threads_needed + kThreads - 1) / kThreads);
+  zo_add_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(w), static_cast<T*>(out), n, s, base,
+      prime_offset, coeff, dist);
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+// dtype: 0 float32, 1 bfloat16. vectorized: both pointers are 16-byte
+// aligned. Returns cudaGetLastError() after the launch.
+extern "C" int repro_zo_add(const void* w, void* out, int64_t n, int dtype,
+                            const int64_t* shape, int nd, uint32_t base,
+                            int prime_offset, float coeff, int dist,
+                            int vectorized, void* stream) {
+  using namespace repro_torch;
+  if (nd < 0 || nd > kMaxRank || n <= 0 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Shape s{};
+  s.nd = nd;
+  for (int d = 0; d < nd; ++d) s.dim[d] = shape[d];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (vectorized)
+      launch<float, 4>(w, out, n, s, base, prime_offset, coeff, dist, st);
+    else
+      launch<float, 1>(w, out, n, s, base, prime_offset, coeff, dist, st);
+  } else {
+    if (vectorized)
+      launch<__nv_bfloat16, 8>(w, out, n, s, base, prime_offset, coeff,
+                               dist, st);
+    else
+      launch<__nv_bfloat16, 1>(w, out, n, s, base, prime_offset, coeff,
+                               dist, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,52 @@
+"""Kernel dispatch: the device of the input decides.
+
+Each wrapper takes the plain PyTorch version for a tensor on the CPU and
+launches the hand-written CUDA kernel (``src/repro_torch/csrc``) for a
+tensor on a CUDA device -- never a fallback: a CUDA input the kernel
+does not take, a failed build or a failed launch raises. Launches are
+counted in :data:`LAUNCHES` (``LAUNCHES["zo_add"]`` and so on).
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import flash_prefill as _fp
+from repro_torch.kernels import zo_perturb as _zo
+from repro_torch.kernels.build import LAUNCHES, reset_launches
+
+__all__ = ["LAUNCHES", "reset_launches", "zo_add", "paged_decode_attn",
+           "paged_prefill_attn"]
+
+
+def _on_cpu(kernel: str, t) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"{kernel}: no kernel for device {t.device}")
+
+
+def zo_add(w, seed, salt: int, coeff, dist: str = "rademacher",
+           prime_offset: int = 0, prehashed: bool = False):
+    """``w + coeff * z(seed, salt)`` in ``w``'s dtype, for a leaf of any
+    rank (the kernel masks its own edges; no alignment gate)."""
+    if _on_cpu("zo_add", w):
+        return _zo.zo_add_ref(w, seed, salt, coeff, dist, prime_offset,
+                              prehashed)
+    return _zo.zo_add_cuda(w, seed, salt, coeff, dist, prime_offset,
+                           prehashed)
+
+
+def paged_decode_attn(q, k_pages, v_pages, pages, pos):
+    """Single-token attention over a paged KV pool (q: (B, H, hd))."""
+    if _on_cpu("flash_decode", q):
+        return _fd.paged_attn_ref(q, k_pages, v_pages, pages, pos)
+    return _fd.flash_decode(q, k_pages, v_pages, pages, pos)
+
+
+def paged_prefill_attn(q, k_pages, v_pages, pages, pos):
+    """Chunk attention over a paged KV pool (q: (B, C, H, hd)), chunk
+    offset c reading positions <= pos + c."""
+    if _on_cpu("flash_prefill", q):
+        return _fp.prefill_attn_ref(q, k_pages, v_pages, pages, pos)
+    return _fp.flash_prefill(q, k_pages, v_pages, pages, pos)

@@ -1,0 +1,226 @@
+"""Shared neural layers: norms, RoPE, attention (GQA/MQA), MLPs, embedding.
+
+Port of the JAX package's ``models/layers.py`` without the ``ctx``
+(fused perturbation) arguments, which belong to the training slice.
+
+Conventions:
+  * params are nested dicts of tensors, keyed as in the JAX param tree
+    (``p["wq"]["w"]``), one layer's slice of the stacked leaves at a time;
+  * activations flow in the param dtype (bf16 at full size), softmax and
+    norm math in f32;
+  * attention here is the plain dense path the JAX package leaves to
+    XLA; the paged kernels live in ``repro_torch.kernels``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_NEG_INF = -1e30
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def rmsnorm(x, scale, eps=1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    d = xf - mu
+    var = torch.mean(d * d, dim=-1, keepdim=True)
+    y = d * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+def norm_apply(cfg, p, x):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding (full / partial per rope_pct)
+
+
+def rope_cos_sin(positions, head_dim: int, rope_pct: float, theta: float):
+    """positions: int tensor (...,). Returns cos/sin of shape (..., rot/2)."""
+    rot = int(head_dim * rope_pct)
+    rot -= rot % 2
+    if rot == 0:
+        return None
+    exps = torch.arange(0, rot, 2, dtype=torch.float32,
+                        device=positions.device) / rot
+    inv = 1.0 / (theta ** exps)
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos_sin):
+    """x: (..., S, H, hd); cos/sin: (..., S, rot/2) broadcast over H."""
+    if cos_sin is None:
+        return x
+    cos, sin = cos_sin
+    rot2 = cos.shape[-1]
+    xr, xp = x[..., :2 * rot2], x[..., 2 * rot2:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense projections
+
+
+def dense(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def _sdpa(q, k, v, mask, dtype):
+    """q: (B, S, KV, G, hd); k/v: (B, T, KV, hd); mask broadcastable to
+    (B, KV, G, S, T). Softmax in f32."""
+    # 1/sqrt(hd) rounded in f32 arithmetic, as jnp computes it
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
+    scores = torch.einsum("bskgh,btkh->bkgst", q.to(torch.float32) * scale,
+                          k.to(torch.float32))
+    scores = scores.masked_fill(~mask, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkh->bskgh", probs.to(dtype), v)
+
+
+def attention(q, k, v, *, causal: bool, q_offset=0,
+              kv_mask: Optional[torch.Tensor] = None, chunk: int = 0):
+    """GQA attention. q: (B, S, H, hd); k/v: (B, T, KV, hd).
+
+    kv_mask is (B, T) key validity shared by every query row, or (B, S, T)
+    with a mask per query row. chunk > 0 with S % chunk == 0 and S > chunk
+    loops over query chunks so peak score memory is (B, H, chunk, T) --
+    each query row's arithmetic is the same either way.
+    """
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, hd)
+    kv_pos = torch.arange(t, device=q.device)
+
+    def block_mask(q_pos):
+        if causal:
+            m = q_pos[:, None] >= kv_pos[None, :]
+        else:
+            m = torch.ones((q_pos.shape[0], t), dtype=torch.bool,
+                           device=q.device)
+        m = m[None, None, None]                      # (1,1,1,S,T)
+        if kv_mask is not None:
+            if kv_mask.dim() == 3:                   # per-query-row masks
+                rows = kv_mask[:, q_pos - q_offset]
+                m = m & rows[:, None, None, :, :]    # (B,1,1,S,T)
+            else:
+                m = m & kv_mask[:, None, None, None, :]
+        return m
+
+    if chunk and s > chunk and s % chunk == 0:
+        outs = []
+        for c0 in range(0, s, chunk):
+            q_pos = q_offset + c0 + torch.arange(chunk, device=q.device)
+            outs.append(_sdpa(qg[:, c0:c0 + chunk], k, v, block_mask(q_pos),
+                              q.dtype))
+        return torch.cat(outs, dim=1).reshape(b, s, h, hd)
+    q_pos = q_offset + torch.arange(s, device=q.device)
+    out = _sdpa(qg, k, v, block_mask(q_pos), q.dtype)
+    return out.reshape(b, s, h, hd)
+
+
+def attn_project_qkv(cfg, p, x):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = dense(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    return q, k, v
+
+
+def attn_apply(cfg, p, x, *, positions=None, kv_mask=None, causal=None):
+    """Self-attention over x: (B, S, D). positions: (B, S) or None."""
+    b, s, _ = x.shape
+    q, k, v = attn_project_qkv(cfg, p, x)
+    if cfg.pos == "rope":
+        pos = (positions if positions is not None
+               else torch.arange(s, device=x.device)[None])
+        cs = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_pct,
+                          cfg.rope_theta)
+        q, k = apply_rope(q, cs), apply_rope(k, cs)
+    causal = cfg.causal if causal is None else causal
+    if cfg.attn_impl == "flash" and kv_mask is None:
+        raise NotImplementedError(
+            "attn_impl='flash' needs the flash_attention kernel, which "
+            "lands with the training slice")
+    out = attention(q, k, v, causal=causal, kv_mask=kv_mask,
+                    chunk=cfg.attn_chunk)
+    return dense(p["wo"], out.reshape(b, s, -1))
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+
+
+def mlp_apply(cfg, p, x):
+    if cfg.act in ("swiglu", "geglu"):
+        # gated w_in is an interleaved (D, F, 2) leaf
+        h = torch.einsum("...d,dfg->...fg", x, p["w_in"]["w"])
+        u, g = h[..., 0], h[..., 1]
+        gate = (F.silu(g) if cfg.act == "swiglu"
+                else F.gelu(g, approximate="tanh"))
+        h = u * gate
+    else:
+        h = dense(p["w_in"], x)
+        h = F.gelu(h, approximate="tanh") if cfg.act == "gelu" \
+            else torch.relu(h)
+    return dense(p["w_out"], h)
+
+
+# ---------------------------------------------------------------------------
+# embedding
+
+
+def embed_apply(cfg, p, tokens, positions=None):
+    x = p["tok"][tokens]
+    if cfg.pos == "learned":
+        pos = (positions if positions is not None
+               else torch.arange(tokens.shape[-1], device=tokens.device))
+        x = x + p["pos"][pos]
+    return x
+
+
+def unembed(cfg, embed_p, head_p, x):
+    """Final projection to vocab logits (tied or untied)."""
+    if cfg.tie_embeddings or head_p is None:
+        return x @ embed_p["tok"].T
+    return dense(head_p, x)

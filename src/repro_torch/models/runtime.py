@@ -1,0 +1,264 @@
+"""Generic backbone engine: forward / cache / decode / prefill for every
+ported architecture, driven by a declarative plan.
+
+Port of the JAX package's ``models/runtime.py``. A family is a
+:class:`ModelPlan`: a :class:`StackPlan` of :class:`Sublayer` rows naming
+a norm leaf, a mixer param path and a registered block type. The engine
+owns the one residual pattern::
+
+    for each layer (a Python loop over the stacked (L, ...) leaves):
+        for each sublayer:  x = x + block(norm(x))
+
+Parameters are the flat ``/``-keyed dict (see ``core/perturb.py``); the
+stack's leaves are nested and sliced one layer at a time here. The
+StateCache mirrors the JAX one: ``{scope: {mixer path: {leaf: (L, ...)}}}``
+with layers on axis 0 and, for dense leaves, batch on axis 1; paged pool
+leaves are ``(L, n_pages, page_size, KV, hd)``. Blocks update their
+layer's slice in place, so the returned cache is the cache passed in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import RunCtx, get_block
+from repro_torch.models.config import ModelConfig
+
+
+# ---------------------------------------------------------------------------
+# plans
+
+
+@dataclasses.dataclass(frozen=True)
+class Sublayer:
+    """One residual unit: ``x = x + block(norm(x))``; ``ln`` / ``mixer``
+    are ``/``-separated param paths within the layer; ``opts`` are static
+    kwargs forwarded to the block."""
+    ln: str
+    mixer: str
+    block: str
+    opts: Tuple[Tuple[str, Any], ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    """A stack of identical layers under ``params[scope]``."""
+    scope: str
+    n_layers: int
+    sublayers: Tuple[Sublayer, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelPlan:
+    cfg: ModelConfig
+    stack: StackPlan
+
+
+# ---------------------------------------------------------------------------
+# nested-path helpers
+
+
+def _get(d, path: str):
+    for part in path.split("/"):
+        d = d[part]
+    return d
+
+
+def _set(d, path: str, val):
+    parts = path.split("/")
+    for part in parts[:-1]:
+        d = d.setdefault(part, {})
+    d[parts[-1]] = val
+
+
+def nest(params: Dict[str, torch.Tensor], prefix: str) -> dict:
+    """The leaves under ``prefix/`` as a nested dict (prefix stripped)."""
+    out: dict = {}
+    head = prefix + "/"
+    for path, leaf in params.items():
+        if path.startswith(head):
+            _set(out, path[len(head):], leaf)
+    return out
+
+
+def _index(tree, i: int):
+    """Layer ``i`` of every (L, ...) leaf of a nested dict (views)."""
+    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _pos_vector(pos, b: int, device) -> torch.Tensor:
+    """A scalar or (B,) position as a (B,) int32 tensor on ``device``."""
+    pos = torch.as_tensor(pos, device=device).to(torch.int32)
+    return pos.expand(b).contiguous() if pos.dim() == 0 else pos
+
+
+# ---------------------------------------------------------------------------
+# the one residual loop, in three modes
+
+
+def _stack_apply(cfg, stack: StackPlan, params, x, rc: RunCtx):
+    """Full-sequence stack."""
+    blocks = nest(params, stack.scope)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li in range(stack.n_layers):
+        bp = _index(blocks, li)
+        for sl in stack.sublayers:
+            bt = get_block(sl.block)
+            z = L.norm_apply(cfg, _get(bp, sl.ln), x)
+            y, a = bt.apply(cfg, _get(bp, sl.mixer), z, rc, **dict(sl.opts))
+            x = x + y
+            aux = aux + a
+    return x, aux
+
+
+def _stack_seq(cfg, stack: StackPlan, params, state, x, rc: RunCtx,
+               mode: str):
+    """Stateful stack walk: mode 'decode' (one token), 'prefill' (a whole
+    prompt into a dense cache) or 'chunk' (a prompt chunk straight into
+    the page pool)."""
+    blocks = nest(params, stack.scope)
+    for li in range(stack.n_layers):
+        bp, ls = _index(blocks, li), _index(state, li)
+        for sl in stack.sublayers:
+            bt = get_block(sl.block)
+            z = L.norm_apply(cfg, _get(bp, sl.ln), x)
+            opts = dict(sl.opts)
+            if not bt.stateful:
+                y, _ = bt.apply(cfg, _get(bp, sl.mixer), z, rc, **opts)
+            else:
+                fn = {"decode": bt.decode_step, "prefill": bt.prefill,
+                      "chunk": bt.prefill_paged}[mode]
+                y, _ = fn(cfg, _get(bp, sl.mixer), _get(ls, sl.mixer), z,
+                          rc, **opts)
+            x = x + y
+    return x
+
+
+# ---------------------------------------------------------------------------
+# model functions (what build_model wires into the Model facade)
+
+
+def forward(plan: ModelPlan, params, batch, last_only=False):
+    """Full-sequence forward -> (logits, aux)."""
+    cfg = plan.cfg
+    tokens = batch["tokens"]
+    x = L.embed_apply(cfg, nest(params, "embed"), tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    rc = RunCtx(positions=positions, kv_mask=batch.get("attn_mask"))
+    x, aux = _stack_apply(cfg, plan.stack, params, x, rc)
+    x = L.norm_apply(cfg, nest(params, "ln_f"), x)
+    if last_only:
+        x = x[:, -1:]
+    return _logits(plan, params, x), aux
+
+
+def _logits(plan: ModelPlan, params, x):
+    head = nest(params, "lm_head") or None
+    return L.unembed(plan.cfg, nest(params, "embed"), head, x)
+
+
+def init_cache(plan: ModelPlan, bsz, max_len, dtype, device):
+    """Dense StateCache: every leaf (n_layers, B, ...)."""
+    cfg = plan.cfg
+    sub: dict = {}
+    for sl in plan.stack.sublayers:
+        bt = get_block(sl.block)
+        if not bt.stateful:
+            continue
+        spec = bt.state_spec(cfg, bsz, max_len, dtype)
+        _set(sub, sl.mixer,
+             {name: torch.zeros((plan.stack.n_layers,) + shape, dtype=dt,
+                                device=device)
+              for name, (shape, dt) in spec.items()})
+    return {plan.stack.scope: sub}
+
+
+def plan_pages(plan: ModelPlan) -> bool:
+    """True iff any sublayer of the stack has pageable state."""
+    return any(get_block(sl.block).paged_state_spec is not None
+               for sl in plan.stack.sublayers)
+
+
+def init_paged_cache(plan: ModelPlan, bsz, n_pages, page_size, dtype,
+                     device, max_len=None):
+    """Paged StateCache: pageable leaves (attention K/V) become
+    ``(n_layers, n_pages, page_size, ...)`` pools shared by every slot
+    through a page table; physical page 0 is the trash page. Blocks
+    without pageable state keep the dense (n_layers, B, ...) layout."""
+    cfg = plan.cfg
+    sub: dict = {}
+    for sl in plan.stack.sublayers:
+        bt = get_block(sl.block)
+        if not bt.stateful:
+            continue
+        if bt.paged_state_spec is not None:
+            spec = bt.paged_state_spec(cfg, dtype)
+            lead = (plan.stack.n_layers, n_pages, page_size)
+        else:
+            spec = bt.state_spec(cfg, bsz, max_len or cfg.max_seq, dtype)
+            lead = (plan.stack.n_layers,)
+        _set(sub, sl.mixer,
+             {name: torch.zeros(lead + shape, dtype=dt, device=device)
+              for name, (shape, dt) in spec.items()})
+    return {plan.stack.scope: sub}
+
+
+def decode_step(plan: ModelPlan, params, cache, tokens, pos, pages=None,
+                write_mask=None):
+    """tokens: (B, 1) -> (logits (B, 1, V), cache) with the cache written
+    at ``pos`` (scalar or (B,)). With a paged cache, ``pages`` is the
+    (B, n_live) int32 table slice; ``write_mask`` (B,) confines writes to
+    a slot subset (masked slots scatter into the trash page, or keep
+    their old dense entry)."""
+    cfg = plan.cfg
+    pos = _pos_vector(pos, tokens.shape[0], tokens.device)
+    x = L.embed_apply(cfg, nest(params, "embed"), tokens,
+                      positions=pos.long()[:, None])
+    rc = RunCtx(pos=pos, pages=pages, write_mask=write_mask)
+    x = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x, rc,
+                   "decode")
+    x = L.norm_apply(cfg, nest(params, "ln_f"), x)
+    return _logits(plan, params, x), cache
+
+
+def prefill_chunk(plan: ModelPlan, params, cache, tokens, pos, pages=None,
+                  write_mask=None):
+    """Chunked prefill into a paged cache: tokens (B, C) at per-slot
+    positions ``pos .. pos + C - 1`` -> (logits (B, C, V), cache). The
+    chunk's K/V is written through the page table, which must cover
+    ``pos + C - 1``."""
+    cfg = plan.cfg
+    pos = _pos_vector(pos, tokens.shape[0], tokens.device)
+    positions = (pos.long()[:, None]
+                 + torch.arange(tokens.shape[1], device=tokens.device))
+    x = L.embed_apply(cfg, nest(params, "embed"), tokens,
+                      positions=positions)
+    rc = RunCtx(pos=pos, positions=positions, pages=pages,
+                write_mask=write_mask)
+    x = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x, rc,
+                   "chunk")
+    x = L.norm_apply(cfg, nest(params, "ln_f"), x)
+    return _logits(plan, params, x), cache
+
+
+def prefill(plan: ModelPlan, params, cache, tokens):
+    """Whole-prompt prefill: one pass over the (B, P) prompt writes cache
+    positions [0, P) and returns next-token logits (B, 1, V)."""
+    cfg = plan.cfg
+    x = L.embed_apply(cfg, nest(params, "embed"), tokens)
+    rc = RunCtx(positions=torch.arange(tokens.shape[1],
+                                       device=tokens.device)[None])
+    x = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x, rc,
+                   "prefill")
+    x = L.norm_apply(cfg, nest(params, "ln_f"), x[:, -1:])
+    return _logits(plan, params, x), cache
+
+
+__all__ = ["ModelPlan", "StackPlan", "Sublayer", "decode_step", "forward",
+           "init_cache", "init_paged_cache", "nest", "plan_pages",
+           "prefill", "prefill_chunk"]
