@@ -31,6 +31,7 @@ JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -48,6 +49,14 @@ ZO_GAUSS_ATOL = 1e-6     # f32 z: last ulps of logf/cosf only (no FMA)
 ATTN_BF16_ATOL = 2e-2    # bf16 out: the plain version rounds probs to bf16
 ATTN_F32_ATOL = 2e-5     # f32 out: summation order only
 LOGITS_BF16_ATOL = 0.15  # 24 bf16 layers, chunked kernels vs dense plain
+ZO_MM_F32_RTOL = 2e-5    # max|d| / max|Y|, f32 out: summation order only
+ZO_MM_BF16_RTOL = 1e-2   # bf16 out: one rounding of Y (2^-8 relative)
+OPT_FUSED_ATOL = 2e-2    # bf16: also the rounding of W' the materialized
+#                          path does and the fused (f32 W') path does not
+ROBERTA_FUSED_ATOL = 1e-4  # f32: summation order over 24 layers only
+
+# the training phases' shapes: full width and depth, batch 8 x 128 tokens
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 4, 8, 128
 
 
 def fail(msg: str):
@@ -240,6 +249,141 @@ def kernel_attention(torch, results):
                          "bound_by": b_by, "library_ms": lib}
 
 
+def kernel_zo_matmul(torch, results):
+    """T0: ``zo_matmul`` at the training path's shapes against its plain
+    version; the library yardstick is cuBLAS SGEMM (TF32 off) of
+    ``X.float() @ W'`` on a W' materialized beforehand."""
+    from repro_torch.core import rng
+    from repro_torch.kernels import zo_perturb as zp
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    seed, coeff = 987654321, 1e-3
+    cases = [  # (name, M, K, N, dtype, leaf path, layer or None)
+        ("opt w_in slice", 1024, 2048, 8192, torch.bfloat16,
+         "blocks/mlp/w_in/w", 5),
+        ("opt lm_head", 1024, 2048, 50272, torch.bfloat16, "lm_head/w",
+         None),
+        ("roberta w_in slice", 1024, 1024, 4096, torch.float32,
+         "blocks/mlp/w_in/w", 5)]
+    rows = []
+    for label, m, k, n, dt, path, layer in cases:
+        x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(dt)
+        salt = rng.leaf_salt(path)
+        if layer is None:
+            kw = dict(seed=seed, salt=salt, prime_offset=0, prehashed=False)
+        else:
+            kw = dict(seed=rng.fold_leading(rng.leaf_base(seed, salt), layer),
+                      salt=0, prime_offset=1, prehashed=True)
+        tol = ZO_MM_F32_RTOL if dt == torch.float32 else ZO_MM_BF16_RTOL
+        errs, abs_err = {}, 0.0
+        for dist in ("rademacher", "gaussian"):
+            got = zp.zo_matmul_cuda(x, w, coeff=coeff, dist=dist, **kw)
+            want = zp.zo_matmul_ref(x, w, coeff=coeff, dist=dist, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs().max()
+            err = (diff / want.float().abs().max()).item()
+            check(err <= tol and torch.isfinite(got).all().item(),
+                  f"zo_matmul {label} {dist}: max|d|/max|Y| {err} > {tol}")
+            errs[dist] = err
+            abs_err = max(abs_err, diff.item())
+            del got, want
+        ms = time_ms(lambda: zp.zo_matmul_cuda(x, w, coeff=coeff, **kw),
+                     iters=10)
+        plain = time_ms(lambda: zp.zo_matmul_ref(x, w, coeff=coeff, **kw),
+                        iters=2, warmup=1)
+        z = zp.tile_z(kw["seed"], kw["salt"], (k, n), 0, 0, "rademacher",
+                      kw["prime_offset"], kw["prehashed"], device=dev)
+        wp = w.float() + torch.tensor(coeff, dtype=torch.float32,
+                                      device=dev) * z
+        del z
+        xf = x.float()
+        lib = time_ms(lambda: xf @ wp, iters=10)
+        del wp, xf
+        item = x.element_size()
+        b_ms, b_by = bound((m * k + k * n + m * n) * item, 2.0 * m * k * n,
+                           "f32")
+        row = {"phase": "kernel", "name": "zo_matmul", "case": label,
+               "shape": [m, k, n], "dtype": str(dt).split(".")[-1],
+               "rel_err_rademacher": errs["rademacher"],
+               "rel_err_gaussian": errs["gaussian"], "tolerance": tol,
+               "max_abs_err": abs_err,
+               "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+               "bound_ms": b_ms, "bound_by": b_by}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del x, w
+        torch.cuda.empty_cache()
+    # the kernels line: OPT-1.3B's two shapes summed (one w_in slice and
+    # the LM head), as zo_add's row sums its two largest leaves
+    opt = rows[:2]
+    results["zo_matmul"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["kernel_ms"] for r in opt),
+        "plain_ms": sum(r["plain_ms"] for r in opt),
+        "bound_ms": sum(r["bound_ms"] for r in opt),
+        "bound_by": "operations",
+        "library_ms": sum(r["library_ms"] for r in opt)}
+
+
+def _flash_cost(b, s, t, h, kvh, hd, causal, item):
+    """Bytes (q, k, v read once, out written once) and flops (q.k and
+    p.v, 2 * hd each, over the live (row, key) pairs)."""
+    pairs = (sum(min(i + 1, t) for i in range(s)) if causal else s * t)
+    flops = 4.0 * hd * b * h * pairs
+    n_bytes = (2 * b * s * h * hd + 2 * b * t * kvh * hd) * item
+    return n_bytes, flops
+
+
+def kernel_flash_attention(torch, results):
+    """T0: ``flash_attention`` against its plain version; the library
+    yardstick is ``F.scaled_dot_product_attention`` on the same tensors."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cases = [  # (label, B, S, H, KV, hd, causal, dtype)
+        ("opt causal", 8, 128, 32, 32, 64, True, torch.bfloat16),
+        ("roberta bidirectional", 8, 128, 16, 16, 64, False, torch.float32),
+        ("ragged gqa causal", 3, 100, 8, 2, 16, True, torch.float32),
+        ("ragged gqa bidirectional", 3, 100, 8, 2, 16, False,
+         torch.bfloat16)]
+    rows = []
+    for label, b, s, h, kvh, hd, causal, dt in cases:
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dt)
+        got = fa.flash_attention_cuda(q, k, v, causal)
+        want = fa.flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_F32_ATOL if dt == torch.float32 else ATTN_BF16_ATOL
+        check(err <= tol and torch.isfinite(got).all().item(),
+              f"flash_attention {label}: max err {err} > {tol}")
+        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal),
+                     iters=50)
+        plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal),
+                        iters=10)
+        qq, kk, vv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=causal, enable_gqa=kvh != h), iters=50)
+        n_bytes, flops = _flash_cost(b, s, s, h, kvh, hd, causal,
+                                     q.element_size())
+        b_ms, b_by = bound(n_bytes, flops, "f32")
+        row = {"phase": "kernel", "name": "flash_attention", "case": label,
+               "shape": [b, s, h, kvh, hd], "causal": causal,
+               "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+               "tolerance": tol, "kernel_ms": ms, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    main = rows[0]                       # the OPT-1.3B training shape
+    results["flash_attention"] = {
+        "max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 
@@ -278,7 +422,10 @@ def _serve(torch, serve_mod, engine_mod, argv):
     return args, engine, comps, dt, first
 
 
-def main_path(torch, results):
+SERVE_KERNELS = ("zo_add", "flash_decode", "flash_prefill")
+
+
+def main_path(torch, paths):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
     from repro_torch.serve import engine as engine_mod
@@ -305,9 +452,10 @@ def main_path(torch, results):
                       "peak_memory_gib": peak_gb,
                       "materialize_s": engine.store.stats["materialize_s"],
                       "seconds": dt}), flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-        results[name]["launches"] = n
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the serving path")
+    paths["serve"] = launches
     cfg = engine.cfg
     check(len(comps) == 8, f"{len(comps)} completions, expected 8")
     for comp in comps:
@@ -348,23 +496,16 @@ def main_path(torch, results):
     return paged
 
 
-def profile_path(torch, paged_argv):
-    """Device busy share of serving, from the profiler's kernel events
-    (kernels on one stream do not overlap, so their durations add)."""
+def _profiled(torch, fn):
+    """Run ``fn`` under ``torch.profiler``: (wall us, device us by kernel
+    name). Kernels on one stream do not overlap, so their durations add."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch import serve as serve_mod
-    argv = list(paged_argv)
-    argv[argv.index("--requests") + 1] = "4"
-    argv[argv.index("--gen") + 1] = "16"
-    engine = serve_mod.build_engine(serve_mod.build_parser().parse_args(argv))
-    for user in engine.store.users():          # replay outside the window
-        engine.store.materialize(user)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
@@ -372,17 +513,208 @@ def profile_path(torch, paged_argv):
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us())
+    return wall_us, by_name
+
+
+def _profile_line(phase, wall_us, by_name, **extra):
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(json.dumps({
-        "phase": "profile", "requests": 4, "gen": 16,
-        "wall_ms": wall_us / 1e3,
+        "phase": phase, **extra, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3 if by_name else "not measured",
         "device_busy_share": busy_us / wall_us if by_name
         else "not measured",
-        "decode_steps": engine.stats.decode_steps,
         "top_kernels_ms": {name[:60]: us / 1e3 for name, us in top}}),
         flush=True)
+
+
+def profile_path(torch, paged_argv):
+    """Device busy share of serving (4 requests, 16 new tokens)."""
+    from repro_torch.launch import serve as serve_mod
+    argv = list(paged_argv)
+    argv[argv.index("--requests") + 1] = "4"
+    argv[argv.index("--gen") + 1] = "16"
+    engine = serve_mod.build_engine(serve_mod.build_parser().parse_args(argv))
+    for user in engine.store.users():          # replay outside the window
+        engine.store.materialize(user)
+    wall_us, by_name = _profiled(torch, engine.run)
+    _profile_line("profile", wall_us, by_name, requests=4, gen=16,
+                  decode_steps=engine.stats.decode_steps)
+
+
+# ---------------------------------------------------------------------------
+# T1-T4: fused MeZO training
+
+
+def _leaf_counts(cfg):
+    """Launches a fused step must make at K = 1 on the layernorm, biased
+    configs of this path (OPT-1.3B, RoBERTa-large), read off the code:
+    every floating 2-D weight the forward uses goes through ``zo_matmul``
+    (``PerturbCtx.matmul``), every norm scale/bias and projection bias
+    through ``zo_add`` (``PerturbCtx.perturb``), embeddings through
+    ``z_rows`` (no kernel); the sgd update sweeps every leaf once with
+    ``zo_add``; ``flash_attention`` runs once a layer a forward."""
+    from repro_torch.models.transformer import param_shapes
+    n_leaves = len(param_shapes(cfg))
+    per_layer_mm = 6                       # wq wk wv wo w_in w_out
+    per_layer_add = 4 + 6                  # 2 norms' scale+bias, 6 biases
+    head_mm = 1                            # lm_head, or the CLS head
+    head_add = 2 + (1 if cfg.n_classes else 0)   # ln_f, cls_head/b
+    fwd_mm = cfg.n_layers * per_layer_mm + head_mm
+    fwd_add = cfg.n_layers * per_layer_add + head_add
+    return {"zo_matmul": 2 * fwd_mm,
+            "zo_add": n_leaves + 2 * fwd_add,
+            "flash_attention": (2 * cfg.n_layers
+                                if cfg.attn_impl == "flash" else 0)}
+
+
+def _check_launches(label, launches, cfg, steps):
+    want = {k: steps * v for k, v in _leaf_counts(cfg).items()}
+    got = {k: launches[k] for k in want}
+    print(json.dumps({"phase": label, "launches": launches,
+                      "expected": want}), flush=True)
+    check(got == want, f"{label}: launches {got} != expected {want}")
+
+
+def _batches(cfg, bsz, seq):
+    """The CLI's batch stream for ``cfg`` (seed 0)."""
+    from repro_torch.data.synthetic import lm_batches, sst2_batches
+    gen = sst2_batches if cfg.n_classes else lm_batches
+    return gen(bsz, seq, cfg.vocab, seed=0)
+
+
+def _first_batch(torch, cfg, bsz, seq):
+    return {k: torch.as_tensor(v).to("cuda")
+            for k, v in next(_batches(cfg, bsz, seq)).items()}
+
+
+def _timed_steps(torch, strategy, loss_fn, state, batch, mcfg, n):
+    """Mean host-clock seconds of ``n`` synchronized steps."""
+    from repro_torch.core import rng
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        state, _ = strategy.step(loss_fn, state, batch,
+                                 rng.fold_seed(12345, i), mcfg)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n, state
+
+
+def train_main_path(torch, paths):
+    """T1: the CLI, full-width OPT-1.3B, 4 fused steps at B 8, S 128."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    ckpt = WORK / "train_opt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", "opt-1.3b", "--optimizer", "mezo-fused", "--steps",
+            str(TRAIN_STEPS), "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S), "--ckpt-dir", str(ckpt), "--log-every", "1",
+            "--seed", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tr = train_mod.run(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    paths["train_opt"] = launches
+    cfg = tr.mcfg
+    check(len(tr.losses) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in tr.losses),
+          f"T1 losses {tr.losses}")
+    _check_launches("T1 launches", launches, cfg, TRAIN_STEPS)
+
+    # step-0 snapshot + replay of the log tail == the live parameters
+    mgr = CheckpointManager(str(ckpt), mezo_cfg=tr.tcfg.mezo,
+                            update_rule=tr.strategy.update)
+    like = tr.strategy.init_state(
+        {k: torch.empty_like(v) for k, v in tr.params.items()},
+        tr.tcfg.mezo)
+    t1 = time.perf_counter()
+    restored, nxt = mgr.restore(like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    mgr.log.close()
+    check(nxt == TRAIN_STEPS, f"T1 restore resumes at {nxt}")
+    diff = [k for k in tr.params
+            if not torch.equal(restored.params[k], tr.params[k])]
+    check(not diff, f"T1 restore differs from the live params in {diff[:3]}")
+    del restored, like
+    torch.cuda.empty_cache()
+
+    batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    state = tr.strategy.init_state(tr.params, tr.tcfg.mezo)
+    torch.cuda.reset_peak_memory_stats()
+    step_s, state = _timed_steps(torch, tr.strategy, tr.model.loss, state,
+                                 batch, tr.tcfg.mezo, 2)
+    step_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(json.dumps({"phase": "T1 train", "losses": tr.losses,
+                      "run_seconds": dt, "restore_seconds": restore_s,
+                      "restore_bit_exact": True, "step_s": step_s,
+                      "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+                      "peak_memory_gib": peak_gb,
+                      "step_peak_memory_gib": step_peak_gb}), flush=True)
+    return tr, state, batch
+
+
+def profile_train(torch, tr, state, batch):
+    """T4: one fused OPT-1.3B step under the profiler."""
+    from repro_torch.core import rng
+
+    def one():
+        tr.strategy.step(tr.model.loss, state, batch, rng.fold_seed(777, 0),
+                         tr.tcfg.mezo)
+    wall_us, by_name = _profiled(torch, one)
+    _profile_line("T4 profile", wall_us, by_name, steps=1)
+
+
+def train_fused_vs_materialized(torch, paths, arch, label, tol):
+    """T2 / T3: the Trainer API with attn_impl="flash", 2 fused steps; the
+    first loss against the materialized one (add_scaled_z through the
+    zo_add kernel, then the unperturbed forward, chunked attention)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import MezoConfig, add_scaled_z, rng
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Trainer, TrainerConfig
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, attn_impl="flash")
+    mcfg = MezoConfig(eps=1e-3, lr=1e-4)
+    tr = Trainer(cfg, TrainerConfig(optimizer="mezo-fused", mezo=mcfg,
+                                    n_steps=2, log_every=1, seed=0,
+                                    device="cuda"),
+                 _batches(cfg, TRAIN_B, TRAIN_S))
+    params = tr.init_params()
+    # the materialized reference on the first step's batch and direction
+    batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    s = rng.fold_seed(rng.fold_seed(0, 0), 0)
+    eps = torch.tensor(mcfg.eps, dtype=torch.float32)
+    chunked = build_model(dataclasses.replace(base, attn_impl="chunked"))
+    with torch.no_grad():
+        lp = chunked.loss(add_scaled_z(params, s, eps), batch)
+        lm = chunked.loss(add_scaled_z(params, s, -eps), batch)
+    mat = float(0.5 * (lp + lm))
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tr.train(params)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    paths[label] = launches
+    _check_launches(f"{label} launches", launches, cfg, 2)
+    err = abs(tr.losses[0] - mat)
+    print(json.dumps({"phase": label, "arch": arch, "losses": tr.losses,
+                      "materialized_loss": mat, "abs_err": err,
+                      "tolerance": tol, "seconds": dt}), flush=True)
+    check(all(math.isfinite(x) for x in tr.losses),
+          f"{label}: losses {tr.losses}")
+    check(err <= tol, f"{label}: fused loss {tr.losses[0]} vs materialized "
+          f"{mat}: {err} > {tol}")
 
 
 def main():
@@ -414,28 +746,46 @@ def main():
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}),
           flush=True)
 
-    # 3. kernels
+    # 3. kernels against their plain versions (T0 for the training pair)
     results: dict = {}
     kernel_zo_add(torch, results)
     kernel_attention(torch, results)
+    kernel_zo_matmul(torch, results)
+    kernel_flash_attention(torch, results)
 
-    # 4. main path
-    paged_argv = main_path(torch, results)
-
-    # 5. where the serving time goes
+    # 4-5. the serving path, and where its time goes
+    paths: dict = {}
+    paged_argv = main_path(torch, paths)
     profile_path(torch, paged_argv)
+
+    # T1 + T4: the training CLI, then one profiled step
+    tr, state, batch = train_main_path(torch, paths)
+    profile_train(torch, tr, state, batch)
+    del tr, state, batch
+    torch.cuda.empty_cache()
+    # T2, T3: flash attention, fused vs materialized
+    train_fused_vs_materialized(torch, paths, "opt-1.3b", "T2 flash",
+                                OPT_FUSED_ATOL)
+    torch.cuda.empty_cache()
+    train_fused_vs_materialized(torch, paths, "roberta-large",
+                                "T3 roberta", ROBERTA_FUSED_ATOL)
 
     # 6. the kernels line, then the result
     replaces = {"zo_add": "src/repro/kernels/zo_perturb.py:90",
                 "flash_decode": "src/repro/kernels/flash_decode.py:57",
-                "flash_prefill": "src/repro/kernels/flash_prefill.py:45"}
+                "flash_prefill": "src/repro/kernels/flash_prefill.py:45",
+                "zo_matmul": "src/repro/kernels/zo_perturb.py:214",
+                "flash_attention": "src/repro/kernels/flash_attention.py:32"}
     kernels = []
-    for name in ("zo_add", "flash_decode", "flash_prefill"):
+    for name, rep in replaces.items():
         r = results[name]
+        by_path = {p: launches[name] for p, launches in paths.items()}
+        total = sum(by_path.values())
+        check(total > 0, f"kernel {name} was launched on no main path")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{name}.cu",
-                        "replaces": replaces[name],
-                        "launches": r["launches"],
+                        "replaces": rep, "launches": total,
+                        "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -1,56 +1,104 @@
-"""The ZO update rule the serving slice replays: ``sgd``.
+"""Composable ZO engine: direction estimators x update rules.
 
-Port of the subset of the JAX package's ``core/engine.py`` that adapter
-replay runs: :class:`MezoConfig`, the shared f32 update tail
-(:func:`_direction_coeffs`, :func:`_apply_direction_updates`,
-:func:`_decay` for unquantized leaves), :func:`_sgd_update` and the
-:data:`SGD` rule. The direction estimators (walk / vmapdir / fused) and
-the other update rules come with later slices.
+Port of the JAX package's ``core/engine.py``. A training step is fully
+described by the scalar pair ``(seed, gs)``, so the step function is a
+product of two choices:
 
-Every coefficient is computed on float32 tensors, never on Python floats:
-float64 arithmetic would fork the last ulp from the JAX package and
-replay would stop being bit-exact.
+* a :class:`DirectionEvaluator` realizes ``L(theta +- eps*z_k)`` for K
+  directions and returns the projected gradients ``gs``:
+
+  - ``walk``    -- sequential walk (perturb / eval / counter-perturb /
+    eval / restore), its three sweeps in place: peak memory is one copy
+    of the parameters, the paper's profile;
+  - ``vmapdir`` -- each direction on a transient perturbed copy (the
+    JAX package vmaps the directions; here they run one after another);
+  - ``fused``   -- the perturbation never touches the parameters: a
+    :class:`~repro_torch.core.perturb_ctx.PerturbCtx` rides into the
+    forward and dense projections compute ``X @ (W + coeff*z)`` through
+    the ``zo_matmul`` kernel;
+
+* an :class:`UpdateRule` turns ``(seed, gs)`` into a parameter update:
+  ``sgd`` (the shared f32 seed-replay tail) or ``momentum`` (truncated
+  seed replay of a window of ``(seed, gs, coeffs)`` rows). ``stale-sgd``
+  is registered under its name and raises until the fleet slice.
+
+Every coefficient is computed on float32 tensors on the host, never on
+Python floats: float64 arithmetic would fork the last ulp from the JAX
+package and replay would stop being bit-exact. ``_direction_coeffs``
+multiplies by the f32 reciprocal of K, and ``gs = (l+ - l-) / (2 eps)``
+is a true f32 division of two tensors on one device (a CUDA division by
+a host scalar would multiply by its reciprocal instead).
+
+Seeds are host ints and eps a host f32, so no kernel launch waits for
+the device; ``gs`` comes to the host once a step (the update's
+coefficients and the replay log need it there), the loss stays on the
+device until the trainer syncs it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import rng as zrng
 from repro_torch.core.perturb import add_scaled_z
+from repro_torch.core.perturb_ctx import PerturbCtx
 
 _F32 = torch.float32
+Params = Dict[str, torch.Tensor]
+# (params, batch) -> scalar; the fused estimator also passes ``perturb=``
+LossFn = Callable[..., torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# configs / aux / state
 
 
 @dataclasses.dataclass(frozen=True)
 class MezoConfig:
     """The JAX package's MezoConfig, field for field. ``use_kernel`` has
-    no effect in the port: each leaf's device decides between the
-    ``zo_add`` kernel (CUDA) and its plain version (CPU)."""
+    no effect in the port: each tensor's device decides between the
+    kernels (CUDA) and their plain versions (CPU)."""
     eps: float = 1e-3
     lr: float = 1e-6
     n_directions: int = 1          # K: SPSA directions averaged per step
     dist: str = "rademacher"       # or "gaussian" (MeZO-repo default)
     use_kernel: bool = False       # no effect here (see the docstring)
-    momentum: float = 0.0          # ZO momentum (training slice)
-    momentum_window: int = 8
+    momentum: float = 0.0          # ZO momentum via truncated seed replay
+    momentum_window: int = 8       # directions of history to replay
     weight_decay: float = 0.0
     staleness_decay: float = 0.8   # async fleet (fleet slice)
 
 
+@dataclasses.dataclass
+class MezoAux:
+    loss: torch.Tensor             # mean of (l+ + l-)/2, on the device
+    gs: torch.Tensor               # (K,) f32 on the host -- the replay log
+    seed: int                      # uint32 step seed -- the replay log
+    grad_norm_est: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True)
-class UpdateRule:
-    """Turns a logged ``(seed, gs)`` pair into a parameter update."""
-    name: str
-    init_fn: Callable[[MezoConfig], Any]
-    update_fn: Callable[..., Tuple[Any, Any]]
+class TrainState:
+    """Everything a training step consumes and produces: the flat
+    parameter dict, the completed-step count, and the update rule's state
+    (``{}`` for sgd, the momentum window of host tensors). A step whose
+    estimator donates (walk, fused) updates ``params`` in place: the
+    input state is consumed, as JAX's donated buffers are."""
+    params: Params
+    step: int
+    opt: Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# the shared f32 update tail
 
 
 def _f32(value, default: float) -> torch.Tensor:
-    """f32 scalar from a value or, for ``None``, the config constant."""
+    """f32 scalar on the host from a value or, for ``None``, the config
+    constant."""
     return torch.as_tensor(default if value is None else value, dtype=_F32)
 
 
@@ -65,24 +113,126 @@ def _direction_coeffs(kk: int, lr, direction_mask) -> torch.Tensor:
     return -lr * m / torch.clamp(m.sum(), min=1.0)
 
 
-def _apply_direction_updates(params, seed, gs, coeffs, cfg: MezoConfig):
+def _apply_direction_updates(params, seed, gs, coeffs, cfg: MezoConfig,
+                             inplace: bool = False):
     """theta += sum_k coeffs[k] * gs[k] * z_k, z_k regenerated per k."""
     for k in range(gs.shape[0]):
         params = add_scaled_z(params, zrng.fold_seed(seed, k),
-                              coeffs[k] * gs[k], dist=cfg.dist)
+                              coeffs[k] * gs[k], dist=cfg.dist,
+                              inplace=inplace)
     return params
 
 
-def _decay(params, wd_coeff):
+def _decay(params, wd_coeff, inplace: bool = False):
     """Weight decay ``p * (1 - wd)`` in f32, rounded to each leaf's dtype."""
     if wd_coeff is None:
         return params
     keep = (1.0 - torch.as_tensor(wd_coeff, dtype=_F32))
-    out = {}
+    out = params if inplace else {}
     for path, p in params.items():
-        out[path] = ((p.to(_F32) * keep.to(p.device)).to(p.dtype)
-                     if p.is_floating_point() else p)
+        if not p.is_floating_point():
+            out[path] = p
+            continue
+        new = (p.to(_F32) * keep.to(p.device)).to(p.dtype)
+        out[path] = p.copy_(new) if inplace else new
     return out
+
+
+# ---------------------------------------------------------------------------
+# direction evaluators
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectionEvaluator:
+    """How ``theta +- eps*z`` is realized for the 2K loss evaluations.
+
+    eval_fn: (loss_fn, params, batch, seed, cfg, eps=None)
+    -> (params, gs, ls), gs and ls (K,) f32 on the loss's device.
+    donate: the step consumes its input state (in-place updates).
+    """
+    name: str
+    eval_fn: Callable[..., Tuple[Params, torch.Tensor, torch.Tensor]]
+    donate: bool
+
+
+def _projected(lp, lm, eps):
+    """``((l+ - l-) / (2 eps), (l+ + l-) / 2)``: a true f32 division, the
+    divisor a tensor on the losses' device."""
+    den = (2.0 * eps).to(lp.device)
+    return (lp - lm) / den, 0.5 * (lp + lm)
+
+
+def _eval_walk(loss_fn: LossFn, params: Params, batch: Any, seed,
+               cfg: MezoConfig, eps=None):
+    """Sequential in-place walk: peak memory = params + one forward."""
+    eps = _f32(eps, cfg.eps)
+    gs, ls = [], []
+    for k in range(cfg.n_directions):
+        s = zrng.fold_seed(seed, k)
+        add_scaled_z(params, s, eps, dist=cfg.dist, inplace=True)
+        lp = loss_fn(params, batch)
+        add_scaled_z(params, s, -2.0 * eps, dist=cfg.dist, inplace=True)
+        lm = loss_fn(params, batch)
+        # restore to the base point for the next direction
+        add_scaled_z(params, s, eps, dist=cfg.dist, inplace=True)
+        g, l = _projected(lp, lm, eps)
+        gs.append(g)
+        ls.append(l)
+    return params, torch.stack(gs), torch.stack(ls)
+
+
+def _eval_vmapdir(loss_fn: LossFn, params: Params, batch: Any, seed,
+                  cfg: MezoConfig, eps=None):
+    """Each direction on a transient perturbed copy of the parameters
+    (the JAX package evaluates them concurrently under ``vmap``)."""
+    eps = _f32(eps, cfg.eps)
+    gs, ls = [], []
+    for k in range(cfg.n_directions):
+        s = zrng.fold_seed(seed, k)
+        lp = loss_fn(add_scaled_z(params, s, eps, dist=cfg.dist), batch)
+        lm = loss_fn(add_scaled_z(params, s, -eps, dist=cfg.dist), batch)
+        g, l = _projected(lp, lm, eps)
+        gs.append(g)
+        ls.append(l)
+    return params, torch.stack(gs), torch.stack(ls)
+
+
+def _eval_fused(loss_fn: LossFn, params: Params, batch: Any, seed,
+                cfg: MezoConfig, eps=None):
+    """Fused perturbed forward: 0 parameter sweeps per direction.
+    ``loss_fn`` must accept a ``perturb=`` keyword; both sides of each
+    direction see exactly the z-fields ``add_scaled_z`` would apply."""
+    eps = _f32(eps, cfg.eps)
+    gs, ls = [], []
+    for k in range(cfg.n_directions):
+        ctx = PerturbCtx(seed=zrng.fold_seed(seed, k), coeff=eps,
+                         dist=cfg.dist)
+        lp = loss_fn(params, batch, perturb=ctx)
+        lm = loss_fn(params, batch,
+                     perturb=dataclasses.replace(ctx, coeff=-eps))
+        g, l = _projected(lp, lm, eps)
+        gs.append(g)
+        ls.append(l)
+    return params, torch.stack(gs), torch.stack(ls)
+
+
+# ---------------------------------------------------------------------------
+# update rules
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateRule:
+    """Turns a logged ``(seed, gs)`` pair into a parameter update.
+
+    init_fn:   cfg -> opt state.
+    update_fn: (params, opt, seed, gs, direction_mask, cfg, lr=None,
+               inplace=False) -> (params, opt). Consumes only scalars
+               beyond params: the checkpoint manager's and the adapter
+               store's replay primitive (zero forward passes).
+    """
+    name: str
+    init_fn: Callable[[MezoConfig], Any]
+    update_fn: Callable[..., Tuple[Any, Any]]
 
 
 def _sgd_init(cfg: MezoConfig):
@@ -90,37 +240,225 @@ def _sgd_init(cfg: MezoConfig):
 
 
 def _sgd_update(params, opt, seed, gs, direction_mask, cfg: MezoConfig,
-                lr=None):
+                lr=None, inplace: bool = False):
     seed = zrng._u32(seed)
     gs = torch.as_tensor(gs, dtype=_F32).reshape(-1)
     lr = _f32(lr, cfg.lr)
     coeffs = _direction_coeffs(gs.shape[0], lr, direction_mask)
     if cfg.weight_decay:
         params = _decay(params, lr * torch.tensor(cfg.weight_decay,
-                                                  dtype=_F32))
-    return _apply_direction_updates(params, seed, gs, coeffs, cfg), opt
+                                                  dtype=_F32), inplace)
+    return _apply_direction_updates(params, seed, gs, coeffs, cfg,
+                                    inplace), opt
 
 
-SGD = UpdateRule(name="sgd", init_fn=_sgd_init, update_fn=_sgd_update)
+def momentum_history_init(cfg: MezoConfig):
+    """Empty truncated-replay window: M rows of (seed, gs, coeffs), host
+    tensors. Zero rows are exact no-ops (g = 0 adds 0 * z)."""
+    m, k = cfg.momentum_window, cfg.n_directions
+    return {"seeds": torch.zeros((m,), dtype=torch.int64),
+            "gs": torch.zeros((m, k), dtype=_F32),
+            "coeffs": torch.zeros((m, k), dtype=_F32)}
 
-_LATER = {"momentum": "the training slice (fused MeZO)",
-          "stale-sgd": "the fleet slice"}
+
+def _momentum_update(params, opt, seed, gs, direction_mask,
+                     cfg: MezoConfig, lr=None, inplace: bool = False):
+    """ZO momentum via truncated seed replay: the window keeps each
+    step's own f32 coefficients, so replaying an entry applies exactly
+    that step's sgd update scaled by ``(1 - beta) * beta^age``. Memory:
+    M * (2K + 1) scalars; compute: M * K regeneration sweeps a step."""
+    seed = zrng._u32(seed)
+    gs = torch.as_tensor(gs, dtype=_F32).reshape(-1)
+    lr = _f32(lr, cfg.lr)
+    kk = gs.shape[0]
+    beta = torch.tensor(cfg.momentum, dtype=_F32)
+    coeffs = _direction_coeffs(kk, lr, direction_mask)
+
+    # roll the window: newest last
+    seeds_h = torch.cat([torch.as_tensor(opt["seeds"]).to(torch.int64)[1:],
+                         torch.tensor([seed], dtype=torch.int64)])
+    gs_h = torch.cat([torch.as_tensor(opt["gs"], dtype=_F32)[1:], gs[None]])
+    cf_h = torch.cat([torch.as_tensor(opt["coeffs"], dtype=_F32)[1:],
+                      coeffs[None]])
+
+    m = seeds_h.shape[0]
+    ages = torch.arange(m - 1, -1, -1, dtype=_F32)
+    weights = ((1.0 - beta) * beta ** ages if cfg.momentum
+               else torch.where(ages == 0, 1.0, 0.0).to(_F32))
+
+    if cfg.weight_decay:
+        params = _decay(params, lr * torch.tensor(cfg.weight_decay,
+                                                  dtype=_F32), inplace)
+    for j in range(m):
+        s_j = int(seeds_h[j])
+        for k in range(kk):
+            params = add_scaled_z(params, zrng.fold_seed(s_j, k),
+                                  weights[j] * cf_h[j, k] * gs_h[j, k],
+                                  dist=cfg.dist, inplace=inplace)
+    return params, {"seeds": seeds_h, "gs": gs_h, "coeffs": cf_h}
+
+
+def _stale_sgd_update(*args, **kwargs):
+    raise NotImplementedError("update rule 'stale-sgd' is not ported yet; "
+                              "it lands with the fleet slice")
+
+
+# ---------------------------------------------------------------------------
+# the composed strategy
+
+
+@dataclasses.dataclass(frozen=True)
+class ZOStrategy:
+    """One estimator x update pairing."""
+    estimator: DirectionEvaluator
+    update: UpdateRule
+
+    @property
+    def name(self) -> str:
+        return f"{self.estimator.name}+{self.update.name}"
+
+    def init_state(self, params: Params, cfg: MezoConfig,
+                   step: int = 0) -> TrainState:
+        return TrainState(params=params, step=int(step),
+                          opt=self.update.init_fn(cfg))
+
+    def step(self, loss_fn: LossFn, state: TrainState, batch: Any, seed,
+             cfg: MezoConfig, direction_mask=None
+             ) -> Tuple[TrainState, MezoAux]:
+        seed = zrng._u32(seed)
+        params, gs, ls = self.estimator.eval_fn(
+            loss_fn, state.params, batch, seed, cfg, eps=_f32(None, cfg.eps))
+        gs = gs.to("cpu")                 # the one host sync of a step
+        params, opt = self.update.update_fn(
+            params, state.opt, seed, gs, direction_mask, cfg,
+            lr=_f32(None, cfg.lr), inplace=self.estimator.donate)
+        aux = MezoAux(loss=ls.mean(), gs=gs, seed=seed,
+                      grad_norm_est=gs.abs().mean())
+        return TrainState(params=params, step=state.step + 1, opt=opt), aux
+
+    def run_chunk(self, loss_fn: LossFn, state: TrainState, batches: Any,
+                  base_seed, cfg: MezoConfig
+                  ) -> Tuple[TrainState, MezoAux]:
+        """Run N steps over a batch dict stacked on a leading N axis.
+        Step seeds are ``fold_seed(base_seed, state.step)`` -- the
+        Trainer's derivation, so a chunked run is seed- and
+        replay-log-compatible with a stepwise one. Returns the final
+        state and a MezoAux whose fields gain a leading N axis."""
+        n = next(iter(batches.values())).shape[0]
+        auxes = []
+        for i in range(n):
+            batch = {k: v[i] for k, v in batches.items()}
+            state, aux = self.step(loss_fn, state, batch,
+                                   zrng.fold_seed(base_seed, state.step),
+                                   cfg)
+            auxes.append(aux)
+        return state, MezoAux(
+            loss=torch.stack([a.loss for a in auxes]),
+            gs=torch.stack([a.gs for a in auxes]),
+            seed=torch.tensor([a.seed for a in auxes], dtype=torch.int64),
+            grad_norm_est=torch.stack([a.grad_norm_est for a in auxes]))
+
+
+# ---------------------------------------------------------------------------
+# the strategy registry (names -> composed strategies)
+
+
+_ESTIMATORS: Dict[str, DirectionEvaluator] = {}
+_UPDATE_RULES: Dict[str, UpdateRule] = {}
+_STRATEGY_ALIASES: Dict[str, Tuple[str, str]] = {}
+_STRATEGY_CACHE: Dict[Tuple[str, str], ZOStrategy] = {}
+_NOT_PORTED = {"stale-sgd": "the fleet slice"}
+
+
+def register_estimator(e: DirectionEvaluator) -> DirectionEvaluator:
+    _ESTIMATORS[e.name] = e
+    return e
+
+
+def register_update_rule(u: UpdateRule) -> UpdateRule:
+    _UPDATE_RULES[u.name] = u
+    return u
+
+
+def register_strategy(name: str, estimator: str, update: str) -> None:
+    """Bind a short name (e.g. ``"mezo-fused"``) to a pairing."""
+    _STRATEGY_ALIASES[name] = (estimator, update)
+
+
+def estimator_names():
+    return sorted(_ESTIMATORS)
+
+
+def update_rule_names():
+    return sorted(_UPDATE_RULES)
+
+
+def strategy_names():
+    return sorted(_STRATEGY_ALIASES)
 
 
 def update_rule(name: str) -> UpdateRule:
-    """Resolve an update rule by name; only ``sgd`` is ported so far."""
-    if name == "sgd":
-        return SGD
-    if name in _LATER:
+    """Resolve an update rule by name; one not ported yet raises."""
+    if name in _NOT_PORTED:
         raise NotImplementedError(
             f"update rule {name!r} is not ported yet; it lands with "
-            f"{_LATER[name]}")
-    raise ValueError(f"unknown update rule {name!r}; known: "
-                     f"{['sgd', *_LATER]}")
+            f"{_NOT_PORTED[name]}")
+    if name not in _UPDATE_RULES:
+        raise ValueError(f"unknown update rule {name!r}; registered: "
+                         f"{update_rule_names()}")
+    return _UPDATE_RULES[name]
 
 
 def check_rule(rule: Optional[UpdateRule]) -> UpdateRule:
-    """``None`` -> SGD; any other rule than SGD raises (not ported)."""
-    if rule is None or rule is SGD:
+    """``None`` -> SGD; a rule not ported yet raises."""
+    if rule is None:
         return SGD
     return update_rule(getattr(rule, "name", str(rule)))
+
+
+def build_strategy(estimator: str = "walk", update: str = "sgd"
+                   ) -> ZOStrategy:
+    """Compose any estimator x update pairing by name (cached)."""
+    if estimator not in _ESTIMATORS:
+        raise ValueError(
+            f"unknown direction estimator {estimator!r}; "
+            f"registered: {estimator_names()}")
+    rule = update_rule(update)
+    key = (estimator, update)
+    if key not in _STRATEGY_CACHE:
+        _STRATEGY_CACHE[key] = ZOStrategy(
+            estimator=_ESTIMATORS[estimator], update=rule)
+    return _STRATEGY_CACHE[key]
+
+
+def get_strategy(name: str) -> ZOStrategy:
+    """Resolve a registered strategy name (``--optimizer`` values)."""
+    if name not in _STRATEGY_ALIASES:
+        raise ValueError(
+            f"unknown ZO strategy {name!r}; registered strategies: "
+            f"{strategy_names()} (any estimator x update pairing is "
+            f"constructible via build_strategy: {estimator_names()} x "
+            f"{update_rule_names()})")
+    return build_strategy(*_STRATEGY_ALIASES[name])
+
+
+WALK = register_estimator(DirectionEvaluator(
+    name="walk", eval_fn=_eval_walk, donate=True))
+VMAPDIR = register_estimator(DirectionEvaluator(
+    name="vmapdir", eval_fn=_eval_vmapdir, donate=False))
+FUSED = register_estimator(DirectionEvaluator(
+    name="fused", eval_fn=_eval_fused, donate=True))
+
+SGD = register_update_rule(UpdateRule(
+    name="sgd", init_fn=_sgd_init, update_fn=_sgd_update))
+STALE_SGD = register_update_rule(UpdateRule(
+    name="stale-sgd", init_fn=_sgd_init, update_fn=_stale_sgd_update))
+MOMENTUM = register_update_rule(UpdateRule(
+    name="momentum", init_fn=momentum_history_init,
+    update_fn=_momentum_update))
+
+register_strategy("mezo", "walk", "sgd")
+register_strategy("mezo-parallel", "vmapdir", "sgd")
+register_strategy("mezo-fused", "fused", "sgd")
+register_strategy("mezo-momentum", "vmapdir", "momentum")
+register_strategy("mezo-fused-momentum", "fused", "momentum")

@@ -43,20 +43,23 @@ def leaf_salts(params: Params) -> Dict[str, int]:
 
 
 def add_scaled_z(params: Params, seed, coeff, dist: str = "rademacher",
-                 use_kernel: bool = False) -> Params:
+                 use_kernel: bool = False, inplace: bool = False) -> Params:
     """theta + coeff * z(seed), leaf-wise, z regenerated (never stored).
 
     ``coeff`` is rounded to float32 once, as the JAX package does.
     ``use_kernel`` mirrors the JAX signature and has no effect: the
-    leaf's device picks the kernel or the plain version.
+    leaf's device picks the kernel or the plain version. ``inplace``
+    writes every leaf in place and returns ``params`` itself (the walk
+    estimator's sweeps: peak memory stays one copy of the parameters,
+    what the JAX package gets by donating them).
     """
     del use_kernel
     coeff = torch.as_tensor(coeff, dtype=torch.float32)
-    out = {}
+    out = params if inplace else {}
     for path, leaf in params.items():
         if not leaf.is_floating_point():
             out[path] = leaf
             continue
         out[path] = kops.zo_add(leaf, seed, zrng.leaf_salt(path), coeff,
-                                dist=dist)
+                                dist=dist, out=leaf if inplace else None)
     return out

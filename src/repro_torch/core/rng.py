@@ -148,3 +148,26 @@ def z_field(seed, salt: int, shape, dtype=torch.float32,
         return gaussian_field(seed, salt, shape, dtype, offsets,
                               prime_offset, base, device)
     raise ValueError(f"unknown zo distribution: {dist}")
+
+
+def z_rows(base, row_ids, n_cols: int, dtype=torch.float32,
+           dist: str = "rademacher", prime_offset: int = 0):
+    """z rows of an ``(R, n_cols)`` leaf gathered at ``row_ids``.
+
+    Equal element for element to ``z_field(..., (R, n_cols))[row_ids]``
+    (``base`` pre-hashed, as ``z_field(base=...)`` takes it) without
+    building the whole table: an embedding's perturbation costs
+    O(tokens * d), not O(vocab * d). ``row_ids`` (an int tensor) may have
+    any shape; the result appends a trailing ``n_cols`` axis on the ids'
+    device.
+    """
+    ids = torch.as_tensor(row_ids).to(torch.int64) & _M
+    h = avalanche(_u32(base) ^ ((ids * _DIM_PRIMES[prime_offset]) & _M))
+    cols = torch.arange(n_cols, dtype=torch.int64, device=ids.device)
+    h = avalanche(h[..., None]
+                  ^ ((cols * _DIM_PRIMES[prime_offset + 1]) & _M))
+    if dist == "rademacher":
+        return _bits_rademacher(h, dtype)
+    if dist == "gaussian":
+        return _bits_gaussian(h, dtype)
+    raise ValueError(f"unknown zo distribution: {dist}")

@@ -1,0 +1,158 @@
+// zo_matmul: Y = X @ (W + coeff * z(seed)) for row-major X (M, K) and
+// W (K, N), f32 accumulation, Y in X's dtype (float32 or bfloat16).
+//
+// Replaces the Pallas kernel _zo_matmul_kernel (src/repro/kernels/
+// zo_perturb.py:214, launched by zo_matmul at :292): every dense
+// projection of the fused MeZO perturbed forward (Q/K/V/O, the MLP, the
+// LM head), so the perturbation never exists in device memory.
+//
+// Bound: operations. The reference dots true f32 (preferred_element_type
+// f32 on an f32 perturbed tile), so tensor cores (TF32 or bf16 inputs)
+// are out and the peak is the f32 SIMT rate; at the training shapes
+// (M = B * S = 1024, K >= 1024) the product is far above the bytes line.
+// The design: a classic SIMT tiling, a 128 x 128 output block per
+// 256-thread block, each thread an 8 x 8 register tile, the K loop in
+// steps of 8 through shared memory. While the W tile is staged it is
+// perturbed: w' = __fadd_rn(w, __fmul_rn(c, z)) with z hashed at the
+// ABSOLUTE (k, n) coordinates (zo_hash.cuh), so w' is the plain
+// version's f32 value bit for bit with Rademacher z. Each thread hashes
+// one row of the tile once and folds four columns. The hash of a weight
+// is repeated once per 128-row block of X (8 times at M = 1024). Edges
+// are masked in M, K and N: OPT's LM head has N = 50272 and M is any
+// batch * sequence.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "zo_hash.cuh"
+
+namespace repro_torch {
+namespace {
+
+constexpr int kBM = 128, kBN = 128, kBK = 8, kTM = 8, kTN = 8;
+constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
+
+__device__ __forceinline__ float mm_f32(float x) { return x; }
+__device__ __forceinline__ float mm_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T mm_out(float x);
+template <>
+__device__ __forceinline__ float mm_out<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 mm_out<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+zo_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 T* __restrict__ y, int m, int k, int n, uint32_t base,
+                 int prime_offset, float coeff, int dist) {
+  __shared__ __align__(16) float xs[kBK][kBM];  // X tile, transposed
+  __shared__ __align__(16) float ws[kBK][kBN];  // perturbed W tile
+  const int tid = threadIdx.x;
+  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
+  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kBN;
+  // X loads: row m0 + tid / 2, columns (tid % 2) * 4 .. + 3 of the tile
+  const int xr = tid / 2, xc = (tid % 2) * 4;
+  // W loads: row tid / 32 of the tile, columns tid % 32 + 32 * i
+  const int wr = tid / 32, wc = tid % 32;
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < k; k0 += kBK) {
+    const int64_t gm = m0 + xr;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gk = k0 + xc + i;
+      xs[xc + i][xr] = (gm < m && gk < k)
+                           ? mm_f32(x[gm * k + gk]) : 0.0f;
+    }
+    const int gk = k0 + wr;
+    const uint32_t h_row =
+        fold(base, static_cast<uint32_t>(gk), prime_offset);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = wc + 32 * i;
+      const int64_t gn = n0 + c;
+      float v = 0.0f;
+      if (gk < k && gn < n) {
+        const float z = z_from_bits(
+            fold(h_row, static_cast<uint32_t>(gn), prime_offset + 1), dist);
+        v = __fadd_rn(mm_f32(w[static_cast<int64_t>(gk) * n + gn]),
+                      __fmul_rn(coeff, z));
+      }
+      ws[wr][c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[kTM], b[kTN];
+      const float4* ap = reinterpret_cast<const float4*>(&xs[kk][ty * kTM]);
+      const float4* bp = reinterpret_cast<const float4*>(&ws[kk][tx * kTN]);
+      float4 a0 = ap[0], a1 = ap[1], b0 = bp[0], b1 = bp[1];
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int64_t gm = m0 + ty * kTM + i;
+    if (gm >= m) break;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int64_t gn = n0 + tx * kTN + j;
+      if (gn < n) y[gm * n + gn] = mm_out<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+void launch(const void* x, const void* w, void* y, int m, int k, int n,
+            uint32_t base, int prime_offset, float coeff, int dist,
+            cudaStream_t st) {
+  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  zo_matmul_kernel<T><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+      m, k, n, base, prime_offset, coeff, dist);
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+// x (M, K), w (K, N), y (M, N): contiguous, one dtype (0 float32,
+// 1 bfloat16). base: the pre-hashed z base (leaf_base, plus any layer
+// fold); prime_offset: primes of (k, n) are P[po], P[po + 1]. dist 0
+// Rademacher, 1 Gaussian. Returns cudaGetLastError() after the launch.
+extern "C" int repro_zo_matmul(const void* x, const void* w, void* y,
+                               int dtype, int m, int k, int n, uint32_t base,
+                               int prime_offset, float coeff, int dist,
+                               void* stream) {
+  using namespace repro_torch;
+  if (m <= 0 || k <= 0 || n <= 0 || prime_offset < 0 ||
+      prime_offset + 2 > kMaxRank || (dist != 0 && dist != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    launch<float>(x, w, y, m, k, n, base, prime_offset, coeff, dist, st);
+  else if (dtype == 1)
+    launch<__nv_bfloat16>(x, w, y, m, k, n, base, prime_offset, coeff, dist,
+                          st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -33,7 +33,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 #: launches of each kernel since the last reset (a plain int per kernel)
 LAUNCHES: Dict[str, int] = {"zo_add": 0, "flash_decode": 0,
-                            "flash_prefill": 0}
+                            "flash_prefill": 0, "zo_matmul": 0,
+                            "flash_attention": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +46,10 @@ _SIGNATURES = {
                            _I, ctypes.c_float, _P),
     "repro_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, ctypes.c_float, _P),
+    "repro_zo_matmul": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I,
+                        ctypes.c_float, _I, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, ctypes.c_float, _P),
 }
 
 _lock = threading.Lock()

@@ -9,13 +9,14 @@ counted in :data:`LAUNCHES` (``LAUNCHES["zo_add"]`` and so on).
 
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import zo_perturb as _zo
 from repro_torch.kernels.build import LAUNCHES, reset_launches
 
-__all__ = ["LAUNCHES", "reset_launches", "zo_add", "paged_decode_attn",
-           "paged_prefill_attn"]
+__all__ = ["LAUNCHES", "reset_launches", "zo_add", "zo_matmul",
+           "flash_attention", "paged_decode_attn", "paged_prefill_attn"]
 
 
 def _on_cpu(kernel: str, t) -> bool:
@@ -27,14 +28,35 @@ def _on_cpu(kernel: str, t) -> bool:
 
 
 def zo_add(w, seed, salt: int, coeff, dist: str = "rademacher",
-           prime_offset: int = 0, prehashed: bool = False):
+           prime_offset: int = 0, prehashed: bool = False, out=None):
     """``w + coeff * z(seed, salt)`` in ``w``'s dtype, for a leaf of any
-    rank (the kernel masks its own edges; no alignment gate)."""
+    rank (the kernel masks its own edges; no alignment gate). ``out``
+    (may be ``w`` itself) receives the result."""
     if _on_cpu("zo_add", w):
-        return _zo.zo_add_ref(w, seed, salt, coeff, dist, prime_offset,
-                              prehashed)
+        res = _zo.zo_add_ref(w, seed, salt, coeff, dist, prime_offset,
+                             prehashed)
+        return res if out is None else out.copy_(res)
     return _zo.zo_add_cuda(w, seed, salt, coeff, dist, prime_offset,
-                           prehashed)
+                           prehashed, out=out)
+
+
+def zo_matmul(x, w, seed, salt: int, coeff, dist: str = "rademacher",
+              prime_offset: int = 0, prehashed: bool = False):
+    """``x @ (w + coeff * z(seed, salt))`` for x (M, K), w (K, N): f32
+    perturbed weight, f32 dot, result in ``x``'s dtype (the Pallas
+    kernel's arithmetic; any shape, no alignment gate)."""
+    if _on_cpu("zo_matmul", x):
+        return _zo.zo_matmul_ref(x, w, seed, salt, coeff, dist,
+                                 prime_offset, prehashed)
+    return _zo.zo_matmul_cuda(x, w, seed, salt, coeff, dist, prime_offset,
+                              prehashed)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Forward-only GQA attention, q (B, S, H, hd), k/v (B, T, KV, hd)."""
+    if _on_cpu("flash_attention", q):
+        return _fa.flash_attention_ref(q, k, v, causal)
+    return _fa.flash_attention_cuda(q, k, v, causal)
 
 
 def paged_decode_attn(q, k_pages, v_pages, pages, pos):

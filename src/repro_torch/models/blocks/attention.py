@@ -25,9 +25,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.blocks.base import BlockType, register_block
 
 
-def _apply(cfg, p, x, rc, causal=None):
+def _apply(cfg, p, x, rc, causal=None, ctx=None):
     y = L.attn_apply(cfg, p, x, positions=rc.positions, kv_mask=rc.kv_mask,
-                     causal=causal)
+                     causal=causal, ctx=ctx)
     return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -3,7 +3,7 @@
 Port of the JAX package's ``models/blocks/base.py``. A block implements,
 over plain param dicts (one layer's slice):
 
-  apply(cfg, p, x, rc)               -> (y, aux)        (full sequence)
+  apply(cfg, p, x, rc, ctx=None)     -> (y, aux)        (full sequence)
   state_spec(cfg, bsz, max_len, dt)  -> {name: (shape, dtype)}
   prefill(cfg, p, state, x, rc)      -> (y, new_state)  (multi-token)
   decode_step(cfg, p, state, x, rc)  -> (y, new_state)  (one token)
@@ -35,7 +35,7 @@ class RunCtx:
 @dataclasses.dataclass(frozen=True)
 class BlockType:
     name: str
-    apply: Callable                      # (cfg, p, x, rc, **opts)
+    apply: Callable                      # (cfg, p, x, rc, ctx=, **opts)
     state_spec: Optional[Callable] = None
     prefill: Optional[Callable] = None   # (cfg, p, state, x, rc, **opts)
     decode_step: Optional[Callable] = None

@@ -1,15 +1,21 @@
 """Shared neural layers: norms, RoPE, attention (GQA/MQA), MLPs, embedding.
 
-Port of the JAX package's ``models/layers.py`` without the ``ctx``
-(fused perturbation) arguments, which belong to the training slice.
+Port of the JAX package's ``models/layers.py``.
 
 Conventions:
   * params are nested dicts of tensors, keyed as in the JAX param tree
     (``p["wq"]["w"]``), one layer's slice of the stacked leaves at a time;
   * activations flow in the param dtype (bf16 at full size), softmax and
     norm math in f32;
-  * attention here is the plain dense path the JAX package leaves to
-    XLA; the paged kernels live in ``repro_torch.kernels``.
+  * every parameterized apply-fn takes an optional ``ctx``
+    (:class:`repro_torch.core.perturb_ctx.PerturbCtx`, scoped to its
+    param sub-dict). ``ctx=None`` is the plain forward; with a ctx, dense
+    weights compute ``X @ (W + coeff*z)`` through the ``zo_matmul``
+    kernel and the other leaves add a transient ``coeff*z`` -- the
+    perturbed forward of the fused MeZO step;
+  * attention is the plain dense path the JAX package leaves to XLA, or
+    with ``attn_impl="flash"`` the ``flash_attention`` kernel; the paged
+    kernels live in ``repro_torch.kernels``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,9 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.perturb_ctx import sub as _sub
+from repro_torch.kernels import ops as kops
 
 _NEG_INF = -1e30
 
@@ -47,7 +56,9 @@ def layernorm(x, scale, bias, eps=1e-5):
             + bias.to(torch.float32)).to(x.dtype)
 
 
-def norm_apply(cfg, p, x):
+def norm_apply(cfg, p, x, ctx=None):
+    if ctx is not None:
+        p = {k: ctx.perturb(k, v) for k, v in p.items()}
     if cfg.norm == "layernorm":
         return layernorm(x, p["scale"], p["bias"])
     return rmsnorm(x, p["scale"])
@@ -90,10 +101,12 @@ def apply_rope(x, cos_sin):
 # dense projections
 
 
-def dense(p, x):
-    y = x @ p["w"]
+def dense(p, x, ctx=None):
+    """ctx=None is the plain forward; with a ctx the perturbation fuses
+    into the matmul (``PerturbCtx.matmul``)."""
+    y = x @ p["w"] if ctx is None else ctx.matmul(x, p["w"], "w")
     if "b" in p:
-        y = y + p["b"]
+        y = y + (p["b"] if ctx is None else ctx.perturb("b", p["b"]))
     return y
 
 
@@ -155,22 +168,27 @@ def attention(q, k, v, *, causal: bool, q_offset=0,
     return out.reshape(b, s, h, hd)
 
 
-def attn_project_qkv(cfg, p, x):
+def attn_project_qkv(cfg, p, x, ctx=None):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = dense(p["wq"], x, _sub(ctx, "wq")).reshape(b, s, cfg.n_heads, hd)
+    k = dense(p["wk"], x, _sub(ctx, "wk")).reshape(b, s, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], x, _sub(ctx, "wv")).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
+        qn = p["q_norm"] if ctx is None else ctx.perturb("q_norm",
+                                                         p["q_norm"])
+        kn = p["k_norm"] if ctx is None else ctx.perturb("k_norm",
+                                                         p["k_norm"])
+        q = rmsnorm(q, qn)
+        k = rmsnorm(k, kn)
     return q, k, v
 
 
-def attn_apply(cfg, p, x, *, positions=None, kv_mask=None, causal=None):
+def attn_apply(cfg, p, x, *, positions=None, kv_mask=None, causal=None,
+               ctx=None):
     """Self-attention over x: (B, S, D). positions: (B, S) or None."""
     b, s, _ = x.shape
-    q, k, v = attn_project_qkv(cfg, p, x)
+    q, k, v = attn_project_qkv(cfg, p, x, ctx)
     if cfg.pos == "rope":
         pos = (positions if positions is not None
                else torch.arange(s, device=x.device)[None])
@@ -179,48 +197,60 @@ def attn_apply(cfg, p, x, *, positions=None, kv_mask=None, causal=None):
         q, k = apply_rope(q, cs), apply_rope(k, cs)
     causal = cfg.causal if causal is None else causal
     if cfg.attn_impl == "flash" and kv_mask is None:
-        raise NotImplementedError(
-            "attn_impl='flash' needs the flash_attention kernel, which "
-            "lands with the training slice")
-    out = attention(q, k, v, causal=causal, kv_mask=kv_mask,
-                    chunk=cfg.attn_chunk)
-    return dense(p["wo"], out.reshape(b, s, -1))
+        out = kops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal)
+    else:
+        out = attention(q, k, v, causal=causal, kv_mask=kv_mask,
+                        chunk=cfg.attn_chunk)
+    return dense(p["wo"], out.reshape(b, s, -1), _sub(ctx, "wo"))
 
 
 # ---------------------------------------------------------------------------
 # MLPs
 
 
-def mlp_apply(cfg, p, x):
+def mlp_apply(cfg, p, x, ctx=None):
     if cfg.act in ("swiglu", "geglu"):
-        # gated w_in is an interleaved (D, F, 2) leaf
-        h = torch.einsum("...d,dfg->...fg", x, p["w_in"]["w"])
+        # gated w_in is an interleaved (D, F, 2) leaf: its z-field spans 3
+        # dims, so the 2-D zo_matmul does not apply -- transient perturb
+        w_in = p["w_in"]["w"] if ctx is None else \
+            ctx.perturb("w_in/w", p["w_in"]["w"])
+        h = torch.einsum("...d,dfg->...fg", x, w_in)
         u, g = h[..., 0], h[..., 1]
         gate = (F.silu(g) if cfg.act == "swiglu"
                 else F.gelu(g, approximate="tanh"))
         h = u * gate
     else:
-        h = dense(p["w_in"], x)
+        h = dense(p["w_in"], x, _sub(ctx, "w_in"))
         h = F.gelu(h, approximate="tanh") if cfg.act == "gelu" \
             else torch.relu(h)
-    return dense(p["w_out"], h)
+    return dense(p["w_out"], h, _sub(ctx, "w_out"))
 
 
 # ---------------------------------------------------------------------------
 # embedding
 
 
-def embed_apply(cfg, p, tokens, positions=None):
-    x = p["tok"][tokens]
+def embed_apply(cfg, p, tokens, positions=None, ctx=None):
+    """ctx (scoped to "embed") perturbs only the gathered rows: O(S*D)
+    transient z, never the (V, D) table."""
+    x = p["tok"][tokens] if ctx is None else ctx.take("tok", p["tok"],
+                                                      tokens)
     if cfg.pos == "learned":
         pos = (positions if positions is not None
                else torch.arange(tokens.shape[-1], device=tokens.device))
-        x = x + p["pos"][pos]
+        x = x + (p["pos"][pos] if ctx is None
+                 else ctx.take("pos", p["pos"], pos))
     return x
 
 
-def unembed(cfg, embed_p, head_p, x):
-    """Final projection to vocab logits (tied or untied)."""
+def unembed(cfg, embed_p, head_p, x, ctx=None):
+    """Final projection to vocab logits (tied or untied). ctx is scoped to
+    the param-tree ROOT here (the two branches touch different leaves)."""
     if cfg.tie_embeddings or head_p is None:
-        return x @ embed_p["tok"].T
-    return dense(head_p, x)
+        if ctx is None:
+            return x @ embed_p["tok"].T
+        # the tied head reads the embedding transposed; the row-major
+        # z-field does not transpose into kernel tiles: perturb transiently
+        return x @ ctx.scope("embed").perturb("tok", embed_p["tok"]).T
+    return dense(head_p, x, _sub(ctx, "lm_head"))

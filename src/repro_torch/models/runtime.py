@@ -1,10 +1,13 @@
-"""Generic backbone engine: forward / cache / decode / prefill for every
-ported architecture, driven by a declarative plan.
+"""Generic backbone engine: forward / loss / cache / decode / prefill for
+every ported architecture, driven by a declarative plan.
 
-Port of the JAX package's ``models/runtime.py``. A family is a
-:class:`ModelPlan`: a :class:`StackPlan` of :class:`Sublayer` rows naming
-a norm leaf, a mixer param path and a registered block type. The engine
-owns the one residual pattern::
+Port of the JAX package's ``models/runtime.py``. ``forward`` threads a
+:class:`~repro_torch.core.perturb_ctx.PerturbCtx` into every block
+(``ctx.scope(stack).at_layer(l)`` then the sublayer's param path), so
+``loss(..., perturb=ctx)`` is the fused perturbed forward of MeZO. A
+family is a :class:`ModelPlan`: a :class:`StackPlan` of :class:`Sublayer`
+rows naming a norm leaf, a mixer param path and a registered block type.
+The engine owns the one residual pattern::
 
     for each layer (a Python loop over the stacked (L, ...) leaves):
         for each sublayer:  x = x + block(norm(x))
@@ -24,9 +27,12 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.core.perturb_ctx import sub as _sub
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import RunCtx, get_block
 from repro_torch.models.config import ModelConfig
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 # ---------------------------------------------------------------------------
@@ -101,16 +107,20 @@ def _pos_vector(pos, b: int, device) -> torch.Tensor:
 # the one residual loop, in three modes
 
 
-def _stack_apply(cfg, stack: StackPlan, params, x, rc: RunCtx):
-    """Full-sequence stack."""
+def _stack_apply(cfg, stack: StackPlan, params, x, rc: RunCtx, ctx=None):
+    """Full-sequence stack. The perturb ctx binds the layer index
+    (``at_layer``), so each layer's z slice is that of the stacked leaf."""
     blocks = nest(params, stack.scope)
+    sctx = _sub(ctx, stack.scope)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(stack.n_layers):
         bp = _index(blocks, li)
+        bctx = None if sctx is None else sctx.at_layer(li)
         for sl in stack.sublayers:
             bt = get_block(sl.block)
-            z = L.norm_apply(cfg, _get(bp, sl.ln), x)
-            y, a = bt.apply(cfg, _get(bp, sl.mixer), z, rc, **dict(sl.opts))
+            z = L.norm_apply(cfg, _get(bp, sl.ln), x, _sub(bctx, sl.ln))
+            y, a = bt.apply(cfg, _get(bp, sl.mixer), z, rc,
+                            ctx=_sub(bctx, sl.mixer), **dict(sl.opts))
             x = x + y
             aux = aux + a
     return x, aux
@@ -143,23 +153,53 @@ def _stack_seq(cfg, stack: StackPlan, params, state, x, rc: RunCtx,
 # model functions (what build_model wires into the Model facade)
 
 
-def forward(plan: ModelPlan, params, batch, last_only=False):
-    """Full-sequence forward -> (logits, aux)."""
+def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
+    """Full-sequence forward -> (logits, aux). ``perturb`` (a PerturbCtx)
+    switches on the fused perturbed forward."""
     cfg = plan.cfg
     tokens = batch["tokens"]
-    x = L.embed_apply(cfg, nest(params, "embed"), tokens)
+    x = L.embed_apply(cfg, nest(params, "embed"), tokens,
+                      ctx=_sub(perturb, "embed"))
     positions = torch.arange(x.shape[1], device=x.device)[None]
     rc = RunCtx(positions=positions, kv_mask=batch.get("attn_mask"))
-    x, aux = _stack_apply(cfg, plan.stack, params, x, rc)
-    x = L.norm_apply(cfg, nest(params, "ln_f"), x)
+    x, aux = _stack_apply(cfg, plan.stack, params, x, rc, perturb)
+    x = L.norm_apply(cfg, nest(params, "ln_f"), x, _sub(perturb, "ln_f"))
+    if cfg.n_classes:                  # CLS pooling + head (roberta/SST-2)
+        cls = x[:, 0].to(torch.float32)
+        return L.dense(nest(params, "cls_head"), torch.tanh(cls),
+                       _sub(perturb, "cls_head")), aux
     if last_only:
         x = x[:, -1:]
-    return _logits(plan, params, x), aux
+    return _logits(plan, params, x, perturb), aux
 
 
-def _logits(plan: ModelPlan, params, x):
+def _logits(plan: ModelPlan, params, x, ctx=None):
     head = nest(params, "lm_head") or None
-    return L.unembed(plan.cfg, nest(params, "embed"), head, x)
+    return L.unembed(plan.cfg, nest(params, "embed"), head, x, ctx)
+
+
+def softmax_xent(logits, targets, mask=None):
+    """Cross entropy in the reference's order: the max and the subtraction
+    in the logits' dtype, the exp-sum in f32, the gold logit read exactly
+    from the logits."""
+    m = logits.amax(dim=-1)
+    sumexp = torch.exp((logits - m[..., None]).to(torch.float32)).sum(-1)
+    lse = m.to(torch.float32) + torch.log(sumexp)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold.to(torch.float32)
+    if mask is not None:
+        return torch.sum(nll * mask) / (torch.sum(mask) + 1e-9)
+    return torch.mean(nll)
+
+
+def loss(plan: ModelPlan, params, batch, perturb=None):
+    """The ZO objective: CE (+ aux) for LMs, the CLS head's CE for the
+    encoder classifier. ``perturb`` switches on the fused forward."""
+    logits, aux = forward(plan, params, batch, perturb=perturb)
+    if plan.cfg.n_classes:
+        return softmax_xent(logits, batch["label"])
+    ce = softmax_xent(logits, batch["targets"], batch.get("loss_mask"))
+    return ce + AUX_LOSS_WEIGHT * aux
 
 
 def init_cache(plan: ModelPlan, bsz, max_len, dtype, device):
@@ -259,6 +299,7 @@ def prefill(plan: ModelPlan, params, cache, tokens):
     return _logits(plan, params, x), cache
 
 
-__all__ = ["ModelPlan", "StackPlan", "Sublayer", "decode_step", "forward",
-           "init_cache", "init_paged_cache", "nest", "plan_pages",
-           "prefill", "prefill_chunk"]
+__all__ = ["AUX_LOSS_WEIGHT", "ModelPlan", "StackPlan", "Sublayer",
+           "decode_step", "forward", "init_cache", "init_paged_cache",
+           "loss", "nest", "plan_pages", "prefill", "prefill_chunk",
+           "softmax_xent"]

@@ -1,11 +1,14 @@
 """Family assembly over the block-registry runtime.
 
 Port of the JAX package's ``models/transformer.py`` for the decoder-only
-dense family (OPT-1.3B, the paper's model, and the other dense configs).
+dense family (OPT-1.3B, the paper's model, and the other dense configs)
+and the encoder-only classifier (RoBERTa-large, the paper's other
+model: the same [attn, ffn] plan, bidirectional, a CLS head, no decode).
 ``build_model(cfg)`` returns a :class:`Model` bundle of functions:
 
   init(generator, device)                     -> params (flat, ``/`` keys)
-  forward(params, batch)                      -> (logits, aux)
+  forward(params, batch, perturb=None)        -> (logits, aux)
+  loss(params, batch, perturb=None)           -> scalar (the ZO objective)
   init_cache(bsz, max_len=None, device=...)   -> StateCache
   decode_step(params, cache, tok, pos, ...)   -> (logits, cache)
   prefill(params, cache, prompt)              -> (logits, cache)
@@ -50,15 +53,18 @@ class Model:
     plan: ModelPlan
     init: Callable
     forward: Callable
+    loss: Callable
     init_cache: Callable
-    decode_step: Callable
-    prefill: Callable
+    decode_step: Optional[Callable] = None
+    prefill: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
     prefill_chunk: Optional[Callable] = None
 
 
 def _lm_plan(cfg: ModelConfig) -> ModelPlan:
-    """Decoder-only LM: [attn, ffn] per layer."""
+    """Decoder-only LM and the encoder-only classifier: [attn, ffn] per
+    layer (the encoder's attention is bidirectional through
+    ``cfg.causal``)."""
     ffn = "moe" if cfg.n_experts else "mlp"
     return ModelPlan(cfg, StackPlan("blocks", cfg.n_layers, (
         Sublayer("ln_attn", "attn", "attention"),
@@ -108,6 +114,9 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     norm("ln_f", False)
     if not cfg.tie_embeddings:
         spec["lm_head/w"] = ((d, cfg.vocab), dt, ("normal", 0.02))
+    if cfg.n_classes:
+        spec["cls_head/w"] = ((d, cfg.n_classes), f32, ("normal", 0.02))
+        spec["cls_head/b"] = ((cfg.n_classes,), f32, "zeros")
     return spec
 
 
@@ -130,11 +139,16 @@ def _lm_init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.family != "dense" or cfg.n_experts:
+    if cfg.family not in ("dense", "encoder") or cfg.n_experts:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: this "
-            f"slice serves dense decoders; the other families land with a "
-            f"later slice")
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
+            f"port runs dense decoders and the encoder classifier; the "
+            f"other families land with a later slice")
+
+
+def _no_decode(*_args, **_kwargs):
+    """Decode-path stub for encoder-only architectures."""
+    raise ValueError("encoder-only arch has no decode path")
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,10 +157,15 @@ def build_model(cfg: ModelConfig) -> Model:
     _check_supported(cfg)
     plan = _lm_plan(cfg)
     dtype = L.dtype_of(cfg)
+    if cfg.family == "encoder":
+        return Model(cfg=cfg, plan=plan, init=partial(_lm_init, cfg),
+                     forward=partial(RT.forward, plan),
+                     loss=partial(RT.loss, plan), init_cache=_no_decode)
     return Model(
         cfg=cfg, plan=plan,
         init=partial(_lm_init, cfg),
         forward=partial(RT.forward, plan),
+        loss=partial(RT.loss, plan),
         init_cache=lambda bsz, max_len=None, device="cuda": RT.init_cache(
             plan, bsz, max_len or cfg.max_seq, dtype, resolve_device(device)),
         decode_step=partial(RT.decode_step, plan),

@@ -1,0 +1,149 @@
+"""Fault-tolerant training loop for ZO (MeZO).
+
+Port of the JAX package's ``runtime/trainer.py``: build the model,
+resolve the training strategy from the engine registry, auto-resume
+(TrainState snapshot + replay log), metrics, periodic checkpointing. The
+loop is deliberately dumb -- the cleverness lives in ``core/`` and
+``checkpoint/`` -- so a crash between two ``on_step`` calls loses at
+most the step in flight.
+
+Strategy resolution: ``TrainerConfig.optimizer`` names a registered
+strategy ("mezo", "mezo-parallel", "mezo-fused", "mezo-momentum",
+"mezo-fused-momentum"); ``estimator`` / ``update`` compose any pairing
+directly. Not ported yet, and raising: ``optimizer="adam"`` (the
+gradient baseline), ``quant != "none"`` (the int8 base) and
+``straggler_redundancy > 0`` (straggler masks).
+
+``device`` (default ``"cuda"``) is where parameters live and steps run;
+each step's batch moves there once. Losses stay on the device and come
+to the host every ``log_every`` steps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterator, Optional
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core import rng as zrng
+from repro_torch.core.engine import (MezoConfig, build_strategy,
+                                     get_strategy, strategy_names)
+from repro_torch.models import build_model
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import resolve_device
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    optimizer: str = "mezo"          # registered strategy name
+    estimator: Optional[str] = None  # walk | vmapdir | fused (overrides
+    update: Optional[str] = None     # sgd | momentum        .. optimizer)
+    mezo: MezoConfig = MezoConfig()
+    quant: str = "none"              # base-weight quantization (int8 slice)
+    n_steps: int = 100
+    seed: int = 0
+    ckpt_dir: Optional[str] = None
+    snapshot_every: int = 100
+    log_every: int = 10
+    straggler_redundancy: int = 0    # straggler masks (fleet slice)
+    device: str = "cuda"
+
+
+class Trainer:
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainerConfig,
+                 batches: Iterator[Any],
+                 log_fn: Callable[[str], None] = print):
+        if train_cfg.optimizer == "adam":
+            raise NotImplementedError(
+                "optimizer 'adam' (the gradient baseline, optim/adam.py) "
+                "is not ported yet; it lands with the fleet slice")
+        if train_cfg.quant != "none":
+            raise NotImplementedError(
+                f"quant={train_cfg.quant!r}: the int8 base is not ported "
+                f"yet; it lands with the int8 slice")
+        if train_cfg.straggler_redundancy:
+            raise NotImplementedError(
+                "straggler_redundancy > 0 (runtime/stragglers.py) is not "
+                "ported yet; it lands with the fleet slice")
+        if train_cfg.estimator or train_cfg.update:
+            self.strategy = build_strategy(
+                train_cfg.estimator or "walk", train_cfg.update or "sgd")
+        elif train_cfg.optimizer not in strategy_names():
+            raise ValueError(
+                f"unknown TrainerConfig.optimizer {train_cfg.optimizer!r}; "
+                f"registered strategies: {strategy_names()} (or compose "
+                f"any estimator x update pairing via TrainerConfig."
+                f"estimator/.update)")
+        else:
+            self.strategy = get_strategy(train_cfg.optimizer)
+
+        self.mcfg = model_cfg
+        self.tcfg = train_cfg
+        self.device = resolve_device(train_cfg.device)
+        self.model = build_model(model_cfg)
+        self.batches = batches
+        self.log = log_fn
+        self.losses: list = []
+        self._pending: list = []     # device loss scalars awaiting a sync
+        self.ckpt = (CheckpointManager(
+            train_cfg.ckpt_dir, mezo_cfg=train_cfg.mezo,
+            snapshot_every=train_cfg.snapshot_every,
+            update_rule=self.strategy.update)
+            if train_cfg.ckpt_dir else None)
+
+    # -- setup ------------------------------------------------------------
+    def init_params(self) -> Params:
+        """Random parameters from ``seed`` (the port cannot reproduce
+        ``jax.random``; pass the JAX package's to ``train(params=)``)."""
+        gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        return self.model.init(gen, self.device)
+
+    def _sync_losses(self):
+        """Host-sync the buffered device scalars (one transfer per batch
+        of steps instead of one per step)."""
+        if self._pending:
+            self.losses.extend(float(x) for x in self._pending)
+            self._pending.clear()
+
+    # -- main loop --------------------------------------------------------
+    def train(self, params: Optional[Params] = None,
+              fail_at: Optional[int] = None) -> Params:
+        """Runs to n_steps with auto-resume (only when ``params`` is not
+        given). ``fail_at`` raises at that step (fault injection for
+        tests). A fused or walk step updates ``params`` in place."""
+        start = 0
+        mcfg = self.tcfg.mezo
+        resume = params is None
+        if params is None:
+            params = self.init_params()
+        state = self.strategy.init_state(params, mcfg)
+        if resume and self.ckpt:
+            restored, start = self.ckpt.restore(state)
+            if restored is not None:
+                state = restored
+                self.log(f"[trainer] resumed at step {start}")
+
+        t0 = time.perf_counter()
+        for step in range(start, self.tcfg.n_steps):
+            if fail_at is not None and step == fail_at:
+                raise RuntimeError(f"injected failure at step {step}")
+            batch = {k: torch.as_tensor(v).to(self.device)
+                     for k, v in next(self.batches).items()}
+            seed = zrng.fold_seed(self.tcfg.seed, step)
+            state, aux = self.strategy.step(self.model.loss, state, batch,
+                                            seed, mcfg)
+            self._pending.append(aux.loss)
+            if self.ckpt:
+                self.ckpt.on_step(step, state, aux)
+            if step % self.tcfg.log_every == 0:
+                self._sync_losses()
+                dt = time.perf_counter() - t0
+                self.log(f"[trainer] step={step} loss={self.losses[-1]:.4f} "
+                         f"({dt:.1f}s)")
+        self._sync_losses()
+        return state.params

@@ -67,8 +67,9 @@ class AdapterStore:
 
     ``mezo_cfg`` must carry the ``dist`` / ``weight_decay`` the users
     trained with (lr / eps travel inside each record; K is the logged
-    ``gs`` length). Only the ``sgd`` update rule is ported: passing any
-    other raises. ``device`` is where the base lives and the adapters
+    ``gs`` length). ``update_rule`` is the rule the users trained with
+    (``sgd`` by default, or ``momentum``; ``stale-sgd`` raises until the
+    fleet slice). ``device`` is where the base lives and the adapters
     materialize (``"cuda"`` unless the caller asks for the CPU).
     """
 

@@ -13,7 +13,11 @@ toolkit:
 Tolerances: ``zo_add`` is bit-exact with Rademacher z; with Gaussian z
 its f32 output is within 1e-6 (precise logf/cosf, last ulps). The
 attention kernels are within 2e-5 in f32 (summation order) and 2e-2 in
-bf16 (the plain version rounds probabilities to bf16).
+bf16 (the paged plain versions round probabilities to bf16). ``zo_matmul``
+is within 2e-5 of max|Y| with f32 output (summation order) and 1e-2 with
+bf16 output (one rounding). Reduced OPT-1.3B and RoBERTa-large (f32)
+train on the card to the CPU's losses within 1e-4, and replay equals the
+live run at atol 0 there.
 """
 
 import numpy as np
@@ -154,7 +158,131 @@ def test_reduced_engine_on_card_matches_cpu(cuda):
                                user="alice" if i % 2 == 0 else None))
         return [c.tokens.tolist() for c in eng.run()]
 
-    before = dict(ops.LAUNCHES)
+    serving = ("zo_add", "flash_decode", "flash_prefill")
+    before = {k: ops.LAUNCHES[k] for k in serving}
     on_card = serve(cuda)
-    assert all(ops.LAUNCHES[k] > before[k] for k in before)
+    assert all(ops.LAUNCHES[k] > before[k] for k in serving)
     assert on_card == serve("cpu")
+
+
+MM_RTOL = {"float32": 2e-5, "bfloat16": 1e-2}
+
+
+@pytest.mark.parametrize("dist", ["rademacher", "gaussian"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", [(7, 33, 130), (32, 64, 128), (33, 64, 256),
+                                 (1024, 1024, 4096), (1024, 2048, 8192),
+                                 (1024, 2048, 50272)], ids=str)
+def test_zo_matmul_matches_plain(cuda, mkn, dtype, dist):
+    m, k, n = mkn
+    dt = getattr(torch, dtype)
+    x = torch.randn((m, k), device=cuda).to(dt)
+    w = (torch.randn((k, n), device=cuda) * 0.02).to(dt)
+    salt = rng.leaf_salt("lm_head/w")
+    before = build.LAUNCHES["zo_matmul"]
+    got = ops.zo_matmul(x, w, 99, salt, 1e-3, dist)
+    assert build.LAUNCHES["zo_matmul"] == before + 1
+    want = zp.zo_matmul_ref(x, w, 99, salt, 1e-3, dist)
+    assert got.dtype == dt and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err <= MM_RTOL[dtype], err
+
+
+def test_zo_matmul_prehashed_slice_matches_stacked_field(cuda):
+    seed, salt = 5, rng.leaf_salt("blocks/mlp/w_in/w")
+    x = torch.randn((40, 64), device=cuda)
+    w = torch.randn((3, 64, 96), device=cuda) * 0.02
+    z = rng.z_field(seed, salt, (3, 64, 96), device=cuda)
+    for layer in range(3):
+        base = rng.fold_leading(rng.leaf_base(seed, salt), layer)
+        got = zp.zo_matmul_cuda(x, w[layer], base, 0, 0.5, prime_offset=1,
+                                prehashed=True)
+        want = x @ (w[layer] + 0.5 * z[layer])
+        err = (got - want).abs().max() / want.abs().max()
+        assert err <= MM_RTOL["float32"], err
+
+
+def test_zo_matmul_launcher_rejects_mixed_dtypes(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        zp.zo_matmul_cuda(x, torch.zeros((8, 4), device=cuda,
+                                         dtype=torch.bfloat16), 1, 2, 0.5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("shape", [(2, 16, 4, 2, 16), (3, 100, 8, 2, 16),
+                                   (8, 128, 32, 32, 64), (8, 128, 16, 16, 64),
+                                   (1, 40, 2, 1, 128), (1, 33, 2, 2, 256),
+                                   (2, 70, 4, 4, 32)], ids=str)
+def test_flash_attention_matches_plain(cuda, shape, dtype, atol, causal):
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, kvh, hd = shape
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, s, h, hd), device=cuda).to(dt)
+    k = torch.randn((b, s, kvh, hd), device=cuda).to(dt)
+    v = torch.randn((b, s, kvh, hd), device=cuda).to(dt)
+    before = build.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal)
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_ref(q, k, v, causal)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def _train(arch, device, params, tmp, optimizer="mezo-fused"):
+    """3 steps of the reduced config (flash attention) through the
+    Trainer on ``device`` from the given initial parameters."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import MezoConfig
+    from repro_torch.data.synthetic import lm_batches, sst2_batches
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_config(arch).reduced(), attn_impl="flash")
+    gen = sst2_batches if cfg.n_classes else lm_batches
+    tcfg = TrainerConfig(optimizer=optimizer,
+                         mezo=MezoConfig(eps=1e-3, lr=1e-3), n_steps=3,
+                         log_every=1, ckpt_dir=str(tmp), device=device)
+    tr = Trainer(cfg, tcfg, gen(2, 16, cfg.vocab, seed=1),
+                 log_fn=lambda s: None)
+    final = tr.train({k: v.to(device, copy=True)
+                      for k, v in params.items()})
+    return tr.losses, final
+
+
+@pytest.mark.parametrize("arch", ["opt-1.3b", "roberta-large"])
+def test_reduced_training_on_card_matches_cpu_and_replays(cuda, arch,
+                                                          tmp_path):
+    from repro_torch.checkpoint import ReplayLog, replay_into
+    from repro_torch.configs import get_config
+    from repro_torch.core import MezoConfig
+    from repro_torch.models import build_model
+    params = build_model(get_config(arch).reduced()).init(
+        torch.Generator().manual_seed(0), "cpu")
+    before = dict(ops.LAUNCHES)
+    card_losses, card_final = _train(arch, "cuda", params, tmp_path / "g")
+    for name in ("zo_matmul", "flash_attention", "zo_add"):
+        assert ops.LAUNCHES[name] > before[name], name
+    cpu_losses, _ = _train(arch, "cpu", params, tmp_path / "c")
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=0, atol=1e-4)
+    replayed, _ = replay_into(
+        {k: v.to(cuda) for k, v in params.items()},
+        ReplayLog.read(str(tmp_path / "g" / "replay.jsonl")),
+        MezoConfig(eps=1e-3, lr=1e-3))
+    for k in card_final:
+        assert torch.equal(replayed[k], card_final[k]), k
+
+
+@pytest.mark.parametrize("optimizer", ["mezo", "mezo-parallel",
+                                       "mezo-fused-momentum"])
+def test_reduced_strategies_on_card_match_cpu(cuda, optimizer, tmp_path):
+    """The in-place walk, the perturbed copies of vmapdir and the momentum
+    window on the card give the CPU's losses within 1e-4 (f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    params = build_model(get_config("opt-1.3b").reduced()).init(
+        torch.Generator().manual_seed(0), "cpu")
+    card, _ = _train("opt-1.3b", "cuda", params, tmp_path / "g", optimizer)
+    cpu, _ = _train("opt-1.3b", "cpu", params, tmp_path / "c", optimizer)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-4)

@@ -34,7 +34,7 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, leaked = out.stdout.split(" ", 1)
-    assert int(n) >= 25
+    assert int(n) >= 50
     assert leaked.strip() == "[]", leaked
 
 
