@@ -8,24 +8,50 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
 1. device: the card's name and power limit; TF32 off.
 2. build: every kernel of ``src/repro_torch/csrc`` with nvcc for sm_90a.
 3. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the main path's shapes, with its time, the plain version's,
+   card, at the main paths' shapes, with its time, the plain version's,
    one library call's where there is one, and the bound (the larger of
-   bytes over 3.35 TB/s and operations over the peak rate of their type).
-4. main path: ``repro_torch.launch.serve.run`` on full-width, 24-layer
+   bytes over 3.35 TB/s and operations over the peak rate of their type):
+   ``zo_add``, ``flash_decode``, ``flash_prefill``; T0 ``zo_matmul`` and
+   ``flash_attention``; Q0 ``zo_add_q`` and ``zo_matmul_q``.
+4. serving: ``repro_torch.launch.serve.run`` on full-width, 24-layer
    OPT-1.3B (bf16, random weights from a seed), paged KV with page size 16
    and chunked prefill C = 32, 4 slots, 8 greedy requests (96-token
    prompts, 32 new tokens) round-robin over two replayed ZO adapters and
-   the base. Launch counts are reset just before the run and read just
-   after; every kernel must have launched. The first-step logits must
-   agree with the dense-mode engine (plain attention) within a bf16
-   tolerance, and a user's must differ from the base's on one prompt.
+   the base. The first-step logits must agree with the dense-mode engine
+   (plain attention) within a bf16 tolerance, and a user's must differ
+   from the base's on one prompt.
 5. profile: a shorter run of the same path (4 requests, 16 new tokens)
    under ``torch.profiler``: the device's busy share of the serving wall
    time and the kernels that take the most device time.
-6. one ``{"kernels": [...]}`` line, then the final ``{"ok": true, ...}``.
+T1. the train CLI (``launch.train.run``), full-width OPT-1.3B,
+   ``mezo-fused``, 4 steps at B 8 x S 128: losses, step time, tokens/s,
+   peak memory, launch counts, and a step-0 snapshot + replay-log restore
+   bit-exact with the live parameters.
+T4. one T1 step under the profiler.
+T2. / T3. the Trainer with flash attention (OPT-1.3B, then RoBERTa-large,
+   f32): 2 fused steps, the first loss against the materialized one.
+Q1. the frozen int8 base: OPT-1.3B (bf16) and RoBERTa-large (f32)
+   quantized with no deltas; the fused loss at +-eps (every projection
+   through ``zo_matmul_q``) against the loss at ``ctx.materialize``
+   (every quantized leaf through ``zo_add_q``); resident bytes and the
+   fused forward's peak memory.
+Q2. the train CLI with ``--quant int8`` (OPT-1.3B, ``mezo-fused``, 4 steps
+   at B 8 x S 128): losses, step time, tokens/s, peak memory; q and scales
+   bit-frozen, deltas moved; a bit-exact snapshot + replay restore; one
+   step under the profiler.
+Q3. serving phase 4's requests from one int8 base holding the two
+   replayed users: within 0.15 of the dense-mode engine, a user differs
+   from the base, the cache charges only per-user bytes; then one user's
+   compact int8 delta (``export_delta`` -> ``put_delta``) against the
+   replayed user's weights, serving the same requests closer to the
+   replayed user than to the base.
+Then one ``{"kernels": [...]}`` line (each kernel with its launches on
+every path above; each must have launched on one) and the final
+``{"ok": true, ...}``.
 
-Any failed check exits non-zero before the final line. Imports nothing of
-JAX and nothing of the JAX package.
+Launch counts are reset just before each path and read just after. Any
+failed check exits non-zero before the final line. Imports nothing of JAX
+and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +80,12 @@ ZO_MM_BF16_RTOL = 1e-2   # bf16 out: one rounding of Y (2^-8 relative)
 OPT_FUSED_ATOL = 2e-2    # bf16: also the rounding of W' the materialized
 #                          path does and the fused (f32 W') path does not
 ROBERTA_FUSED_ATOL = 1e-4  # f32: summation order over 24 layers only
+#   the same two limits hold Q1's frozen int8 base (fused f32 W' against
+#   the materialized W' rounded to the leaf's dtype)
+Q_EFF_ATOL = 1e-7        # + max|mat - base| / 127: one int8 step of the
+#                          compact delta (tests/test_quant.py's bound, for
+#                          f32 effective weights; a bf16 leaf adds one
+#                          bf16 step of its own rounding)
 
 # the training phases' shapes: full width and depth, batch 8 x 128 tokens
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 4, 8, 128
@@ -384,6 +416,133 @@ def kernel_flash_attention(torch, results):
         "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
 
 
+def kernel_zo_add_q(torch, results):
+    """Q0: ``zo_add_q`` on OPT-1.3B's two largest leaves quantized (the
+    stacked ``w_in`` and the LM head) against its plain version; no
+    library call computes it."""
+    from repro_torch.core import rng
+    from repro_torch.kernels import zo_perturb as zp
+    from repro_torch.optim.quant import quantize_leaf
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    seed, coeff = 24681357, 0.00513
+    rows = []
+    shapes = {"blocks/mlp/w_in/w": (24, 2048, 8192), "lm_head/w": (2048, 50272)}
+    for path, shape in shapes.items():
+        ql = quantize_leaf((torch.randn(shape, generator=gen, device=dev)
+                            * 0.02).to(torch.bfloat16))
+        q, sc, salt = ql.q, ql.scale, rng.leaf_salt(path)
+        errs = {}
+        for dist in ("rademacher", "gaussian"):
+            got = zp.zo_add_q_cuda(q, sc, seed, salt, coeff, dist)
+            want = zp.zo_add_q_ref(q, sc, seed, salt, coeff, dist)
+            torch.cuda.synchronize()
+            errs[dist] = (got - want).abs().max().item()
+            if dist == "rademacher":
+                check(torch.equal(got, want), f"zo_add_q {shape} Rademacher "
+                      f"not bit-exact (max err {errs[dist]})")
+            else:
+                check(errs[dist] <= ZO_GAUSS_ATOL, f"zo_add_q {shape} "
+                      f"Gaussian err {errs[dist]} > {ZO_GAUSS_ATOL}")
+            del got, want
+        ms = time_ms(lambda: zp.zo_add_q_cuda(q, sc, seed, salt, coeff),
+                     iters=20)
+        plain = time_ms(lambda: zp.zo_add_q_ref(q, sc, seed, salt, coeff),
+                        iters=2, warmup=1)
+        n = q.numel()
+        b_ms, b_by = bound(5.0 * n + 4.0 * sc.numel(), 2.0 * n, "f32")
+        row = {"phase": "kernel", "name": "zo_add_q", "shape": list(shape),
+               "max_abs_err_rademacher": errs["rademacher"],
+               "max_abs_err_gaussian": errs["gaussian"],
+               "tolerance_gaussian": ZO_GAUSS_ATOL, "kernel_ms": ms,
+               "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+               "bound_by": b_by}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del ql, q, sc
+        torch.cuda.empty_cache()
+    results["zo_add_q"] = {
+        "max_abs_err": max(r["max_abs_err_rademacher"] for r in rows),
+        "ms": sum(r["kernel_ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "bound_by": "bytes", "library_ms": None}
+
+
+def kernel_zo_matmul_q(torch, results):
+    """Q0: ``zo_matmul_q`` at the frozen-base forward's shapes against its
+    plain version; the library yardstick is cuBLAS SGEMM (TF32 off) of
+    ``X.float() @ W'``, W' = q * s + c * z materialized beforehand."""
+    from repro_torch.core import rng
+    from repro_torch.kernels import zo_perturb as zp
+    from repro_torch.optim.quant import quantize_leaf
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    seed, coeff = 135792468, -1e-3
+    cases = [  # (name, M, K, N, X dtype, leaf path, layer or None)
+        ("opt w_in slice", 1024, 2048, 8192, torch.bfloat16,
+         "blocks/mlp/w_in/w", 5),
+        ("opt lm_head", 1024, 2048, 50272, torch.bfloat16, "lm_head/w",
+         None),
+        ("roberta w_in slice", 1024, 1024, 4096, torch.float32,
+         "blocks/mlp/w_in/w", 5)]
+    rows = []
+    for label, m, k, n, dt, path, layer in cases:
+        x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        ql = quantize_leaf(torch.randn((k, n), generator=gen, device=dev)
+                           * 0.02)
+        q, sc, salt = ql.q, ql.scale, rng.leaf_salt(path)
+        if layer is None:
+            kw = dict(seed=seed, salt=salt, prime_offset=0, prehashed=False)
+        else:
+            kw = dict(seed=rng.fold_leading(rng.leaf_base(seed, salt), layer),
+                      salt=0, prime_offset=1, prehashed=True)
+        tol = ZO_MM_F32_RTOL if dt == torch.float32 else ZO_MM_BF16_RTOL
+        errs, abs_err = {}, 0.0
+        for dist in ("rademacher", "gaussian"):
+            got = zp.zo_matmul_q_cuda(x, q, sc, coeff=coeff, dist=dist, **kw)
+            want = zp.zo_matmul_q_ref(x, q, sc, coeff=coeff, dist=dist, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs().max()
+            err = (diff / want.float().abs().max()).item()
+            check(err <= tol and torch.isfinite(got).all().item(),
+                  f"zo_matmul_q {label} {dist}: max|d|/max|Y| {err} > {tol}")
+            errs[dist] = err
+            abs_err = max(abs_err, diff.item())
+            del got, want
+        ms = time_ms(lambda: zp.zo_matmul_q_cuda(x, q, sc, coeff=coeff,
+                                                 **kw), iters=10)
+        plain = time_ms(lambda: zp.zo_matmul_q_ref(x, q, sc, coeff=coeff,
+                                                   **kw), iters=2, warmup=1)
+        wp = zp.zo_add_q_ref(q, sc, kw["seed"], kw["salt"], coeff,
+                             prime_offset=kw["prime_offset"],
+                             prehashed=kw["prehashed"])
+        xf = x.float()
+        lib = time_ms(lambda: xf @ wp, iters=10)
+        del wp, xf
+        item = x.element_size()
+        b_ms, b_by = bound((m * k + m * n) * item + k * n + 4 * n,
+                           2.0 * m * k * n, "f32")
+        row = {"phase": "kernel", "name": "zo_matmul_q", "case": label,
+               "shape": [m, k, n], "dtype": str(dt).split(".")[-1],
+               "rel_err_rademacher": errs["rademacher"],
+               "rel_err_gaussian": errs["gaussian"], "tolerance": tol,
+               "max_abs_err": abs_err, "kernel_ms": ms, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del x, ql, q, sc
+        torch.cuda.empty_cache()
+    opt = rows[:2]            # OPT-1.3B's two shapes, as for zo_matmul
+    results["zo_matmul_q"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["kernel_ms"] for r in opt),
+        "plain_ms": sum(r["plain_ms"] for r in opt),
+        "bound_ms": sum(r["bound_ms"] for r in opt),
+        "bound_by": "operations",
+        "library_ms": sum(r["library_ms"] for r in opt)}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 
@@ -403,9 +562,9 @@ def _write_adapter(path: Path, seed: int):
                                 "eps": 1e-3}) + "\n")
 
 
-def _serve(torch, serve_mod, engine_mod, argv):
-    """Run the CLI's ``run`` and record each request's first-step logits
-    (the row the engine picks the first token from)."""
+def _recorded(torch, engine_mod, fn):
+    """Call ``fn()`` recording each request's first-step logits (the row
+    the engine picks the first token from): (fn's result, {rid: row})."""
     first = {}
     orig = engine_mod.ServeEngine._activate
 
@@ -415,10 +574,17 @@ def _serve(torch, serve_mod, engine_mod, argv):
 
     engine_mod.ServeEngine._activate = recording
     try:
-        args = serve_mod.build_parser().parse_args(argv)
-        engine, comps, dt = serve_mod.run(args)
+        return fn(), first
     finally:
         engine_mod.ServeEngine._activate = orig
+
+
+def _serve(torch, serve_mod, engine_mod, argv, params=None):
+    """Run the CLI's ``run`` (on ``params`` when given) and record each
+    request's first-step logits."""
+    args = serve_mod.build_parser().parse_args(argv)
+    (engine, comps, dt), first = _recorded(
+        torch, engine_mod, lambda: serve_mod.run(args, params))
     return args, engine, comps, dt, first
 
 
@@ -493,7 +659,7 @@ def main_path(torch, paths):
                       "first_tokens_equal": same_first}), flush=True)
     check(worst <= LOGITS_BF16_ATOL,
           f"paged/chunked first-step logits differ from dense by {worst}")
-    return paged
+    return paged, common
 
 
 def _profiled(torch, fn):
@@ -554,18 +720,25 @@ def _leaf_counts(cfg):
     through ``zo_add`` (``PerturbCtx.perturb``), embeddings through
     ``z_rows`` (no kernel); the sgd update sweeps every leaf once with
     ``zo_add``; ``flash_attention`` runs once a layer a forward."""
+    fwd_mm, fwd_add, n_leaves = _forward_counts(cfg)
+    return {"zo_matmul": 2 * fwd_mm,
+            "zo_add": n_leaves + 2 * fwd_add,
+            "flash_attention": (2 * cfg.n_layers
+                                if cfg.attn_impl == "flash" else 0),
+            "zo_matmul_q": 0, "zo_add_q": 0}
+
+
+def _forward_counts(cfg):
+    """(2-D weights a fused forward multiplies by, norm/bias leaves it
+    perturbs, leaves of the tree) on the configs of these paths."""
     from repro_torch.models.transformer import param_shapes
-    n_leaves = len(param_shapes(cfg))
     per_layer_mm = 6                       # wq wk wv wo w_in w_out
     per_layer_add = 4 + 6                  # 2 norms' scale+bias, 6 biases
     head_mm = 1                            # lm_head, or the CLS head
     head_add = 2 + (1 if cfg.n_classes else 0)   # ln_f, cls_head/b
-    fwd_mm = cfg.n_layers * per_layer_mm + head_mm
-    fwd_add = cfg.n_layers * per_layer_add + head_add
-    return {"zo_matmul": 2 * fwd_mm,
-            "zo_add": n_leaves + 2 * fwd_add,
-            "flash_attention": (2 * cfg.n_layers
-                                if cfg.attn_impl == "flash" else 0)}
+    return (cfg.n_layers * per_layer_mm + head_mm,
+            cfg.n_layers * per_layer_add + head_add,
+            len(param_shapes(cfg)))
 
 
 def _check_launches(label, launches, cfg, steps):
@@ -660,15 +833,15 @@ def train_main_path(torch, paths):
     return tr, state, batch
 
 
-def profile_train(torch, tr, state, batch):
-    """T4: one fused OPT-1.3B step under the profiler."""
+def profile_train(torch, tr, state, batch, label="T4 profile"):
+    """T4 (and Q2's): one fused OPT-1.3B step under the profiler."""
     from repro_torch.core import rng
 
     def one():
         tr.strategy.step(tr.model.loss, state, batch, rng.fold_seed(777, 0),
                          tr.tcfg.mezo)
     wall_us, by_name = _profiled(torch, one)
-    _profile_line("T4 profile", wall_us, by_name, steps=1)
+    _profile_line(label, wall_us, by_name, steps=1)
 
 
 def train_fused_vs_materialized(torch, paths, arch, label, tol):
@@ -717,6 +890,293 @@ def train_fused_vs_materialized(torch, paths, arch, label, tol):
           f"{mat}: {err} > {tol}")
 
 
+# ---------------------------------------------------------------------------
+# Q1-Q3: the int8 base
+
+
+def _gib(n_bytes) -> float:
+    return n_bytes / 2**30
+
+
+def q1_frozen_base(torch, paths, arch, tol):
+    """Q1: full-width ``arch`` quantized with no deltas (a frozen base);
+    the fused loss at +-eps against the loss at ``ctx.materialize``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import PerturbCtx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim.quant import (is_quantized, quantize_tree,
+                                         quantized_bytes, tensor_bytes)
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    full_bytes = sum(tensor_bytes(t) for t in params.values())
+    qparams = quantize_tree(params)
+    del params
+    torch.cuda.empty_cache()
+    resident, f32_eq = quantized_bytes(qparams)
+    n_q = sum(is_quantized(v) for v in qparams.values())
+    batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    eps, seed = 1e-3, 4242
+    fwd_mm, fwd_add, n_leaves = _forward_counts(cfg)
+    fused, mat = {}, {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for c in (eps, -eps):
+            fused[c] = float(model.loss(qparams, batch,
+                                        perturb=PerturbCtx(seed, c)))
+        torch.cuda.synchronize()
+        fused_s = (time.perf_counter() - t0) / 2
+        fused_launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        ops.reset_launches()
+        for c in (eps, -eps):
+            mat[c] = float(model.loss(PerturbCtx(seed, c).materialize(
+                qparams), batch))
+        torch.cuda.synchronize()
+        mat_launches = dict(ops.LAUNCHES)
+    label = f"Q1 {arch}"
+    paths[f"{label} fused"] = fused_launches
+    paths[f"{label} materialized"] = mat_launches
+    want_fused = {"zo_matmul_q": 2 * fwd_mm, "zo_add": 2 * fwd_add,
+                  "zo_matmul": 0, "zo_add_q": 0}
+    want_mat = {"zo_add_q": 2 * n_q, "zo_add": 2 * (n_leaves - n_q),
+                "zo_matmul_q": 0, "zo_matmul": 0}
+    err = max(abs(fused[c] - mat[c]) for c in fused)
+    print(json.dumps({
+        "phase": label, "dtype": cfg.dtype, "batch": [TRAIN_B, TRAIN_S],
+        "quantized_leaves": n_q, "fused_loss": list(fused.values()),
+        "materialized_loss": list(mat.values()), "max_abs_err": err,
+        "tolerance": tol, "fused_forward_s": fused_s,
+        "resident_bytes": resident, "f32_equivalent_bytes": f32_eq,
+        "unquantized_bytes": full_bytes,
+        "resident_gib": _gib(resident),
+        "f32_over_resident": f32_eq / resident,
+        "unquantized_over_resident": full_bytes / resident,
+        "fused_peak_memory_gib": _gib(peak),
+        "fused_peak_over_resident_gib": _gib(peak - before),
+        "launches_fused": fused_launches, "expected_fused": want_fused,
+        "launches_materialized": mat_launches,
+        "expected_materialized": want_mat}), flush=True)
+    check(all(math.isfinite(v) for v in [*fused.values(), *mat.values()]),
+          f"{label}: losses {fused} {mat}")
+    check({k: fused_launches[k] for k in want_fused} == want_fused,
+          f"{label}: fused launches {fused_launches} != {want_fused}")
+    check({k: mat_launches[k] for k in want_mat} == want_mat,
+          f"{label}: materialize launches {mat_launches} != {want_mat}")
+    check(err <= tol, f"{label}: fused vs materialized {err} > {tol}")
+
+
+def q2_int8_train(torch, paths):
+    """Q2: the train CLI with ``--quant int8``, OPT-1.3B, 4 fused steps."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.quant import is_quantized, quantize_tree
+    ckpt = WORK / "train_opt_int8"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", "opt-1.3b", "--optimizer", "mezo-fused", "--steps",
+            str(TRAIN_STEPS), "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S), "--ckpt-dir", str(ckpt), "--log-every", "1",
+            "--seed", "0", "--quant", "int8"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tr = train_mod.run(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = _gib(torch.cuda.max_memory_allocated())
+    paths["Q2 train int8"] = launches
+    cfg = tr.mcfg
+    check(len(tr.losses) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in tr.losses),
+          f"Q2 losses {tr.losses}")
+    fwd_mm, fwd_add, n_leaves = _forward_counts(cfg)
+    want = {"zo_add": TRAIN_STEPS * (2 * (fwd_mm + fwd_add) + n_leaves),
+            "zo_matmul_q": 0, "zo_matmul": 0, "zo_add_q": 0}
+    print(json.dumps({"phase": "Q2 launches", "launches": launches,
+                      "expected": want}), flush=True)
+    check({k: launches[k] for k in want} == want,
+          f"Q2: launches {launches} != expected {want}")
+
+    # q and the scales bit-frozen (against the same seed's init), deltas
+    # moved
+    q0 = quantize_tree(tr.init_params())
+    moved = 0.0
+    for k, leaf in tr.params.items():
+        if is_quantized(leaf):
+            check(torch.equal(leaf.q, q0[k].q)
+                  and torch.equal(leaf.scale, q0[k].scale),
+                  f"Q2: {k} int8 values or scales moved")
+            moved += leaf.delta.abs().sum().item()
+    del q0
+    check(moved > 0.0, "Q2: no delta moved")
+
+    # step-0 snapshot + replay of the log tail == the live state
+    mgr = CheckpointManager(str(ckpt), mezo_cfg=tr.tcfg.mezo,
+                            update_rule=tr.strategy.update)
+    t1 = time.perf_counter()
+    restored, nxt = mgr.restore(tr.strategy.init_state(tr.params,
+                                                       tr.tcfg.mezo))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    mgr.log.close()
+    check(nxt == TRAIN_STEPS, f"Q2 restore resumes at {nxt}")
+    for k, live in tr.params.items():
+        got = restored.params[k]
+        same = (torch.equal(got.q, live.q) and torch.equal(got.scale,
+                                                           live.scale)
+                and torch.equal(got.delta, live.delta)
+                if is_quantized(live) else torch.equal(got, live))
+        check(same, f"Q2 restore differs from the live params at {k}")
+    del restored
+    torch.cuda.empty_cache()
+
+    batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    state = tr.strategy.init_state(tr.params, tr.tcfg.mezo)
+    torch.cuda.reset_peak_memory_stats()
+    step_s, state = _timed_steps(torch, tr.strategy, tr.model.loss, state,
+                                 batch, tr.tcfg.mezo, 2)
+    step_peak_gb = _gib(torch.cuda.max_memory_allocated())
+    profile_train(torch, tr, state, batch, "Q2 profile")
+    print(json.dumps({"phase": "Q2 train int8", "losses": tr.losses,
+                      "run_seconds": dt, "restore_seconds": restore_s,
+                      "restore_bit_exact": True, "step_s": step_s,
+                      "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+                      "peak_memory_gib": peak_gb,
+                      "step_peak_memory_gib": step_peak_gb,
+                      "delta_abs_sum": moved}), flush=True)
+
+
+def q3_int8_serving(torch, paths, paged_argv, dense_argv):
+    """Q3: phase 4's requests from one int8 base; then a compact user."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model
+    from repro_torch.optim.quant import is_quantized, quantize_tree
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import engine as engine_mod
+    cfg = get_config("opt-1.3b")
+    base = quantize_tree(build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    ops.reset_launches()
+    args, engine, comps, dt, first = _serve(torch, serve_mod, engine_mod,
+                                            paged_argv, params=base)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    paths["Q3 serve int8"] = launches
+    print(serve_mod.summary(args, engine, comps, dt), flush=True)
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"Q3: kernel {name} was not launched serving the int8 base")
+    check(len(comps) == 8, f"Q3: {len(comps)} completions, expected 8")
+    for comp in comps:
+        t = comp.tokens
+        check(t.shape == (32,) and int(t.min()) >= 0
+              and int(t.max()) < cfg.vocab,
+              f"Q3 rid {comp.rid}: bad tokens {t.tolist()}")
+        check(torch.isfinite(first[comp.rid]).all().item(),
+              f"Q3 rid {comp.rid}: non-finite first-step logits")
+    store, model = engine.store, engine.model
+    del engine
+
+    # the cache charges each user's own bytes only: deltas and the small
+    # unquantized leaves, never the shared int8 values and scales
+    per_user = shared = 0
+    for user in store.users():
+        for k, leaf in store.materialize(user).items():
+            if is_quantized(leaf):
+                check(leaf.q is base[k].q, f"Q3: {user} copied {k}'s q")
+                per_user += leaf.delta.numel() * 4
+                shared += leaf.q.numel() + leaf.scale.numel() * 4
+            else:
+                per_user += leaf.numel() * leaf.element_size()
+    cached = store.cached_bytes()
+    check(cached == per_user, f"Q3: cached_bytes {cached} != {per_user}")
+
+    c0 = comps[0]
+    check(c0.user == "alice", f"Q3 rid 0 served by {c0.user}")
+    prompt = torch.as_tensor(c0.prompt, dtype=torch.long,
+                             device="cuda")[None]
+    base_lg, _ = model.prefill(base, model.init_cache(1, 96, device="cuda"),
+                               prompt)
+    base_row = base_lg[0, -1].float().cpu()
+    diff_user = (first[0] - base_row).abs().max().item()
+    check(diff_user > LOGITS_BF16_ATOL,
+          f"Q3: alice's logits equal the base's (max diff {diff_user})")
+
+    # the dense-mode engine on the same int8 base as the reference
+    _, _, dense_comps, _, dense_first = _serve(torch, serve_mod, engine_mod,
+                                               dense_argv, params=base)
+    worst = max((first[r] - dense_first[r]).abs().max().item()
+                for r in first)
+    check(worst <= LOGITS_BF16_ATOL,
+          f"Q3: paged/chunked first-step logits differ from dense by "
+          f"{worst}")
+
+    # alice's compact int8 delta against her replayed weights
+    t0 = time.perf_counter()
+    store.put_delta("alice_int8", store.export_delta("alice"))
+    compact = store.materialize("alice_int8")
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    mat = store.materialize("alice")
+    eff = (lambda x: x.dequantize_f32() if is_quantized(x) else x.float())
+    worst_eff = 0.0
+    for k, b in base.items():
+        bound_k = (eff(mat[k]) - eff(b)).abs().max().item() / 127.0 \
+            + Q_EFF_ATOL
+        if not is_quantized(b) and b.dtype == torch.bfloat16:
+            # a bf16 leaf stores both sides rounded to bf16: one more
+            # bf16 step at the leaf's magnitude
+            bound_k += (torch.finfo(torch.bfloat16).eps
+                        * eff(mat[k]).abs().max().item())
+        e = (eff(compact[k]) - eff(mat[k])).abs().max().item()
+        check(e <= bound_k, f"Q3: compact {k} off by {e} > {bound_k}")
+        worst_eff = max(worst_eff, e / bound_k)
+    # the compact user serves alice's requests
+    alice = [c for c in comps if c.user == "alice"]
+    eng = ServeEngine(cfg, store, n_slots=4, max_len=96 + 32, seed=0,
+                      paged=True, page_size=16, prefill_chunk=32,
+                      device="cuda")
+    for c in alice:
+        eng.submit(Request(prompt=c.prompt, max_new=32, user="alice_int8"))
+    compact_comps, compact_first = _recorded(torch, engine_mod, eng.run)
+    check(len(compact_comps) == len(alice), "Q3: compact user's requests")
+    for comp in compact_comps:
+        t = comp.tokens
+        check(t.shape == (32,) and int(t.min()) >= 0
+              and int(t.max()) < cfg.vocab,
+              f"Q3 compact rid {comp.rid}: bad tokens {t.tolist()}")
+    c_row = compact_first[compact_comps[0].rid]
+    check(torch.isfinite(c_row).all().item(),
+          "Q3: compact user's first-step logits are not finite")
+    compact_vs_user = (c_row - first[0]).abs().max().item()
+    check(compact_vs_user < diff_user,
+          f"Q3: the compact user's logits are {compact_vs_user} from the "
+          f"replayed user's, the base's {diff_user}")
+    print(json.dumps({
+        "phase": "Q3 serve int8", "first_logits_max_abs_err": worst,
+        "tolerance": LOGITS_BF16_ATOL, "user_vs_base_max_abs_diff": diff_user,
+        "cached_bytes": cached, "per_user_bytes": per_user,
+        "shared_int8_bytes_not_charged": shared,
+        "compact_seconds": compact_s,
+        "compact_weight_err_over_bound": worst_eff,
+        "compact_vs_replayed_first_logits": compact_vs_user,
+        "compact_tokens_equal_replayed": sum(
+            int((a.tokens == b.tokens).all())
+            for a, b in zip(compact_comps, alice)),
+        "launches": launches}), flush=True)
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -752,10 +1212,12 @@ def main():
     kernel_attention(torch, results)
     kernel_zo_matmul(torch, results)
     kernel_flash_attention(torch, results)
+    kernel_zo_add_q(torch, results)
+    kernel_zo_matmul_q(torch, results)
 
     # 4-5. the serving path, and where its time goes
     paths: dict = {}
-    paged_argv = main_path(torch, paths)
+    paged_argv, dense_argv = main_path(torch, paths)
     profile_path(torch, paged_argv)
 
     # T1 + T4: the training CLI, then one profiled step
@@ -770,12 +1232,25 @@ def main():
     train_fused_vs_materialized(torch, paths, "roberta-large",
                                 "T3 roberta", ROBERTA_FUSED_ATOL)
 
+    # Q1-Q3: the int8 base
+    torch.cuda.empty_cache()
+    q1_frozen_base(torch, paths, "opt-1.3b", OPT_FUSED_ATOL)
+    torch.cuda.empty_cache()
+    q1_frozen_base(torch, paths, "roberta-large", ROBERTA_FUSED_ATOL)
+    torch.cuda.empty_cache()
+    q2_int8_train(torch, paths)
+    torch.cuda.empty_cache()
+    q3_int8_serving(torch, paths, paged_argv, dense_argv)
+
     # 6. the kernels line, then the result
     replaces = {"zo_add": "src/repro/kernels/zo_perturb.py:90",
                 "flash_decode": "src/repro/kernels/flash_decode.py:57",
                 "flash_prefill": "src/repro/kernels/flash_prefill.py:45",
                 "zo_matmul": "src/repro/kernels/zo_perturb.py:214",
-                "flash_attention": "src/repro/kernels/flash_attention.py:32"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:32",
+                "zo_add_q": "src/repro/kernels/zo_perturb.py:99",
+                "zo_matmul_q": "src/repro/kernels/zo_perturb.py:234"}
+    sources = {"zo_add_q": "zo_add", "zo_matmul_q": "zo_matmul"}
     kernels = []
     for name, rep in replaces.items():
         r = results[name]
@@ -783,7 +1258,8 @@ def main():
         total = sum(by_path.values())
         check(total > 0, f"kernel {name} was launched on no main path")
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"src/repro_torch/csrc/{name}.cu",
+                        "source": "src/repro_torch/csrc/"
+                                  f"{sources.get(name, name)}.cu",
                         "replaces": rep, "launches": total,
                         "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

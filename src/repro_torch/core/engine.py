@@ -45,6 +45,7 @@ import torch
 from repro_torch.core import rng as zrng
 from repro_torch.core.perturb import add_scaled_z
 from repro_torch.core.perturb_ctx import PerturbCtx
+from repro_torch.optim.quant import is_quantized
 
 _F32 = torch.float32
 Params = Dict[str, torch.Tensor]
@@ -124,12 +125,29 @@ def _apply_direction_updates(params, seed, gs, coeffs, cfg: MezoConfig,
 
 
 def _decay(params, wd_coeff, inplace: bool = False):
-    """Weight decay ``p * (1 - wd)`` in f32, rounded to each leaf's dtype."""
+    """Weight decay ``p * (1 - wd)`` in f32, rounded to each leaf's dtype.
+
+    A quantized leaf decays its effective weight by folding the decay
+    into the f32 delta, ``delta * (1 - wd) - wd * q * s``: the int8
+    values and the power-of-two scales stay frozen (a changed scale would
+    break the exact ``q * s``), and a delta-less leaf (a frozen base)
+    passes through."""
     if wd_coeff is None:
         return params
-    keep = (1.0 - torch.as_tensor(wd_coeff, dtype=_F32))
+    wd = torch.as_tensor(wd_coeff, dtype=_F32)
+    keep = 1.0 - wd
     out = params if inplace else {}
     for path, p in params.items():
+        if is_quantized(p):
+            if p.delta is not None:
+                new = (p.delta * keep.to(p.device)
+                       - wd.to(p.device) * p.base_f32())
+                if inplace:
+                    p.delta.copy_(new)
+                else:
+                    p = dataclasses.replace(p, delta=new)
+            out[path] = p
+            continue
         if not p.is_floating_point():
             out[path] = p
             continue

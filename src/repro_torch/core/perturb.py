@@ -1,9 +1,13 @@
 """Seed-replay perturbation of a flat parameter dict: theta + c * z(seed).
 
-Port of the JAX package's ``core/perturb.py`` for unquantized leaves.
-Parameters are a flat ``dict[str, Tensor]`` keyed by the JAX package's
-``/``-joined leaf paths (``blocks/attn/wq/w``); a leaf's z-field salt is
-the crc32 of that path, and z spans the leaf's whole (stacked) shape.
+Port of the JAX package's ``core/perturb.py``. Parameters are a flat
+``dict[str, Tensor]`` keyed by the JAX package's ``/``-joined leaf paths
+(``blocks/attn/wq/w``); a leaf's z-field salt is the crc32 of that path,
+and z spans the leaf's whole (stacked) shape. A
+:class:`~repro_torch.optim.quant.QuantizedLeaf` is atomic: its salt is
+the leaf's path (never ``.../q``), the update lands in its f32 ``delta``
+while the int8 values and scales stay frozen, and a delta-less leaf (a
+frozen base) passes through untouched.
 
 Dispatch follows the device: a CUDA leaf goes through the hand-written
 ``zo_add`` kernel -- every floating leaf, of any shape, since the kernel
@@ -13,12 +17,14 @@ values are the same either way (bit for bit with Rademacher z).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
 
 from repro_torch.core import rng as zrng
 from repro_torch.kernels import ops as kops
+from repro_torch.optim.quant import is_quantized
 
 Params = Dict[str, torch.Tensor]
 
@@ -57,6 +63,15 @@ def add_scaled_z(params: Params, seed, coeff, dist: str = "rademacher",
     coeff = torch.as_tensor(coeff, dtype=torch.float32)
     out = params if inplace else {}
     for path, leaf in params.items():
+        if is_quantized(leaf):
+            if leaf.delta is not None:
+                d = kops.zo_add(leaf.delta, seed, zrng.leaf_salt(path),
+                                coeff, dist=dist,
+                                out=leaf.delta if inplace else None)
+                leaf = leaf if inplace else dataclasses.replace(leaf,
+                                                                delta=d)
+            out[path] = leaf
+            continue
         if not leaf.is_floating_point():
             out[path] = leaf
             continue

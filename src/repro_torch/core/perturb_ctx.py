@@ -25,6 +25,18 @@ configs, RoBERTa-large) and the port matches both there; in bf16
 (full-width OPT-1.3B) the port follows the kernel, on the CPU and on
 the card alike.
 
+Quantized bases (``optim/quant.py``): every primitive takes a
+``QuantizedLeaf`` in place of a tensor, in the JAX package's dispatch. A
+frozen (delta-less) leaf takes the int8 kernels: ``matmul`` is
+``zo_matmul(scale=)`` (``X @ (q*s + coeff*z)``, f32 W' and f32 dot) and
+``perturb`` is ``zo_add(scale=)`` rounded to the leaf's logical dtype. A
+leaf with a delta (training) takes the reference's fallback:
+``perturb`` forms f32 ``q*s + delta``, adds ``coeff*z`` in place through
+``zo_add`` and rounds to the logical dtype, and ``matmul`` is ``x @
+perturb(w)`` -- a bf16 W' and a bf16 product at full width, as the JAX
+package computes that branch. ``take`` dequantizes only the gathered
+rows.
+
 Salts are the crc32 of the leaf's ``/``-joined path in the stacked
 parameter tree (``blocks/attn/wq/w``), and a layer's slice of a stacked
 ``(L, ...)`` leaf folds the layer index into the pre-hashed base with
@@ -41,6 +53,7 @@ import torch
 
 from repro_torch.core import rng as zrng
 from repro_torch.kernels import ops as kops
+from repro_torch.optim.quant import is_quantized, take_rows_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,40 +95,53 @@ class PerturbCtx:
 
     # -- perturbation primitives ------------------------------------------
 
-    def perturb(self, name: str, leaf: torch.Tensor) -> torch.Tensor:
-        """leaf + coeff*z into a transient, in the leaf's dtype."""
+    def perturb(self, name: str, leaf) -> torch.Tensor:
+        """leaf + coeff*z into a transient, in the leaf's (logical)
+        dtype."""
+        base, off = self._leaf(name)
+        if is_quantized(leaf):
+            if leaf.delta is None:
+                w = kops.zo_add(leaf.q, base, 0, self._coeff(),
+                                dist=self.dist, prime_offset=off,
+                                prehashed=True, scale=leaf.scale)
+            else:
+                w = leaf.dequantize_f32()
+                kops.zo_add(w, base, 0, self._coeff(), dist=self.dist,
+                            prime_offset=off, prehashed=True, out=w)
+            return w.to(leaf.dtype)
         if not leaf.is_floating_point():
             return leaf
-        base, off = self._leaf(name)
         return kops.zo_add(leaf, base, 0, self._coeff(), dist=self.dist,
                            prime_offset=off, prehashed=True)
 
-    def matmul(self, x: torch.Tensor, w: torch.Tensor,
-               name: str = "w") -> torch.Tensor:
+    def matmul(self, x: torch.Tensor, w, name: str = "w") -> torch.Tensor:
         """x @ (w + coeff*z) for x (..., K), w (K, N)."""
-        if not w.is_floating_point():
+        if is_quantized(w) and w.delta is not None:
+            return x @ self.perturb(name, w)
+        if not is_quantized(w) and not w.is_floating_point():
             return x @ w
         base, off = self._leaf(name)
         k, n = w.shape
         lead = x.shape[:-1]
-        y = kops.zo_matmul(x.reshape(-1, k).contiguous(), w, base, 0,
+        wt, scale = (w.q, w.scale) if is_quantized(w) else (w, None)
+        y = kops.zo_matmul(x.reshape(-1, k).contiguous(), wt, base, 0,
                            self._coeff(), dist=self.dist, prime_offset=off,
-                           prehashed=True)
+                           prehashed=True, scale=scale)
         return y.reshape(*lead, n)
 
-    def take(self, name: str, table: torch.Tensor,
-             ids: torch.Tensor) -> torch.Tensor:
+    def take(self, name: str, table, ids: torch.Tensor) -> torch.Tensor:
         """(table + coeff*z)[ids], perturbing only the gathered rows:
-        O(tokens * d) transient z, never O(vocab * d)."""
-        if not table.is_floating_point():
+        O(tokens * d) transient z, never O(vocab * d); a quantized table
+        dequantizes only those rows."""
+        if not is_quantized(table) and not table.is_floating_point():
             return table[ids]
         base, off = self._leaf(name)
-        rows = table[ids].to(torch.float32)
+        rows = take_rows_f32(table, ids)
         z = zrng.z_rows(base, ids, table.shape[1], torch.float32, self.dist,
                         prime_offset=off)
         return (rows + self._coeff().to(rows.device) * z).to(table.dtype)
 
-    def materialize(self, subtree: Dict[str, torch.Tensor],
+    def materialize(self, subtree: Dict[str, Any],
                     name: str = "") -> Dict[str, torch.Tensor]:
         """Perturb every leaf of a flat ``/``-keyed param subtree into a
         transient copy (scoped at the root: the parity oracle the fused

@@ -16,6 +16,22 @@
 // W + c*z is computed in f32 with explicit round-to-nearest intrinsics
 // (no FMA contraction), then rounded to the leaf's dtype with
 // __float2bfloat16_rn -- the plain version's arithmetic exactly.
+//
+// zo_add_q: out = q * s + coeff * z(seed, salt) in f32 for an int8 leaf
+// of rank 2..8 with per-column scales s of shape shape[:-2] + (N,).
+//
+// Replaces the Pallas kernel _zo_add_q_kernel (src/repro/kernels/
+// zo_perturb.py:99, launched by zo_add(scale=) at :144): the perturbed
+// (or, at c = 0, dequantized) effective weight of a frozen int8 leaf.
+//
+// Bound: memory, 5 bytes an element (1 int8 read, 4 f32 written; the
+// scales are N * 4 bytes a layer, read through L1). The design is
+// zo_add's: VEC = 16 contiguous elements a thread, one 16-byte load of
+// q and four 16-byte stores, the outer coordinates (64-bit divisions)
+// hashed once a thread.
+// The value is __fadd_rn(__fmul_rn(float(q), s), __fmul_rn(c, z)): with
+// power-of-two scales q * s is exact, so the bits are the plain
+// version's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -112,6 +128,62 @@ __global__ void zo_add_kernel(const T* __restrict__ w, T* __restrict__ out,
   }
 }
 
+// q * s + c * z for VEC contiguous int8 elements starting at `start`
+template <int VEC>
+__global__ void zo_add_q_kernel(const int8_t* __restrict__ q,
+                                const float* __restrict__ scale,
+                                float* __restrict__ out, int64_t n, Shape s,
+                                uint32_t base, int prime_offset, float coeff,
+                                int dist) {
+  int64_t start = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x) * VEC;
+  if (start >= n) return;
+  const int64_t last = s.dim[s.nd - 1];      // N
+  const int64_t rows_per_lead = s.dim[s.nd - 2];  // K
+  const int last_d = prime_offset + s.nd - 1;
+  int64_t row = start / last;
+  int64_t col = start - row * last;
+  uint32_t h_row = row_hash(base, row, s, prime_offset);
+  const float* srow = scale + (row / rows_per_lead) * last;
+  alignas(16) int8_t v[VEC];
+  const bool full = start + VEC <= n;
+  if constexpr (VEC == 16) {
+    if (full) {
+      *reinterpret_cast<int4*>(v) = *reinterpret_cast<const int4*>(q + start);
+    }
+  }
+  if (VEC == 1 || !full) {
+    for (int i = 0; i < VEC; ++i) v[i] = start + i < n ? q[start + i] : 0;
+  }
+  float r[VEC] = {};
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    if (start + i >= n) break;  // ragged tail: no read past the scales
+    if (col == last) {  // the vector crosses into the next row
+      ++row;
+      col = 0;
+      h_row = row_hash(base, row, s, prime_offset);
+      srow = scale + (row / rows_per_lead) * last;
+    }
+    float z = z_from_bits(fold(h_row, static_cast<uint32_t>(col), last_d),
+                          dist);
+    r[i] = __fadd_rn(__fmul_rn(static_cast<float>(v[i]), srow[col]),
+                     __fmul_rn(coeff, z));
+    ++col;
+  }
+  if constexpr (VEC == 16) {
+    if (full) {
+#pragma unroll
+      for (int i = 0; i < VEC; i += 4)
+        *reinterpret_cast<float4*>(out + start + i) =
+            make_float4(r[i], r[i + 1], r[i + 2], r[i + 3]);
+      return;
+    }
+  }
+  for (int i = 0; i < VEC; ++i)
+    if (start + i < n) out[start + i] = r[i];
+}
+
 template <typename T, int VEC>
 void launch(const void* w, void* out, int64_t n, const Shape& s,
             uint32_t base, int prime_offset, float coeff, int dist,
@@ -155,5 +227,37 @@ extern "C" int repro_zo_add(const void* w, void* out, int64_t n, int dtype,
       launch<__nv_bfloat16, 1>(w, out, n, s, base, prime_offset, coeff,
                                dist, st);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q (int8, rank 2..8), scale (f32, shape[:-2] + (N,)), out (f32, q's
+// shape). vectorized: q and out are 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
+extern "C" int repro_zo_add_q(const void* q, const void* scale, void* out,
+                              int64_t n, const int64_t* shape, int nd,
+                              uint32_t base, int prime_offset, float coeff,
+                              int dist, int vectorized, void* stream) {
+  using namespace repro_torch;
+  if (nd < 2 || nd > kMaxRank || n <= 0 || (dist != 0 && dist != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Shape s{};
+  s.nd = nd;
+  for (int d = 0; d < nd; ++d) s.dim[d] = shape[d];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int kThreads = 256;
+  const int vec = vectorized ? 16 : 1;
+  const int64_t threads_needed = (n + vec - 1) / vec;
+  const unsigned blocks =
+      static_cast<unsigned>((threads_needed + kThreads - 1) / kThreads);
+  const int8_t* qp = static_cast<const int8_t*>(q);
+  const float* sp = static_cast<const float*>(scale);
+  float* op = static_cast<float*>(out);
+  if (vectorized)
+    zo_add_q_kernel<16><<<blocks, kThreads, 0, st>>>(
+        qp, sp, op, n, s, base, prime_offset, coeff, dist);
+  else
+    zo_add_q_kernel<1><<<blocks, kThreads, 0, st>>>(
+        qp, sp, op, n, s, base, prime_offset, coeff, dist);
   return static_cast<int>(cudaGetLastError());
 }

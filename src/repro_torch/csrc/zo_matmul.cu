@@ -20,10 +20,25 @@
 // is repeated once per 128-row block of X (8 times at M = 1024). Edges
 // are masked in M, K and N: OPT's LM head has N = 50272 and M is any
 // batch * sequence.
+//
+// zo_matmul_q: Y = X @ (q * s + coeff * z(seed)) for an int8 W (K, N)
+// with per-column f32 scales s (N,) -- the same kernel, instantiated
+// with an int8 W tile that is dequantized with its column's scale on the
+// way into shared memory: w' = __fadd_rn(__fmul_rn(q, s), __fmul_rn(c,
+// z)), the plain version's f32 value bit for bit with Rademacher z
+// (power-of-two scales make q * s exact).
+//
+// Replaces the Pallas kernel _zo_matmul_q_kernel (src/repro/kernels/
+// zo_perturb.py:234, launched by zo_matmul(scale=) at :310): every
+// projection of the fused perturbed forward over a frozen int8 base, so
+// neither the dequantized base nor the perturbation exists in device
+// memory. Bound: operations, as for zo_matmul (true f32 dot, SIMT f32
+// peak); the weight bytes are a quarter of the f32 kernel's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "zo_hash.cuh"
 
@@ -37,6 +52,17 @@ __device__ __forceinline__ float mm_f32(float x) { return x; }
 __device__ __forceinline__ float mm_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// W element (gk, gn) as f32: a float/bf16 weight as it is, an int8 one
+// times its column's scale (exact with power-of-two scales)
+template <typename TW>
+__device__ __forceinline__ float w_f32(const TW* w, const float*,
+                                       int64_t idx, int64_t) {
+  return mm_f32(w[idx]);
+}
+__device__ __forceinline__ float w_f32(const int8_t* w, const float* scale,
+                                       int64_t idx, int64_t col) {
+  return __fmul_rn(static_cast<float>(w[idx]), scale[col]);
+}
 template <typename T>
 __device__ __forceinline__ T mm_out(float x);
 template <>
@@ -46,11 +72,12 @@ __device__ __forceinline__ __nv_bfloat16 mm_out<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
+template <typename T, typename TW>
 __global__ void __launch_bounds__(kThreads)
-zo_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 T* __restrict__ y, int m, int k, int n, uint32_t base,
-                 int prime_offset, float coeff, int dist) {
+zo_matmul_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                 const float* __restrict__ scale, T* __restrict__ y, int m,
+                 int k, int n, uint32_t base, int prime_offset, float coeff,
+                 int dist) {
   __shared__ __align__(16) float xs[kBK][kBM];  // X tile, transposed
   __shared__ __align__(16) float ws[kBK][kBN];  // perturbed W tile
   const int tid = threadIdx.x;
@@ -86,7 +113,7 @@ zo_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (gk < k && gn < n) {
         const float z = z_from_bits(
             fold(h_row, static_cast<uint32_t>(gn), prime_offset + 1), dist);
-        v = __fadd_rn(mm_f32(w[static_cast<int64_t>(gk) * n + gn]),
+        v = __fadd_rn(w_f32(w, scale, static_cast<int64_t>(gk) * n + gn, gn),
                       __fmul_rn(coeff, z));
       }
       ws[wr][c] = v;
@@ -121,14 +148,21 @@ zo_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
-void launch(const void* x, const void* w, void* y, int m, int k, int n,
-            uint32_t base, int prime_offset, float coeff, int dist,
-            cudaStream_t st) {
+// TW void: W has X's dtype T; TW int8_t: an int8 W with f32 scales
+template <typename T, typename TW>
+void launch(const void* x, const void* w, const float* scale, void* y, int m,
+            int k, int n, uint32_t base, int prime_offset, float coeff,
+            int dist, cudaStream_t st) {
+  using W = std::conditional_t<std::is_void_v<TW>, T, TW>;
   dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  zo_matmul_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      m, k, n, base, prime_offset, coeff, dist);
+  zo_matmul_kernel<T, W><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), scale,
+      static_cast<T*>(y), m, k, n, base, prime_offset, coeff, dist);
+}
+
+bool bad_args(int m, int k, int n, int prime_offset, int dist) {
+  return m <= 0 || k <= 0 || n <= 0 || prime_offset < 0 ||
+         prime_offset + 2 > kMaxRank || (dist != 0 && dist != 1);
 }
 
 }  // namespace
@@ -143,15 +177,39 @@ extern "C" int repro_zo_matmul(const void* x, const void* w, void* y,
                                int prime_offset, float coeff, int dist,
                                void* stream) {
   using namespace repro_torch;
-  if (m <= 0 || k <= 0 || n <= 0 || prime_offset < 0 ||
-      prime_offset + 2 > kMaxRank || (dist != 0 && dist != 1))
+  if (bad_args(m, k, n, prime_offset, dist))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch<float>(x, w, y, m, k, n, base, prime_offset, coeff, dist, st);
+    launch<float, void>(x, w, nullptr, y, m, k, n, base, prime_offset, coeff,
+                        dist, st);
   else if (dtype == 1)
-    launch<__nv_bfloat16>(x, w, y, m, k, n, base, prime_offset, coeff, dist,
-                          st);
+    launch<__nv_bfloat16, void>(x, w, nullptr, y, m, k, n, base,
+                                prime_offset, coeff, dist, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (M, K) of dtype 0 float32 / 1 bfloat16, q (K, N) int8, scale (N,)
+// float32, y (M, N) of x's dtype; the other arguments as for
+// repro_zo_matmul. Returns cudaGetLastError() after the launch.
+extern "C" int repro_zo_matmul_q(const void* x, const void* q,
+                                 const void* scale, void* y, int dtype, int m,
+                                 int k, int n, uint32_t base,
+                                 int prime_offset, float coeff, int dist,
+                                 void* stream) {
+  using namespace repro_torch;
+  if (bad_args(m, k, n, prime_offset, dist))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sp = static_cast<const float*>(scale);
+  if (dtype == 0)
+    launch<float, int8_t>(x, q, sp, y, m, k, n, base, prime_offset, coeff,
+                          dist, st);
+  else if (dtype == 1)
+    launch<__nv_bfloat16, int8_t>(x, q, sp, y, m, k, n, base, prime_offset,
+                                  coeff, dist, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -28,10 +28,24 @@ def _on_cpu(kernel: str, t) -> bool:
 
 
 def zo_add(w, seed, salt: int, coeff, dist: str = "rademacher",
-           prime_offset: int = 0, prehashed: bool = False, out=None):
+           prime_offset: int = 0, prehashed: bool = False, out=None,
+           scale=None):
     """``w + coeff * z(seed, salt)`` in ``w``'s dtype, for a leaf of any
     rank (the kernel masks its own edges; no alignment gate). ``out``
-    (may be ``w`` itself) receives the result."""
+    (may be ``w`` itself) receives the result.
+
+    ``scale`` (f32, ``w.shape[:-2] + (N,)``) marks ``w`` as an int8 base:
+    the result is then the f32 ``w * scale + coeff * z``, from the
+    ``zo_add_q`` kernel on the card (counted as ``zo_add_q``)."""
+    if scale is not None:
+        if out is not None:
+            raise ValueError("zo_add(scale=) returns a new f32 tensor; "
+                             "out= is not taken")
+        if _on_cpu("zo_add_q", w):
+            return _zo.zo_add_q_ref(w, scale, seed, salt, coeff, dist,
+                                    prime_offset, prehashed)
+        return _zo.zo_add_q_cuda(w, scale, seed, salt, coeff, dist,
+                                 prime_offset, prehashed)
     if _on_cpu("zo_add", w):
         res = _zo.zo_add_ref(w, seed, salt, coeff, dist, prime_offset,
                              prehashed)
@@ -41,10 +55,20 @@ def zo_add(w, seed, salt: int, coeff, dist: str = "rademacher",
 
 
 def zo_matmul(x, w, seed, salt: int, coeff, dist: str = "rademacher",
-              prime_offset: int = 0, prehashed: bool = False):
+              prime_offset: int = 0, prehashed: bool = False, scale=None):
     """``x @ (w + coeff * z(seed, salt))`` for x (M, K), w (K, N): f32
     perturbed weight, f32 dot, result in ``x``'s dtype (the Pallas
-    kernel's arithmetic; any shape, no alignment gate)."""
+    kernel's arithmetic; any shape, no alignment gate).
+
+    ``scale`` (f32, (N,)) marks ``w`` as an int8 base: ``x @ (w * scale +
+    coeff * z)``, the ``zo_matmul_q`` kernel on the card (counted as
+    ``zo_matmul_q``)."""
+    if scale is not None:
+        if _on_cpu("zo_matmul_q", x):
+            return _zo.zo_matmul_q_ref(x, w, scale, seed, salt, coeff, dist,
+                                       prime_offset, prehashed)
+        return _zo.zo_matmul_q_cuda(x, w, scale, seed, salt, coeff, dist,
+                                    prime_offset, prehashed)
     if _on_cpu("zo_matmul", x):
         return _zo.zo_matmul_ref(x, w, seed, salt, coeff, dist,
                                  prime_offset, prehashed)

@@ -1,13 +1,19 @@
 """W + coeff * z(seed) and X @ (W + coeff * z(seed)), plain and CUDA.
 
 Port of the JAX package's ``kernels/zo_perturb.py`` (``_tile_z``,
-``zo_add`` and ``zo_matmul`` without ``scale=``) and ``kernels/ref.py``
-(``zo_add_ref``, ``zo_matmul_ref``). The CUDA kernels are
-``csrc/zo_add.cu`` (the seed-replay sweep) and ``csrc/zo_matmul.cu``
-(the fused perturbed matmul); their hash lives in ``csrc/zo_hash.cuh``.
-Both reproduce :func:`repro_torch.core.rng.z_field` element for element:
-bit for bit with Rademacher z, to the last ulps of ``log``/``cos`` with
-Gaussian z.
+``zo_add`` and ``zo_matmul``, with and without ``scale=``) and
+``kernels/ref.py`` (``zo_add_ref``, ``zo_matmul_ref``). The CUDA kernels
+are ``csrc/zo_add.cu`` (the seed-replay sweep, and ``zo_add_q``: an int8
+leaf dequantized with its per-column scales, ``q*s + c*z`` in f32) and
+``csrc/zo_matmul.cu`` (the fused perturbed matmul, and ``zo_matmul_q``:
+``X @ (q*s + c*z)`` over an int8 weight); their hash lives in
+``csrc/zo_hash.cuh``. All reproduce :func:`repro_torch.core.rng.z_field`
+element for element: bit for bit with Rademacher z, to the last ulps of
+``log``/``cos`` with Gaussian z. The quantized variants form
+``q*s + c*z`` as the plain versions do -- ``q*s`` exact (power-of-two
+scales), then one rounding of ``c*z`` and one of the sum -- so their
+perturbed weights equal the plain versions' bit for bit with Rademacher
+z.
 
 ``zo_matmul`` has the Pallas kernel's arithmetic: the perturbed weight
 ``f32(W) + f32(c) * z`` stays in f32 and is dotted in f32 with
@@ -142,6 +148,121 @@ def zo_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed, salt: int,
     coeff_f32 = float(torch.as_tensor(coeff, dtype=torch.float32))
     launch("zo_matmul", "repro_zo_matmul", x.data_ptr(), w.data_ptr(),
            out.data_ptr(), _DTYPES[x.dtype], m, k, n,
+           _base(seed, salt, prehashed), prime_offset, coeff_f32,
+           _DISTS[dist], torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8 bases: q * scale (+ c * z), scale per column, shape q.shape[:-2] + (N,)
+
+
+def _check_scale(q: torch.Tensor, scale: torch.Tensor, kernel: str):
+    if q.dim() < 2:
+        raise ValueError(f"{kernel}: an int8 leaf has rank >= 2, got "
+                         f"{tuple(q.shape)}")
+    want = tuple(q.shape[:-2]) + (q.shape[-1],)
+    if tuple(scale.shape) != want:
+        raise ValueError(f"{kernel}: scale shape {tuple(scale.shape)} != "
+                         f"{want} for q {tuple(q.shape)}")
+
+
+def zo_add_q_ref(q: torch.Tensor, scale: torch.Tensor, seed, salt: int,
+                 coeff, dist="rademacher", prime_offset: int = 0,
+                 prehashed: bool = False) -> torch.Tensor:
+    """Plain version: f32 ``q * scale + f32(coeff) * z`` for an int8 leaf
+    of any rank >= 2, ``scale`` of shape ``q.shape[:-2] + (N,)``."""
+    _check_scale(q, scale, "zo_add_q")
+    z = zrng.z_field(None, 0, q.shape, torch.float32, dist,
+                     prime_offset=prime_offset,
+                     base=_base(seed, salt, prehashed), device=q.device)
+    c = torch.as_tensor(coeff, dtype=torch.float32, device=q.device)
+    return q.to(torch.float32) * scale.unsqueeze(-2) + c * z
+
+
+def zo_add_q_cuda(q: torch.Tensor, scale: torch.Tensor, seed, salt: int,
+                  coeff, dist="rademacher", prime_offset: int = 0,
+                  prehashed: bool = False) -> torch.Tensor:
+    """Launch the ``zo_add_q`` kernel: a new f32 tensor of ``q``'s shape.
+
+    ``q``: a contiguous int8 CUDA tensor of rank 2..8; ``scale``: a
+    contiguous f32 CUDA tensor of shape ``q.shape[:-2] + (N,)``.
+    """
+    for name, t, dt in (("q", q, torch.int8), ("scale", scale,
+                                               torch.float32)):
+        if t.device.type != "cuda":
+            raise ValueError(f"zo_add_q kernel needs CUDA tensors, {name} "
+                             f"is on {t.device}")
+        if t.dtype != dt:
+            raise TypeError(f"zo_add_q kernel: {name} must be {dt}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"zo_add_q kernel needs a contiguous {name}")
+    _check_scale(q, scale, "zo_add_q")
+    if dist not in _DISTS:
+        raise ValueError(f"unknown zo distribution: {dist}")
+    if q.dim() + prime_offset > len(zrng._DIM_PRIMES):
+        raise ValueError(f"leaf rank {q.dim()} + offset {prime_offset} > "
+                         f"{len(zrng._DIM_PRIMES)} unsupported")
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return out
+    dims = (ctypes.c_int64 * q.dim())(*q.shape)
+    vectorized = int(q.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    coeff_f32 = float(torch.as_tensor(coeff, dtype=torch.float32))
+    launch("zo_add_q", "repro_zo_add_q", q.data_ptr(), scale.data_ptr(),
+           out.data_ptr(), q.numel(), dims, q.dim(),
+           _base(seed, salt, prehashed), prime_offset, coeff_f32,
+           _DISTS[dist], vectorized,
+           torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def zo_matmul_q_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                    seed, salt: int, coeff, dist="rademacher",
+                    prime_offset: int = 0, prehashed: bool = False):
+    """Plain version: ``(f32(x) @ (q * scale + f32(coeff) * z)).to(x.dtype)``
+    for x (M, K), int8 q (K, N), scale (N,)."""
+    wp = zo_add_q_ref(q, scale, seed, salt, coeff, dist, prime_offset,
+                      prehashed)
+    return (x.to(torch.float32) @ wp).to(x.dtype)
+
+
+def zo_matmul_q_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                     seed, salt: int, coeff, dist="rademacher",
+                     prime_offset: int = 0, prehashed: bool = False):
+    """Launch the ``zo_matmul_q`` kernel on ``torch.cuda.current_stream()``.
+
+    ``x`` (M, K) float32 or bfloat16, ``q`` (K, N) int8, ``scale`` (N,)
+    float32: contiguous CUDA tensors. Returns (M, N) in ``x``'s dtype.
+    """
+    for name, t in (("x", x), ("q", q), ("scale", scale)):
+        if t.device.type != "cuda":
+            raise ValueError(f"zo_matmul_q kernel needs CUDA tensors, {name} "
+                             f"is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"zo_matmul_q kernel needs a contiguous {name}")
+    if x.dtype not in _DTYPES or q.dtype != torch.int8 \
+            or scale.dtype != torch.float32:
+        raise TypeError(f"zo_matmul_q kernel takes float32/bfloat16 x, int8 "
+                        f"q and float32 scale; got {x.dtype}, {q.dtype}, "
+                        f"{scale.dtype}")
+    if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0]:
+        raise ValueError(f"zo_matmul_q: bad shapes x {tuple(x.shape)}, "
+                         f"q {tuple(q.shape)}")
+    _check_scale(q, scale, "zo_matmul_q")
+    if dist not in _DISTS:
+        raise ValueError(f"unknown zo distribution: {dist}")
+    if prime_offset + 2 > len(zrng._DIM_PRIMES):
+        raise ValueError(f"prime_offset {prime_offset} unsupported")
+    m, k = x.shape
+    n = q.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    coeff_f32 = float(torch.as_tensor(coeff, dtype=torch.float32))
+    launch("zo_matmul_q", "repro_zo_matmul_q", x.data_ptr(), q.data_ptr(),
+           scale.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], m, k, n,
            _base(seed, salt, prehashed), prime_offset, coeff_f32,
            _DISTS[dist], torch.cuda.current_stream(x.device).cuda_stream)
     return out

@@ -72,16 +72,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_engine(args) -> ServeEngine:
+def build_engine(args, params=None) -> ServeEngine:
     """The model, adapters and engine from parsed ``args``, with the
-    synthetic request mix submitted."""
+    synthetic request mix submitted. ``params`` replaces the seeded
+    random base (e.g. an int8 base from ``optim.quant.quantize_tree``,
+    which the CLI itself never makes: it has no ``--quant``)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init(gen, device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = model.init(gen, device)
     if args.ckpt_dir:
         step = store.latest_step(args.ckpt_dir)
         if step is not None:
@@ -120,10 +123,11 @@ def build_engine(args) -> ServeEngine:
     return engine
 
 
-def run(args):
-    """Build the engine from parsed ``args`` and serve the request mix.
-    Returns ``(engine, completions, seconds)``."""
-    engine = build_engine(args)
+def run(args, params=None):
+    """Build the engine from parsed ``args`` (and ``params``, see
+    :func:`build_engine`) and serve the request mix. Returns ``(engine,
+    completions, seconds)``."""
+    engine = build_engine(args, params)
     t0 = time.perf_counter()
     completions = engine.run()
     return engine, completions, time.perf_counter() - t0

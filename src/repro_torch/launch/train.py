@@ -11,8 +11,9 @@ for reduced configs):
 ``--optimizer`` names a registered strategy; ``--estimator`` /
 ``--update`` compose any pairing (``--estimator fused --update
 momentum``). ``--metrics-out`` writes the per-step losses in the JAX
-CLI's format. ``adam``, ``--quant int8`` and ``--straggler-redundancy``
-are accepted as flags and raise ``NotImplementedError`` (later slices).
+CLI's format. ``--quant int8`` trains over a frozen int8 base with f32
+deltas. ``adam`` and ``--straggler-redundancy`` are accepted as flags and
+raise ``NotImplementedError`` (later slices).
 """
 
 from __future__ import annotations
@@ -93,8 +94,11 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--zo-dist", default="rademacher",
                     choices=["rademacher", "gaussian"])
     ap.add_argument("--quant", default="none",
-                    help="base-weight quantization mode; only none is "
-                         "ported (int8 raises until the int8 slice)")
+                    help="base-weight quantization mode (none | int8): "
+                         "int8 freezes the base as int8 + per-channel "
+                         "scales; the ZO update stream lands in per-leaf "
+                         "f32 deltas. Validated by the trainer (unknown "
+                         "modes raise with the supported list)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="no effect: tensors on the card always take the "
                          "CUDA kernels, tensors on the CPU their plain "

@@ -5,6 +5,8 @@ Port of the JAX package's ``models/layers.py``.
 Conventions:
   * params are nested dicts of tensors, keyed as in the JAX param tree
     (``p["wq"]["w"]``), one layer's slice of the stacked leaves at a time;
+    any weight may be an int8 ``QuantizedLeaf``: the plain forward
+    dequantizes it at the use site (``deq``, ``take_rows``);
   * activations flow in the param dtype (bf16 at full size), softmax and
     norm math in f32;
   * every parameterized apply-fn takes an optional ``ctx``
@@ -28,6 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.perturb_ctx import sub as _sub
 from repro_torch.kernels import ops as kops
+from repro_torch.optim.quant import deq as _deq
+from repro_torch.optim.quant import take_rows as _take_rows
 
 _NEG_INF = -1e30
 
@@ -102,9 +106,10 @@ def apply_rope(x, cos_sin):
 
 
 def dense(p, x, ctx=None):
-    """ctx=None is the plain forward; with a ctx the perturbation fuses
-    into the matmul (``PerturbCtx.matmul``)."""
-    y = x @ p["w"] if ctx is None else ctx.matmul(x, p["w"], "w")
+    """ctx=None is the plain forward (a quantized weight dequantizes at
+    the use site); with a ctx the perturbation -- and for a frozen int8
+    base the dequant too -- fuses into the matmul (``PerturbCtx.matmul``)."""
+    y = x @ _deq(p["w"]) if ctx is None else ctx.matmul(x, p["w"], "w")
     if "b" in p:
         y = y + (p["b"] if ctx is None else ctx.perturb("b", p["b"]))
     return y
@@ -213,7 +218,7 @@ def mlp_apply(cfg, p, x, ctx=None):
     if cfg.act in ("swiglu", "geglu"):
         # gated w_in is an interleaved (D, F, 2) leaf: its z-field spans 3
         # dims, so the 2-D zo_matmul does not apply -- transient perturb
-        w_in = p["w_in"]["w"] if ctx is None else \
+        w_in = _deq(p["w_in"]["w"]) if ctx is None else \
             ctx.perturb("w_in/w", p["w_in"]["w"])
         h = torch.einsum("...d,dfg->...fg", x, w_in)
         u, g = h[..., 0], h[..., 1]
@@ -234,12 +239,12 @@ def mlp_apply(cfg, p, x, ctx=None):
 def embed_apply(cfg, p, tokens, positions=None, ctx=None):
     """ctx (scoped to "embed") perturbs only the gathered rows: O(S*D)
     transient z, never the (V, D) table."""
-    x = p["tok"][tokens] if ctx is None else ctx.take("tok", p["tok"],
-                                                      tokens)
+    x = _take_rows(p["tok"], tokens) if ctx is None else ctx.take(
+        "tok", p["tok"], tokens)
     if cfg.pos == "learned":
         pos = (positions if positions is not None
                else torch.arange(tokens.shape[-1], device=tokens.device))
-        x = x + (p["pos"][pos] if ctx is None
+        x = x + (_take_rows(p["pos"], pos) if ctx is None
                  else ctx.take("pos", p["pos"], pos))
     return x
 
@@ -249,7 +254,7 @@ def unembed(cfg, embed_p, head_p, x, ctx=None):
     the param-tree ROOT here (the two branches touch different leaves)."""
     if cfg.tie_embeddings or head_p is None:
         if ctx is None:
-            return x @ embed_p["tok"].T
+            return x @ _deq(embed_p["tok"]).T
         # the tied head reads the embedding transposed; the row-major
         # z-field does not transpose into kernel tiles: perturb transiently
         return x @ ctx.scope("embed").perturb("tok", embed_p["tok"]).T

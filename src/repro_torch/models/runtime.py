@@ -31,6 +31,7 @@ from repro_torch.core.perturb_ctx import sub as _sub
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import RunCtx, get_block
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.quant import is_quantized
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -92,8 +93,10 @@ def nest(params: Dict[str, torch.Tensor], prefix: str) -> dict:
 
 
 def _index(tree, i: int):
-    """Layer ``i`` of every (L, ...) leaf of a nested dict (views)."""
-    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+    """Layer ``i`` of every (L, ...) leaf of a nested dict (views); a
+    quantized leaf slices its q, scale and delta together."""
+    return {k: _index(v, i) if isinstance(v, dict)
+            else v.layer(i) if is_quantized(v) else v[i]
             for k, v in tree.items()}
 
 

@@ -10,8 +10,12 @@ most the step in flight.
 Strategy resolution: ``TrainerConfig.optimizer`` names a registered
 strategy ("mezo", "mezo-parallel", "mezo-fused", "mezo-momentum",
 "mezo-fused-momentum"); ``estimator`` / ``update`` compose any pairing
-directly. Not ported yet, and raising: ``optimizer="adam"`` (the
-gradient baseline), ``quant != "none"`` (the int8 base) and
+directly. ``quant="int8"`` quantizes the base after init with zero f32
+deltas attached (``_maybe_quantize``): the int8 values stay frozen and
+every update lands in the deltas. The quant mode is checked first, as in
+the JAX package (an unknown mode, then adam with int8, raise
+``ValueError``). Not ported yet, and raising ``NotImplementedError``:
+``optimizer="adam"`` (the gradient baseline) and
 ``straggler_redundancy > 0`` (straggler masks).
 
 ``device`` (default ``"cuda"``) is where parameters live and steps run;
@@ -34,8 +38,10 @@ from repro_torch.core.engine import (MezoConfig, build_strategy,
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import resolve_device
+from repro_torch.optim.quant import (check_quant_mode, quantize_tree,
+                                     tree_is_quantized)
 
-Params = Dict[str, torch.Tensor]
+Params = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +50,7 @@ class TrainerConfig:
     estimator: Optional[str] = None  # walk | vmapdir | fused (overrides
     update: Optional[str] = None     # sgd | momentum        .. optimizer)
     mezo: MezoConfig = MezoConfig()
-    quant: str = "none"              # base-weight quantization (int8 slice)
+    quant: str = "none"              # base-weight quantization: none | int8
     n_steps: int = 100
     seed: int = 0
     ckpt_dir: Optional[str] = None
@@ -58,14 +64,17 @@ class Trainer:
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainerConfig,
                  batches: Iterator[Any],
                  log_fn: Callable[[str], None] = print):
+        check_quant_mode(train_cfg.quant)
+        if train_cfg.quant != "none" and train_cfg.optimizer == "adam":
+            raise ValueError(
+                "quantized bases require a ZO strategy: the gradient "
+                "baseline differentiates through the weights, but an "
+                "int8 base is frozen (updates live in the f32 delta, "
+                "written by seed replay)")
         if train_cfg.optimizer == "adam":
             raise NotImplementedError(
                 "optimizer 'adam' (the gradient baseline, optim/adam.py) "
                 "is not ported yet; it lands with the fleet slice")
-        if train_cfg.quant != "none":
-            raise NotImplementedError(
-                f"quant={train_cfg.quant!r}: the int8 base is not ported "
-                f"yet; it lands with the int8 slice")
         if train_cfg.straggler_redundancy:
             raise NotImplementedError(
                 "straggler_redundancy > 0 (runtime/stragglers.py) is not "
@@ -103,6 +112,14 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         return self.model.init(gen, self.device)
 
+    def _maybe_quantize(self, params: Params) -> Params:
+        """One-shot base quantization (``TrainerConfig.quant``). Deltas
+        are attached so every update rule can write the f32 stream; a
+        tree that arrives already quantized passes through."""
+        if self.tcfg.quant == "none" or tree_is_quantized(params):
+            return params
+        return quantize_tree(params, self.tcfg.quant, with_delta=True)
+
     def _sync_losses(self):
         """Host-sync the buffered device scalars (one transfer per batch
         of steps instead of one per step)."""
@@ -121,6 +138,7 @@ class Trainer:
         resume = params is None
         if params is None:
             params = self.init_params()
+        params = self._maybe_quantize(params)
         state = self.strategy.init_state(params, mcfg)
         if resume and self.ckpt:
             restored, start = self.ckpt.restore(state)

@@ -15,9 +15,11 @@ its f32 output is within 1e-6 (precise logf/cosf, last ulps). The
 attention kernels are within 2e-5 in f32 (summation order) and 2e-2 in
 bf16 (the paged plain versions round probabilities to bf16). ``zo_matmul``
 is within 2e-5 of max|Y| with f32 output (summation order) and 1e-2 with
-bf16 output (one rounding). Reduced OPT-1.3B and RoBERTa-large (f32)
-train on the card to the CPU's losses within 1e-4, and replay equals the
-live run at atol 0 there.
+bf16 output (one rounding). The int8 kernels hold to the same limits:
+``zo_add_q`` bit-exact with Rademacher z (1e-6 Gaussian), ``zo_matmul_q``
+2e-5 / 1e-2 of max|Y|. Reduced OPT-1.3B and RoBERTa-large (f32) train on
+the card to the CPU's losses within 1e-4 (over an int8 base too), and
+replay equals the live run at atol 0 there.
 """
 
 import numpy as np
@@ -231,7 +233,106 @@ def test_flash_attention_matches_plain(cuda, shape, dtype, atol, causal):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
-def _train(arch, device, params, tmp, optimizer="mezo-fused"):
+@pytest.mark.parametrize("dist", ["rademacher", "gaussian"])
+@pytest.mark.parametrize("shape", [(5, 9), (7, 33), (3, 17, 129),
+                                   (2, 3, 4, 5), (2048, 50272)], ids=str)
+def test_zo_add_q_matches_plain(cuda, shape, dist):
+    from repro_torch.optim.quant import quantize_leaf
+    ql = quantize_leaf(torch.randn(shape, device=cuda) * 0.02)
+    seed, salt, coeff = 99, rng.leaf_salt("lm_head/w"), -0.0071
+    before = build.LAUNCHES["zo_add_q"]
+    got = ops.zo_add(ql.q, seed, salt, coeff, dist, scale=ql.scale)
+    assert build.LAUNCHES["zo_add_q"] == before + 1
+    want = zp.zo_add_q_ref(ql.q, ql.scale, seed, salt, coeff, dist)
+    assert got.dtype == torch.float32
+    if dist == "rademacher":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=GAUSS_ATOL)
+
+
+def test_zo_add_q_prehashed_slice_and_unaligned(cuda):
+    from repro_torch.optim.quant import quantize_leaf
+    ql = quantize_leaf(torch.randn((4, 8, 40), device=cuda))
+    seed, salt = 5, rng.leaf_salt("blocks/attn/wo/w")
+    full = zp.zo_add_q_cuda(ql.q, ql.scale, seed, salt, 0.25)
+    base = rng.fold_leading(rng.leaf_base(seed, salt), 3)
+    part = zp.zo_add_q_cuda(ql.q[3], ql.scale[3], base, 0, 0.25,
+                            prime_offset=1, prehashed=True)
+    assert torch.equal(part, full[3])
+    q = ql.q.reshape(-1)[1:161].reshape(4, 40)   # odd offset: scalar path
+    assert torch.equal(zp.zo_add_q_cuda(q, ql.scale[0], seed, salt, 0.25),
+                       zp.zo_add_q_ref(q, ql.scale[0], seed, salt, 0.25))
+
+
+@pytest.mark.parametrize("dist", ["rademacher", "gaussian"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", [(7, 33, 130), (16, 96, 160), (33, 64, 256),
+                                 (1024, 2048, 8192)], ids=str)
+def test_zo_matmul_q_matches_plain(cuda, mkn, dtype, dist):
+    from repro_torch.optim.quant import quantize_leaf
+    m, k, n = mkn
+    dt = getattr(torch, dtype)
+    x = torch.randn((m, k), device=cuda).to(dt)
+    ql = quantize_leaf(torch.randn((k, n), device=cuda) * 0.02)
+    salt = rng.leaf_salt("lm_head/w")
+    before = build.LAUNCHES["zo_matmul_q"]
+    got = ops.zo_matmul(x, ql.q, 99, salt, 1e-3, dist, scale=ql.scale)
+    assert build.LAUNCHES["zo_matmul_q"] == before + 1
+    want = zp.zo_matmul_q_ref(x, ql.q, ql.scale, 99, salt, 1e-3, dist)
+    assert got.dtype == dt and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err <= MM_RTOL[dtype], err
+
+
+def test_zo_matmul_q_prehashed_slice_and_rejects(cuda):
+    from repro_torch.optim.quant import quantize_leaf
+    seed, salt = 5, rng.leaf_salt("blocks/mlp/w_in/w")
+    x = torch.randn((40, 64), device=cuda)
+    ql = quantize_leaf(torch.randn((3, 64, 96), device=cuda) * 0.02)
+    wp = zp.zo_add_q_ref(ql.q, ql.scale, seed, salt, 0.5)
+    for layer in range(3):
+        base = rng.fold_leading(rng.leaf_base(seed, salt), layer)
+        got = zp.zo_matmul_q_cuda(x, ql.q[layer], ql.scale[layer], base, 0,
+                                  0.5, prime_offset=1, prehashed=True)
+        want = x @ wp[layer]
+        err = (got - want).abs().max() / want.abs().max()
+        assert err <= MM_RTOL["float32"], err
+    with pytest.raises(TypeError, match="int8"):
+        zp.zo_matmul_q_cuda(x, ql.q[0].float(), ql.scale[0], 1, 2, 0.5)
+    with pytest.raises(ValueError, match="scale shape"):
+        zp.zo_matmul_q_cuda(x, ql.q[0], ql.scale[:2], 1, 2, 0.5)
+
+
+def test_reduced_frozen_int8_fused_loss_on_card(cuda):
+    """The frozen-base fused forward (zo_matmul_q, zo_add) on the card
+    equals the CPU's within 1e-4, and the materialized oracle (zo_add_q)
+    equals the fused loss within 1e-5 (f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import PerturbCtx
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.optim.quant import quantize_tree
+    cfg = get_config("opt-1.3b").reduced()
+    model = build_model(cfg)
+    params = quantize_tree(model.init(torch.Generator().manual_seed(0),
+                                      "cpu"))
+    batch = {k: torch.from_numpy(v)
+             for k, v in next(lm_batches(2, 16, cfg.vocab, seed=1)).items()}
+    ctx = PerturbCtx(seed=7, coeff=1e-3)
+    cpu = float(model.loss(params, batch, perturb=ctx))
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    cbatch = {k: v.to(cuda) for k, v in batch.items()}
+    before = dict(ops.LAUNCHES)
+    fused = float(model.loss(on_card, cbatch, perturb=ctx))
+    assert ops.LAUNCHES["zo_matmul_q"] > before["zo_matmul_q"]
+    mat = float(model.loss(ctx.materialize(on_card), cbatch))
+    assert ops.LAUNCHES["zo_add_q"] > before["zo_add_q"]
+    assert abs(fused - cpu) <= 1e-4 and abs(fused - mat) <= 1e-5
+
+
+def _train(arch, device, params, tmp, optimizer="mezo-fused",
+           quant="none"):
     """3 steps of the reduced config (flash attention) through the
     Trainer on ``device`` from the given initial parameters."""
     import dataclasses
@@ -243,7 +344,8 @@ def _train(arch, device, params, tmp, optimizer="mezo-fused"):
     gen = sst2_batches if cfg.n_classes else lm_batches
     tcfg = TrainerConfig(optimizer=optimizer,
                          mezo=MezoConfig(eps=1e-3, lr=1e-3), n_steps=3,
-                         log_every=1, ckpt_dir=str(tmp), device=device)
+                         log_every=1, ckpt_dir=str(tmp), device=device,
+                         quant=quant)
     tr = Trainer(cfg, tcfg, gen(2, 16, cfg.vocab, seed=1),
                  log_fn=lambda s: None)
     final = tr.train({k: v.to(device, copy=True)
@@ -286,3 +388,56 @@ def test_reduced_strategies_on_card_match_cpu(cuda, optimizer, tmp_path):
     card, _ = _train("opt-1.3b", "cuda", params, tmp_path / "g", optimizer)
     cpu, _ = _train("opt-1.3b", "cpu", params, tmp_path / "c", optimizer)
     np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-4)
+
+
+def test_reduced_int8_training_on_card_matches_cpu(cuda, tmp_path):
+    """--quant int8 on the card: the CPU's losses within 1e-4, the int8
+    values and scales bit-frozen, the deltas moved."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.quant import is_quantized, quantize_tree
+    params = build_model(get_config("opt-1.3b").reduced()).init(
+        torch.Generator().manual_seed(0), "cpu")
+    card, final = _train("opt-1.3b", "cuda", params, tmp_path / "g",
+                         quant="int8")
+    cpu, _ = _train("opt-1.3b", "cpu", params, tmp_path / "c", quant="int8")
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-4)
+    q0 = quantize_tree({k: v.to(cuda) for k, v in params.items()})
+    moved = 0.0
+    for k, leaf in final.items():
+        if is_quantized(leaf):
+            assert torch.equal(leaf.q, q0[k].q)
+            assert torch.equal(leaf.scale, q0[k].scale)
+            moved += float(leaf.delta.abs().sum())
+    assert moved > 0.0
+
+
+def test_reduced_engine_over_int8_base_on_card_matches_cpu(cuda):
+    """Serving from one int8 base (a replayed user and the base) gives
+    the CPU's greedy tokens on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.quant import quantize_tree
+    from repro_torch.serve import AdapterStore, Request, ServeEngine
+    cfg = get_config("opt-1.3b").reduced()
+    params = quantize_tree(build_model(cfg).init(
+        torch.Generator().manual_seed(0), "cpu"))
+    r = np.random.default_rng(2)
+    records = [{"step": i, "seed": int(r.integers(2**31)),
+                "gs": r.normal(size=2).astype(np.float32).tolist(),
+                "lr": 5e-2, "eps": 1e-2} for i in range(3)]
+    prompts = [r.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (7, 5, 9, 6)]
+
+    def serve(device):
+        st = AdapterStore({k: v.to(device) for k, v in params.items()},
+                          device=device)
+        st.put("alice", records)
+        eng = ServeEngine(cfg, st, n_slots=2, max_len=16, paged=True,
+                          page_size=4, prefill_chunk=4, device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(prompt=p, max_new=5,
+                               user="alice" if i % 2 == 0 else None))
+        return [c.tokens.tolist() for c in eng.run()]
+
+    assert serve(cuda) == serve("cpu")

@@ -287,7 +287,7 @@ def test_cli_resume_prints_resumed_step(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--optimizer", "adam"],
-                                  ["--quant", "int8"],
+                                  ["--update", "stale-sgd"],
                                   ["--straggler-redundancy", "1"]])
 def test_unported_trainer_options_raise(flag):
     with pytest.raises(NotImplementedError, match="slice"):
