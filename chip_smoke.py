@@ -16,8 +16,8 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
 4. serving: ``repro_torch.launch.serve.run`` on full-width, 24-layer
    OPT-1.3B (bf16, random weights from a seed), paged KV with page size 16
    and chunked prefill C = 32, 4 slots, 8 greedy requests (96-token
-   prompts, 32 new tokens) round-robin over two replayed ZO adapters and
-   the base. The first-step logits must agree with the dense-mode engine
+   prompts, 32 new tokens): the CLI's six round-robin over two replayed
+   ZO adapters, two more submitted for the base. The first-step logits must agree with the dense-mode engine
    (plain attention) within a bf16 tolerance, and a user's must differ
    from the base's on one prompt.
 5. profile: a shorter run of the same path (4 requests, 16 new tokens)
@@ -45,6 +45,23 @@ Q3. serving phase 4's requests from one int8 base holding the two
    compact int8 delta (``export_delta`` -> ``put_delta``) against the
    replayed user's weights, serving the same requests closer to the
    replayed user than to the base.
+U0. ``zo_add_users`` (U = 4 stacked f32 deltas of OPT-1.3B's ``w_in`` and
+   LM head), ``zo_matmul_users`` (X (4, 1024, 2048) bf16 over a shared and
+   a per-lane W) and ``zo_matmul_users(scale=)`` (a shared int8 W) at the
+   ``w_in`` slice and LM head shapes: against their plain versions, every
+   lane against a lone scalar launch at atol 0; times, bounds, and the
+   library yardstick (one cuBLAS SGEMM ``torch.bmm``, TF32 off); and a
+   bf16 (4, 24, 2048, 8192) stack updated in place on lanes 0 and 2 (U1's
+   use), the other lanes bit-unchanged.
+U1. the ``train_fleet`` CLI at full width (OPT-1.3B, 6 users on 4 slots,
+   3 fused sgd steps each, B 8 x S 128): launches a dispatch (independent
+   of U), every user's losses, parameters and replay log against a lone
+   Trainer at atol 0, one eviction and re-admission bit-exact; U4 one of
+   its dispatches under the profiler.
+U2. the same with ``--quant int8``: q and scales frozen and shared by the
+   slots.
+U3. the user-axis fused loss over one shared base (bf16, then a frozen int8
+   base), U = 4: every lane's loss equal to the scalar fused loss.
 Then one ``{"kernels": [...]}`` line (each kernel with its launches on
 every path above; each must have launched on one) and the final
 ``{"ok": true, ...}``.
@@ -544,6 +561,233 @@ def kernel_zo_matmul_q(torch, results):
 
 
 # ---------------------------------------------------------------------------
+# U0: the user-batched kernels (the multi-tenant step)
+
+U_COEFFS = [1e-3, -1e-3, 2e-3, -5e-4]     # 4 lanes: both signs, 2 eps
+
+
+def kernel_zo_add_users(torch, results):
+    """U0: ``zo_add_users`` on U = 4 stacked OPT-1.3B leaves (the f32
+    deltas of the stacked ``w_in`` and of the LM head) against its plain
+    version and against a lone ``zo_add`` launch per lane; no library
+    call computes it."""
+    from repro_torch.core import rng
+    from repro_torch.kernels import zo_perturb as zp
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    seeds = [975318642 + 7 * i for i in range(4)]
+    shapes = {"blocks/mlp/w_in/w": (4, 24, 2048, 8192),
+              "lm_head/w": (4, 2048, 50272)}
+    rows = []
+    for path, shape in shapes.items():
+        w = torch.randn(shape, generator=gen, device=dev) * 0.02
+        salt = rng.leaf_salt(path)
+        errs = {}
+        for dist in ("rademacher", "gaussian"):
+            got = zp.zo_add_users_cuda(w, seeds, salt, U_COEFFS, dist)
+            want = zp.zo_add_users_ref(w, seeds, salt, U_COEFFS, dist)
+            torch.cuda.synchronize()
+            errs[dist] = (got - want).abs().max().item()
+            tol = 0.0 if dist == "rademacher" else ZO_GAUSS_ATOL
+            check(errs[dist] <= tol, f"zo_add_users {shape} {dist}: err "
+                  f"{errs[dist]} > {tol}")
+            del want
+            for i in range(4):
+                check(torch.equal(got[i], zp.zo_add_cuda(
+                    w[i], seeds[i], salt, U_COEFFS[i], dist)),
+                    f"zo_add_users {shape} {dist}: lane {i} differs from a "
+                    f"lone zo_add launch")
+            del got
+        out = torch.empty_like(w)
+        ms = time_ms(lambda: zp.zo_add_users_cuda(w, seeds, salt, U_COEFFS,
+                                                  out=out), iters=10)
+        del out
+        plain = time_ms(lambda: zp.zo_add_users_ref(w, seeds, salt,
+                                                    U_COEFFS),
+                        iters=1, warmup=1)
+        n = w.numel()
+        b_ms, b_by = bound(8.0 * n, 2.0 * n, "f32")
+        row = {"phase": "U0 kernel", "name": "zo_add_users", "dtype":
+               "float32", "shape": list(shape),
+               "max_abs_err_rademacher": errs["rademacher"],
+               "max_abs_err_gaussian": errs["gaussian"],
+               "tolerance_gaussian": ZO_GAUSS_ATOL,
+               "lanes_equal_lone_launches": True, "kernel_ms": ms,
+               "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+               "bound_by": b_by}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del w
+        torch.cuda.empty_cache()
+    # U1's use: the bf16 VEC=8 instantiation updating only the active
+    # lanes of a stacked parameter in place; the others keep their bits
+    path, lanes = "blocks/mlp/w_in/w", [0, 2]
+    w = (torch.randn((4, 24, 2048, 8192), generator=gen, device=dev)
+         * 0.02).to(torch.bfloat16)
+    before = w.clone()
+    salt = rng.leaf_salt(path)
+    lane_seeds = [seeds[i] for i in lanes]
+    lane_coeffs = [U_COEFFS[i] for i in lanes]
+    zp.zo_add_users_cuda(w, lane_seeds, salt, lane_coeffs, out=w,
+                         lanes=lanes)
+    want = zp.zo_add_users_ref(before[lanes], lane_seeds, salt, lane_coeffs)
+    torch.cuda.synchronize()
+    err = (w[lanes].float() - want.float()).abs().max().item()
+    check(err == 0.0, f"zo_add_users bf16 lanes={lanes} in place: err "
+          f"{err} > 0 against the plain version")
+    for j, i in enumerate(lanes):
+        check(torch.equal(w[i], zp.zo_add_cuda(before[i], lane_seeds[j], salt,
+                                                lane_coeffs[j])),
+              f"zo_add_users bf16 lane {i} differs from a lone zo_add launch")
+    frozen = [i for i in range(4) if i not in lanes]
+    check(all(torch.equal(w[i], before[i]) for i in frozen),
+          f"zo_add_users bf16 lanes={lanes}: lanes {frozen} moved")
+    print(json.dumps({"phase": "U0 kernel", "name": "zo_add_users",
+                      "dtype": "bfloat16", "shape": list(w.shape),
+                      "lanes": lanes, "in_place": True,
+                      "max_abs_err_rademacher": err,
+                      "lanes_equal_lone_launches": True,
+                      "other_lanes_unchanged": True}), flush=True)
+    del w, before, want
+    torch.cuda.empty_cache()
+    results["zo_add_users"] = {
+        "max_abs_err": max(r["max_abs_err_rademacher"] for r in rows),
+        "ms": sum(r["kernel_ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "bound_by": "bytes", "library_ms": None}
+
+
+def kernel_zo_matmul_users(torch, results):
+    """U0: ``zo_matmul_users`` (X (4, 1024, 2048) bf16 over a shared and a
+    per-lane W) and ``zo_matmul_users(scale=)`` (a shared int8 W) at the
+    ``w_in`` slice and LM head shapes, against their plain versions and a
+    lone ``zo_matmul`` / ``zo_matmul_q`` launch per lane. The library
+    yardstick is one cuBLAS SGEMM call, TF32 off, ``torch.bmm`` of
+    ``X.float()`` with every lane's W' materialized beforehand."""
+    from repro_torch.core import rng
+    from repro_torch.kernels import zo_perturb as zp
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    seed0 = 864213579
+    u = len(U_COEFFS)
+    cases = [("opt w_in slice", 1024, 2048, 8192, "blocks/mlp/w_in/w", 5),
+             ("opt lm_head", 1024, 2048, 50272, "lm_head/w", None)]
+    rows = {"shared": [], "per-lane": [], "int8": []}
+    for label, m, k, n, path, layer in cases:
+        salt = rng.leaf_salt(path)
+        seeds = [seed0 + 3 * i for i in range(u)]
+        if layer is None:
+            kw = dict(salt=salt, prime_offset=0, prehashed=False)
+            lane_seeds = seeds
+        else:
+            kw = dict(salt=0, prime_offset=1, prehashed=True)
+            lane_seeds = [rng.fold_leading(rng.leaf_base(s, salt), layer)
+                          for s in seeds]
+        x = torch.randn((u, m, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        for weight in rows:
+            scale, kernel = None, "zo_matmul_users"
+            if weight == "per-lane":
+                w = (torch.randn((u, k, n), generator=gen, device=dev)
+                     * 0.02).to(torch.bfloat16)
+            elif weight == "shared":
+                w = (torch.randn((k, n), generator=gen, device=dev)
+                     * 0.02).to(torch.bfloat16)
+            else:
+                w = torch.randint(-127, 128, (k, n), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                scale = 2.0 ** torch.randint(-12, -6, (n,), generator=gen,
+                                             device=dev).float()
+                kernel = "zo_matmul_users_q"
+
+            def lane_w(i):
+                return w[i] if w.dim() == 3 else w
+
+            errs, abs_err = {}, 0.0
+            for dist in ("rademacher", "gaussian"):
+                got = zp.zo_matmul_users_cuda(x, w, lane_seeds,
+                                              coeffs=U_COEFFS, dist=dist,
+                                              scale=scale, **kw)
+                want = zp.zo_matmul_users_ref(x, w, lane_seeds,
+                                              coeffs=U_COEFFS, dist=dist,
+                                              scale=scale, **kw)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs().max()
+                err = (diff / want.float().abs().max()).item()
+                check(err <= ZO_MM_BF16_RTOL
+                      and torch.isfinite(got).all().item(),
+                      f"{kernel} {label} {weight} {dist}: max|d|/max|Y| "
+                      f"{err} > {ZO_MM_BF16_RTOL}")
+                del want
+                for i in range(u):
+                    if scale is None:
+                        lone = zp.zo_matmul_cuda(
+                            x[i], lane_w(i), lane_seeds[i],
+                            coeff=U_COEFFS[i], dist=dist, **kw)
+                    else:
+                        lone = zp.zo_matmul_q_cuda(
+                            x[i], w, scale, lane_seeds[i],
+                            coeff=U_COEFFS[i], dist=dist, **kw)
+                    check(torch.equal(got[i], lone),
+                          f"{kernel} {label} {weight} {dist}: lane {i} "
+                          f"differs from a lone launch")
+                    del lone
+                errs[dist] = err
+                abs_err = max(abs_err, diff.item())
+                del got
+            ms = time_ms(lambda: zp.zo_matmul_users_cuda(
+                x, w, lane_seeds, coeffs=U_COEFFS, scale=scale, **kw),
+                iters=3)
+            plain = time_ms(lambda: zp.zo_matmul_users_ref(
+                x, w, lane_seeds, coeffs=U_COEFFS, scale=scale, **kw),
+                iters=1, warmup=1)
+            wp = torch.stack([
+                zp.zo_add_q_ref(w, scale, lane_seeds[i], kw["salt"],
+                                U_COEFFS[i], prime_offset=kw["prime_offset"],
+                                prehashed=kw["prehashed"])
+                if scale is not None else
+                zp.zo_add_ref(lane_w(i).float(), lane_seeds[i], kw["salt"],
+                              U_COEFFS[i], prime_offset=kw["prime_offset"],
+                              prehashed=kw["prehashed"])
+                for i in range(u)])
+            xf = x.float()
+            lib = time_ms(lambda: torch.bmm(xf, wp), iters=3)
+            del wp, xf
+            w_bytes = w.numel() * w.element_size() + (
+                0 if scale is None else 4 * n)
+            b_ms, b_by = bound(2.0 * u * (m * k + m * n) + w_bytes,
+                               2.0 * u * m * k * n, "f32")
+            row = {"phase": "U0 kernel", "name": kernel, "case": label,
+                   "weight": weight, "lanes": u, "shape": [m, k, n],
+                   "dtype": "bfloat16",
+                   "rel_err_rademacher": errs["rademacher"],
+                   "rel_err_gaussian": errs["gaussian"],
+                   "tolerance": ZO_MM_BF16_RTOL, "max_abs_err": abs_err,
+                   "lanes_equal_lone_launches": True, "kernel_ms": ms,
+                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            print(json.dumps(row), flush=True)
+            rows[weight].append(row)
+            del w
+            torch.cuda.empty_cache()
+        del x
+    # the kernels line: the per-lane W of the multi-tenant state (U1) for
+    # zo_matmul_users, the shared int8 base (U3) for zo_matmul_users_q,
+    # each summed over the two shapes
+    for name, weight in (("zo_matmul_users", "per-lane"),
+                         ("zo_matmul_users_q", "int8")):
+        rs = rows[weight]
+        results[name] = {
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": sum(r["kernel_ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": sum(r["bound_ms"] for r in rs),
+            "bound_by": "operations",
+            "library_ms": sum(r["library_ms"] for r in rs)}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 
 
@@ -579,12 +823,29 @@ def _recorded(torch, engine_mod, fn):
         engine_mod.ServeEngine._activate = orig
 
 
+N_BASE = 2   # base requests beside the CLI's mix (phases 4 and Q3)
+
+
 def _serve(torch, serve_mod, engine_mod, argv, params=None):
-    """Run the CLI's ``run`` (on ``params`` when given) and record each
-    request's first-step logits."""
+    """Build the CLI's engine (``build_engine``, on ``params`` when given),
+    submit ``N_BASE`` requests for the base model beside the CLI's
+    requests -- with adapters the CLI serves only its users, as the JAX
+    CLI does -- serve them all, and record each request's first-step
+    logits."""
+    import numpy as np
+    from repro_torch.serve import Request
     args = serve_mod.build_parser().parse_args(argv)
-    (engine, comps, dt), first = _recorded(
-        torch, engine_mod, lambda: serve_mod.run(args, params))
+
+    def run():
+        engine = serve_mod.build_engine(args, params)
+        prompts = np.random.default_rng(args.seed + 1).integers(
+            0, engine.cfg.vocab, (N_BASE, args.prompt_len), dtype=np.int32)
+        for p in prompts:
+            engine.submit(Request(prompt=p, max_new=args.gen, user=None))
+        t0 = time.perf_counter()
+        comps = engine.run()
+        return engine, comps, time.perf_counter() - t0
+    (engine, comps, dt), first = _recorded(torch, engine_mod, run)
     return args, engine, comps, dt, first
 
 
@@ -600,8 +861,8 @@ def main_path(torch, paths):
         users[user] = WORK / user
         _write_adapter(users[user], 100 + i)
     common = ["--arch", "opt-1.3b", "--device", "cuda", "--slots", "4",
-              "--requests", "8", "--prompt-len", "96", "--gen", "32",
-              "--seed", "0"]
+              "--requests", str(8 - N_BASE), "--prompt-len", "96", "--gen",
+              "32", "--seed", "0"]
     for user, path in users.items():
         common += ["--adapter", f"{user}={path}"]
     paged = common + ["--paged", "--page-size", "16", "--prefill-chunk", "32"]
@@ -624,6 +885,8 @@ def main_path(torch, paths):
     paths["serve"] = launches
     cfg = engine.cfg
     check(len(comps) == 8, f"{len(comps)} completions, expected 8")
+    check(sorted({str(c.user) for c in comps}) == ["None", "alice", "bob"],
+          f"served users {sorted({str(c.user) for c in comps})}")
     for comp in comps:
         t = comp.tokens
         check(t.shape == (32,) and int(t.min()) >= 0
@@ -1078,6 +1341,8 @@ def q3_int8_serving(torch, paths, paged_argv, dense_argv):
         check(launches[name] > 0,
               f"Q3: kernel {name} was not launched serving the int8 base")
     check(len(comps) == 8, f"Q3: {len(comps)} completions, expected 8")
+    check(sorted({str(c.user) for c in comps}) == ["None", "alice", "bob"],
+          f"Q3 served users {sorted({str(c.user) for c in comps})}")
     for comp in comps:
         t = comp.tokens
         check(t.shape == (32,) and int(t.min()) >= 0
@@ -1177,6 +1442,297 @@ def q3_int8_serving(torch, paths, paged_argv, dense_argv):
         "launches": launches}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# U1-U4: multi-tenant training (one TrainEngine over one resident base)
+
+FLEET_USERS, FLEET_SLOTS, FLEET_STEPS = 6, 4, 3
+
+
+def _fleet_counts(cfg, quant, dispatches):
+    """Launches the CLI's run must make, read off the code (K = 1, the
+    chunked attention, every lane active or not): a dispatch runs ONE
+    2U-lane forward -- each projection one ``zo_matmul_users`` (over an
+    int8 base with deltas: one ``zo_add_users`` for its per-lane W'
+    instead), each norm/bias leaf one ``zo_add_users`` -- and the sgd
+    update sweeps every leaf once with ``zo_add_users``; no scalar
+    kernel runs. Independent of U."""
+    fwd_mm, fwd_add, n_leaves = _forward_counts(cfg)
+    if quant == "int8":
+        per = {"zo_add_users": fwd_mm + fwd_add + n_leaves,
+               "zo_matmul_users": 0}
+    else:
+        per = {"zo_add_users": fwd_add + n_leaves,
+               "zo_matmul_users": fwd_mm}
+    per.update({"zo_matmul_users_q": 0, "zo_matmul": 0, "zo_add": 0,
+                "zo_matmul_q": 0, "zo_add_q": 0, "flash_attention": 0})
+    return per, {k: v * dispatches for k, v in per.items()}
+
+
+def _lone_trainer(torch, cfg, user, quant, mz, log_dir):
+    """A lone port Trainer of ``user`` (the derived seed, the CLI's batch
+    stream, the CLI's seeded init) whose checkpoint manager writes the
+    replay log but skips the step-0 snapshot (a multi-GB write that the
+    comparison does not read). Returns (losses, final params)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.engine import SGD
+    from repro_torch.launch.train_fleet import user_batches
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.train import derive_user_seed
+
+    class LogOnly(CheckpointManager):
+        def on_step(self, step, state, aux=None, direction_mask=None):
+            self.log.append(step, aux.seed, aux.gs, self.cfg.lr,
+                            self.cfg.eps, mask=direction_mask)
+
+    fn = user_batches(cfg, user, TRAIN_B, TRAIN_S, 0)
+    tr = Trainer(cfg, TrainerConfig(
+        estimator="fused", update="sgd", mezo=mz, quant=quant,
+        n_steps=FLEET_STEPS, seed=derive_user_seed(0, user), device="cuda",
+        log_every=10 ** 6), iter([fn(t) for t in range(FLEET_STEPS)]),
+        log_fn=lambda s: None)
+    tr.ckpt = LogOnly(str(log_dir), mezo_cfg=mz, update_rule=SGD)
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    final = tr.train(params)
+    tr.ckpt.log.close()
+    return tr.losses, final
+
+
+def _same_leaf(torch, a, b) -> bool:
+    from repro_torch.optim.quant import is_quantized
+    if is_quantized(a):
+        return (torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+                and torch.equal(a.delta, b.delta))
+    return torch.equal(a, b)
+
+
+def u_fleet(torch, paths, quant):
+    """U1 (bf16 base) / U2 (``--quant int8``): the ``train_fleet`` CLI at
+    full width, 6 users on 4 slots, 3 steps, B 8 x S 128, mezo-fused +
+    sgd; every user against a lone Trainer; one eviction and re-admission;
+    the launches of the run; for U1 one dispatch under the profiler
+    (U4)."""
+    import shutil
+    from repro_torch.core.engine import MezoConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_fleet
+    from repro_torch.optim.quant import is_quantized, quantize_tree
+    from repro_torch.train import TrainEngine, TrainJob
+    label = "U2 fleet int8" if quant == "int8" else "U1 fleet"
+    root = WORK / ("fleet_" + quant)
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", "opt-1.3b", "--device", "cuda", "--users",
+            str(FLEET_USERS), "--slots",
+            str(FLEET_SLOTS), "--steps", str(FLEET_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--estimator", "fused",
+            "--update", "sgd", "--seed", "0", "--quant", quant,
+            "--log-dir", str(root / "engine"), "--out",
+            str(root / "summary.json")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    engine, results = train_fleet.run(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = _gib(torch.cuda.max_memory_allocated())
+    paths[label] = launches
+    st, cfg, store = engine.stats, engine.cfg, engine.store
+    mz = MezoConfig(eps=1e-3, lr=1e-4)
+    check(st.finished == FLEET_USERS and st.admitted == FLEET_USERS,
+          f"{label}: {st}")
+    check(st.user_steps == FLEET_USERS * FLEET_STEPS, f"{label}: {st}")
+    per, want = _fleet_counts(cfg, quant, st.dispatches)
+    got = {k: launches[k] for k in want}
+    print(json.dumps({"phase": f"{label} launches", "launches": launches,
+                      "expected": want, "per_dispatch": per,
+                      "dispatches": st.dispatches}), flush=True)
+    check(got == want, f"{label}: launches {got} != expected {want}")
+    resident = None
+    if quant == "int8":
+        # q and the scales: the CLI's seeded init quantized, bit-frozen
+        q0 = quantize_tree(engine.model.init(
+            torch.Generator(device="cuda").manual_seed(0), "cuda"))
+        for k, leaf in store.base.items():
+            if is_quantized(leaf):
+                check(torch.equal(leaf.q, q0[k].q)
+                      and torch.equal(leaf.scale, q0[k].scale),
+                      f"{label}: {k}'s int8 values or scales moved")
+                lanes = engine._state.params[k]
+                check(lanes.q is leaf.q and lanes.scale is leaf.scale,
+                      f"{label}: the slots copied {k}'s int8 base")
+        del q0
+        resident = sum(leaf.q.numel() + 4 * leaf.scale.numel()
+                       for leaf in store.base.values() if is_quantized(leaf))
+    if quant == "none":
+        u4_profile(torch, engine)
+    state_gib = _gib(sum(
+        (v.delta.numel() * 4 if is_quantized(v) and v.delta is not None
+         else 0) if is_quantized(v) else v.numel() * v.element_size()
+        for v in engine._state.params.values()))
+    del engine
+    torch.cuda.empty_cache()
+    store.cache_bytes = 1          # keep one materialized user at a time
+
+    # every user against a lone Trainer: losses, parameters, replay log
+    t1 = time.perf_counter()
+    for r in results:
+        losses, final = _lone_trainer(torch, cfg, r.user, quant, mz,
+                                      root / f"lone_{r.user}")
+        check(r.losses == losses, f"{label} {r.user}: losses {r.losses} != "
+              f"lone {losses}")
+        mat = store.materialize(r.user)
+        for k, leaf in final.items():
+            check(_same_leaf(torch, leaf, mat[k]),
+                  f"{label} {r.user}: {k} differs from the lone run")
+        log = (root / "engine" / f"{r.user}.jsonl").read_bytes()
+        check(log == (root / f"lone_{r.user}" / "replay.jsonl").read_bytes(),
+              f"{label} {r.user}: replay log differs from the lone run's")
+        del final, mat
+        torch.cuda.empty_cache()
+    lone_s = time.perf_counter() - t1
+
+    # one eviction and re-admission: user-0 evicted after one step,
+    # user-1 trains in its slot meanwhile, user-0 resumes from its log
+    from repro_torch.serve import AdapterStore
+    ev = train_fleet.user_batches
+    fresh = AdapterStore(store.base, mezo_cfg=store.cfg, device="cuda",
+                         update_rule=store.rule)
+    ops.reset_launches()
+    eng = TrainEngine(cfg, fresh, n_slots=1, seed=0, mezo_cfg=mz)
+    eng.submit(TrainJob(user="user-0", batches=ev(cfg, "user-0", TRAIN_B,
+                                                  TRAIN_S, 0),
+                        n_steps=FLEET_STEPS))
+    eng.step()
+    first = eng.evict("user-0")
+    eng.submit(TrainJob(user="user-1", batches=ev(cfg, "user-1", TRAIN_B,
+                                                  TRAIN_S, 0), n_steps=1))
+    eng.submit(TrainJob(user="user-0", batches=ev(cfg, "user-0", TRAIN_B,
+                                                  TRAIN_S, 0),
+                        n_steps=FLEET_STEPS))
+    resumed = [r for r in eng.run()
+               if r.user == "user-0" and not r.evicted][0]
+    torch.cuda.synchronize()
+    paths[f"{label} evict"] = dict(ops.LAUNCHES)
+    del eng
+    want_losses = [r for r in results if r.user == "user-0"][0].losses
+    check(first.evicted and resumed.start_step == 1,
+          f"{label}: eviction {first.n_steps}, resumed at "
+          f"{resumed.start_step}")
+    check(first.losses + resumed.losses == want_losses,
+          f"{label}: evicted + resumed losses {first.losses} + "
+          f"{resumed.losses} != {want_losses}")
+    a, b = fresh.materialize("user-0"), store.materialize("user-0")
+    for k in a:
+        check(_same_leaf(torch, a[k], b[k]),
+              f"{label}: the re-admitted user-0 differs at {k}")
+    del a, b, fresh, store
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": label, "users": FLEET_USERS, "slots": FLEET_SLOTS,
+        "steps": FLEET_STEPS, "batch": [TRAIN_B, TRAIN_S],
+        "dispatches": st.dispatches, "user_steps": st.user_steps,
+        "user_steps_per_s": st.user_steps_per_s,
+        "dispatch_s": st.train_s / st.dispatches,
+        "tokens_per_s": st.user_steps * TRAIN_B * TRAIN_S / st.train_s,
+        "run_seconds": dt, "peak_memory_gib": peak,
+        "stacked_state_gib": state_gib, "int8_resident_bytes": resident,
+        "lanes_bit_equal_lone_trainers": True, "lone_check_seconds": lone_s,
+        "evict_readmit_bit_exact": True,
+        "losses": {r.user: r.losses for r in results}}), flush=True)
+
+
+def u4_profile(torch, engine):
+    """U4: one U1 dispatch (4 active lanes, both signs: 8 lanes) under
+    the profiler, on the engine's stacked state after the CLI's run."""
+    import numpy as np
+    from repro_torch.core import rng
+    from repro_torch.launch.train_fleet import user_batches
+    cfg = engine.cfg
+    lanes = [user_batches(cfg, f"user-{i}", TRAIN_B, TRAIN_S, 0)(0)
+             for i in range(FLEET_SLOTS)]
+    batch = {k: torch.from_numpy(np.stack([b[k] for b in lanes])).to("cuda")
+             for k in lanes[0]}
+    seeds = [rng.fold_seed(4321, i) for i in range(FLEET_SLOTS)]
+    eps = torch.full((FLEET_SLOTS,), 1e-3)
+    lr = torch.full((FLEET_SLOTS,), 1e-4)
+
+    def one():
+        engine._state, _ = engine.strategy.step_users(
+            engine.model.loss, engine._state, batch, seeds, engine.mz,
+            [True] * FLEET_SLOTS, eps=eps, lr=lr)
+    one()                                   # warm (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    wall_us, by_name = _profiled(torch, one)
+    _profile_line("U4 profile", wall_us, by_name, dispatches=1,
+                  lanes=2 * FLEET_SLOTS, dispatch_s_unprofiled=warm_s)
+
+
+def u3_shared_base(torch, paths, base):
+    """U3: the user-axis fused loss over one shared base, U = 4 lanes
+    (two seeds, both signs), over the bf16 base and a frozen int8 base
+    (Q1's path batched): each lane's loss against the scalar fused loss
+    at atol 0; launches; peak memory against Q1's. The shared base is a
+    user-stacked tree of one lane (views ``v[None]``; a frozen int8 leaf
+    has no lane axis), so lane i reads it as lane i % 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import PerturbCtx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim.quant import is_quantized, quantize_tree
+    cfg = get_config("opt-1.3b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    if base == "int8":
+        params = quantize_tree(params)
+        torch.cuda.empty_cache()
+    batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    u = len(U_COEFFS)
+    seeds = [4242, 4242, 77, 77]
+    coeffs = [1e-3, -1e-3, 1e-3, -1e-3]
+    lanes_batch = {k: v[None].expand(u, *v.shape) for k, v in batch.items()}
+    fwd_mm, fwd_add, _ = _forward_counts(cfg)
+    mm = "zo_matmul_users_q" if base == "int8" else "zo_matmul_users"
+    want = {mm: fwd_mm, "zo_add_users": fwd_add, "zo_matmul": 0,
+            "zo_matmul_q": 0, "zo_add": 0}
+    label = f"U3 shared {base}"
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        shared = {k: v if is_quantized(v) else v[None]
+                  for k, v in params.items()}
+        got = model.loss(shared, lanes_batch, perturb=PerturbCtx(
+            seed=seeds, coeff=coeffs))
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        paths[label] = launches
+        scalar = [model.loss(params, batch, perturb=PerturbCtx(s, c))
+                  for s, c in zip(seeds, coeffs)]
+    got = got.tolist()
+    scalar = [x.item() for x in scalar]
+    print(json.dumps({
+        "phase": label, "lanes": u, "batch": [TRAIN_B, TRAIN_S],
+        "losses": got, "scalar_losses": scalar,
+        "user_axis_forward_s": fwd_s, "peak_memory_gib": _gib(peak),
+        "peak_over_resident_gib": _gib(peak - before),
+        "launches": launches, "expected": want}), flush=True)
+    check(got == scalar, f"{label}: lane losses {got} != scalar {scalar}")
+    check({k: launches[k] for k in want} == want,
+          f"{label}: launches {launches} != {want}")
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1214,6 +1770,9 @@ def main():
     kernel_flash_attention(torch, results)
     kernel_zo_add_q(torch, results)
     kernel_zo_matmul_q(torch, results)
+    kernel_zo_add_users(torch, results)
+    kernel_zo_matmul_users(torch, results)
+    torch.cuda.empty_cache()
 
     # 4-5. the serving path, and where its time goes
     paths: dict = {}
@@ -1242,6 +1801,15 @@ def main():
     torch.cuda.empty_cache()
     q3_int8_serving(torch, paths, paged_argv, dense_argv)
 
+    # U1-U4: multi-tenant training over one resident base
+    torch.cuda.empty_cache()
+    u_fleet(torch, paths, "none")
+    torch.cuda.empty_cache()
+    u_fleet(torch, paths, "int8")
+    for base in ("bf16", "int8"):
+        torch.cuda.empty_cache()
+        u3_shared_base(torch, paths, base)
+
     # 6. the kernels line, then the result
     replaces = {"zo_add": "src/repro/kernels/zo_perturb.py:90",
                 "flash_decode": "src/repro/kernels/flash_decode.py:57",
@@ -1249,8 +1817,13 @@ def main():
                 "zo_matmul": "src/repro/kernels/zo_perturb.py:214",
                 "flash_attention": "src/repro/kernels/flash_attention.py:32",
                 "zo_add_q": "src/repro/kernels/zo_perturb.py:99",
-                "zo_matmul_q": "src/repro/kernels/zo_perturb.py:234"}
-    sources = {"zo_add_q": "zo_add", "zo_matmul_q": "zo_matmul"}
+                "zo_matmul_q": "src/repro/kernels/zo_perturb.py:234",
+                "zo_add_users": "src/repro/kernels/zo_perturb.py:165",
+                "zo_matmul_users": "src/repro/kernels/zo_perturb.py:332",
+                "zo_matmul_users_q": "src/repro/kernels/zo_perturb.py:352"}
+    sources = {"zo_add_q": "zo_add", "zo_matmul_q": "zo_matmul",
+               "zo_add_users": "zo_add", "zo_matmul_users": "zo_matmul",
+               "zo_matmul_users_q": "zo_matmul"}
     kernels = []
     for name, rep in replaces.items():
         r = results[name]

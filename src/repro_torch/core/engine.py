@@ -29,6 +29,16 @@ multiplies by the f32 reciprocal of K, and ``gs = (l+ - l-) / (2 eps)``
 is a true f32 division of two tensors on one device (a CUDA division by
 a host scalar would multiply by its reciprocal instead).
 
+:meth:`ZOStrategy.step_users` is the multi-tenant step: U users'
+fine-tunes over a user-stacked state (``core.batching``) in one
+dispatch. Each pristine estimator has a user-axis form -- ``fused`` runs
+both signs of every user's direction as one 2U-lane perturbed forward
+(``zo_matmul_users`` a projection), ``vmapdir`` perturbs every lane's
+copy with ``zo_add_users`` -- and each update rule one whose sweeps are
+``zo_add_users`` launches restricted to the active lanes, so an inactive
+lane keeps its bits and an active one follows a lone :meth:`step` with
+its (seed, eps, lr) bit for bit.
+
 Seeds are host ints and eps a host f32, so no kernel launch waits for
 the device; ``gs`` comes to the host once a step (the update's
 coefficients and the replay log need it there), the loss stays on the
@@ -43,8 +53,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import rng as zrng
-from repro_torch.core.perturb import add_scaled_z
-from repro_torch.core.perturb_ctx import PerturbCtx
+from repro_torch.core.batching import take_user
+from repro_torch.core.perturb import add_scaled_z, add_scaled_z_users
+from repro_torch.core.perturb_ctx import PerturbCtx, host_to
 from repro_torch.optim.quant import is_quantized
 
 _F32 = torch.float32
@@ -75,9 +86,11 @@ class MezoConfig:
 
 @dataclasses.dataclass
 class MezoAux:
+    """One step's scalars; :meth:`ZOStrategy.step_users` gives each a
+    leading user axis (``loss`` (U,), ``gs`` (U, K), ``seed`` U ints)."""
     loss: torch.Tensor             # mean of (l+ + l-)/2, on the device
     gs: torch.Tensor               # (K,) f32 on the host -- the replay log
-    seed: int                      # uint32 step seed -- the replay log
+    seed: Any                      # uint32 step seed -- the replay log
     grad_norm_est: torch.Tensor
 
 
@@ -166,17 +179,26 @@ class DirectionEvaluator:
 
     eval_fn: (loss_fn, params, batch, seed, cfg, eps=None)
     -> (params, gs, ls), gs and ls (K,) f32 on the loss's device.
+    pristine: the base point is never written during evaluation, so the
+    (seed, gs) replay log reconstructs the step bit-exactly.
     donate: the step consumes its input state (in-place updates).
+    users_fn: the user-axis form over a user-stacked state, (loss_fn,
+    params, batch, seeds, cfg, eps) -> (params, gs, ls), gs and ls
+    (U, K); ``None`` for an estimator that is not pristine.
     """
     name: str
     eval_fn: Callable[..., Tuple[Params, torch.Tensor, torch.Tensor]]
+    pristine: bool
     donate: bool
+    users_fn: Optional[Callable[..., Tuple[Params, torch.Tensor,
+                                           torch.Tensor]]] = None
 
 
 def _projected(lp, lm, eps):
     """``((l+ - l-) / (2 eps), (l+ + l-) / 2)``: a true f32 division, the
-    divisor a tensor on the losses' device."""
-    den = (2.0 * eps).to(lp.device)
+    divisor a tensor on the losses' device (eps one number, or one a
+    lane)."""
+    den = host_to(2.0 * eps, _F32, lp.device)
     return (lp - lm) / den, 0.5 * (lp + lm)
 
 
@@ -234,6 +256,48 @@ def _eval_fused(loss_fn: LossFn, params: Params, batch: Any, seed,
     return params, torch.stack(gs), torch.stack(ls)
 
 
+def _eval_fused_users(loss_fn: LossFn, params: Params, batch: Any, seeds,
+                      cfg: MezoConfig, eps):
+    """User-axis fused evaluation: per direction ONE perturbed forward of
+    2U lanes, lanes 0..U-1 at ``+eps[u]`` and U..2U-1 at ``-eps[u]``
+    (lane i reads user i % U's parameters and batch)."""
+    u = len(seeds)
+    both = {k: torch.cat([v, v]) for k, v in batch.items()}
+    coeffs = torch.cat([eps, -eps])
+    gs, ls = [], []
+    for k in range(cfg.n_directions):
+        sk = [zrng.fold_seed(s, k) for s in seeds]
+        l = loss_fn(params, both, perturb=PerturbCtx(
+            seed=sk + sk, coeff=coeffs, dist=cfg.dist))
+        g, m = _projected(l[:u], l[u:], eps)
+        gs.append(g)
+        ls.append(m)
+    return params, torch.stack(gs, 1), torch.stack(ls, 1)
+
+
+def _eval_vmapdir_users(loss_fn: LossFn, params: Params, batch: Any, seeds,
+                        cfg: MezoConfig, eps):
+    """User-axis vmapdir: every lane's perturbed copy in one
+    ``zo_add_users`` sweep a sign, then each lane's loss on its own copy
+    at the scalar path's shapes."""
+    u = len(seeds)
+    gs, ls = [], []
+    for k in range(cfg.n_directions):
+        sk = [zrng.fold_seed(s, k) for s in seeds]
+        sides = []
+        for c in (eps, -eps):
+            moved = add_scaled_z_users(params, sk, c, dist=cfg.dist)
+            sides.append(torch.stack([
+                loss_fn(take_user(moved, i),
+                        {key: v[i] for key, v in batch.items()})
+                for i in range(u)]))
+            del moved
+        g, m = _projected(sides[0], sides[1], eps)
+        gs.append(g)
+        ls.append(m)
+    return params, torch.stack(gs, 1), torch.stack(ls, 1)
+
+
 # ---------------------------------------------------------------------------
 # update rules
 
@@ -247,10 +311,14 @@ class UpdateRule:
                inplace=False) -> (params, opt). Consumes only scalars
                beyond params: the checkpoint manager's and the adapter
                store's replay primitive (zero forward passes).
+    users_fn:  the same over a user-stacked state, (params, opt, seeds,
+               gs (U, K), cfg, lr (U,), lanes, inplace=False) -> (params,
+               opt), touching only the lanes listed.
     """
     name: str
     init_fn: Callable[[MezoConfig], Any]
     update_fn: Callable[..., Tuple[Any, Any]]
+    users_fn: Optional[Callable[..., Tuple[Any, Any]]] = None
 
 
 def _sgd_init(cfg: MezoConfig):
@@ -268,6 +336,45 @@ def _sgd_update(params, opt, seed, gs, direction_mask, cfg: MezoConfig,
                                                   dtype=_F32), inplace)
     return _apply_direction_updates(params, seed, gs, coeffs, cfg,
                                     inplace), opt
+
+
+def _user_coeffs(kk: int, lr: torch.Tensor) -> torch.Tensor:
+    """(U, K) per-lane :func:`_direction_coeffs` (no straggler mask)."""
+    c = -lr * torch.tensor(1.0 / kk, dtype=_F32)
+    return c[:, None].expand(-1, kk)
+
+
+def _decay_users(params, wd: torch.Tensor, lanes, inplace: bool):
+    """:func:`_decay` of each listed lane with its own ``wd[i]``, in
+    place on that lane's views (a copy first unless ``inplace``)."""
+    if not inplace:
+        params = {p: (dataclasses.replace(v, delta=v.delta.clone())
+                      if is_quantized(v) and v.delta is not None
+                      else v if is_quantized(v) else v.clone())
+                  for p, v in params.items()}
+    for i, lane in enumerate(lanes):
+        _decay(take_user(params, lane), wd[i], inplace=True)
+    return params
+
+
+def _sgd_update_users(params, opt, seeds, gs, cfg: MezoConfig, lr, lanes,
+                      inplace: bool = False):
+    gs = torch.as_tensor(gs, dtype=_F32)[lanes]
+    lr = torch.as_tensor(lr, dtype=_F32)[lanes]
+    seeds = [zrng._u32(seeds[i]) for i in lanes]
+    coeffs = _user_coeffs(gs.shape[1], lr)
+    if cfg.weight_decay:
+        params = _decay_users(params, lr * torch.tensor(cfg.weight_decay,
+                                                        dtype=_F32),
+                              lanes, inplace)
+        inplace = True               # the decayed dict is already a copy
+    for k in range(gs.shape[1]):
+        params = add_scaled_z_users(
+            params, [zrng.fold_seed(s, k) for s in seeds],
+            coeffs[:, k] * gs[:, k], dist=cfg.dist, lanes=lanes,
+            inplace=inplace)
+        inplace = True
+    return params, opt
 
 
 def momentum_history_init(cfg: MezoConfig):
@@ -316,6 +423,45 @@ def _momentum_update(params, opt, seed, gs, direction_mask,
     return params, {"seeds": seeds_h, "gs": gs_h, "coeffs": cf_h}
 
 
+def _momentum_update_users(params, opt, seeds, gs, cfg: MezoConfig, lr,
+                           lanes, inplace: bool = False):
+    """:func:`_momentum_update` of each listed lane over a user-stacked
+    window ``{"seeds": (U, M), "gs": (U, M, K), "coeffs": (U, M, K)}``:
+    the same f32 products a lane at a time, each sweep one
+    ``zo_add_users`` over the listed lanes."""
+    idx = torch.as_tensor(lanes, dtype=torch.int64)
+    gs = torch.as_tensor(gs, dtype=_F32)[idx]
+    lr = torch.as_tensor(lr, dtype=_F32)[idx]
+    kk = gs.shape[1]
+    beta = torch.tensor(cfg.momentum, dtype=_F32)
+    coeffs = _user_coeffs(kk, lr)
+    new_seeds = torch.tensor([zrng._u32(seeds[i]) for i in lanes],
+                             dtype=torch.int64)
+    seeds_h = torch.cat([opt["seeds"][idx][:, 1:], new_seeds[:, None]], 1)
+    gs_h = torch.cat([opt["gs"][idx][:, 1:], gs[:, None]], 1)
+    cf_h = torch.cat([opt["coeffs"][idx][:, 1:], coeffs[:, None]], 1)
+    m = seeds_h.shape[1]
+    ages = torch.arange(m - 1, -1, -1, dtype=_F32)
+    weights = ((1.0 - beta) * beta ** ages if cfg.momentum
+               else torch.where(ages == 0, 1.0, 0.0).to(_F32))
+    if cfg.weight_decay:
+        params = _decay_users(params, lr * torch.tensor(cfg.weight_decay,
+                                                        dtype=_F32),
+                              lanes, inplace)
+        inplace = True
+    for j in range(m):
+        for k in range(kk):
+            params = add_scaled_z_users(
+                params, [zrng.fold_seed(int(s), k) for s in seeds_h[:, j]],
+                weights[j] * cf_h[:, j, k] * gs_h[:, j, k], dist=cfg.dist,
+                lanes=lanes, inplace=inplace)
+            inplace = True
+    new = {key: v.clone() for key, v in opt.items()}
+    new["seeds"][idx], new["gs"][idx], new["coeffs"][idx] = (seeds_h, gs_h,
+                                                             cf_h)
+    return params, new
+
+
 def _stale_sgd_update(*args, **kwargs):
     raise NotImplementedError("update rule 'stale-sgd' is not ported yet; "
                               "it lands with the fleet slice")
@@ -353,6 +499,53 @@ class ZOStrategy:
         aux = MezoAux(loss=ls.mean(), gs=gs, seed=seed,
                       grad_norm_est=gs.abs().mean())
         return TrainState(params=params, step=state.step + 1, opt=opt), aux
+
+    def step_users(self, loss_fn: LossFn, state: TrainState, batch: Any,
+                   seeds, cfg: MezoConfig, active=None, eps=None, lr=None
+                   ) -> Tuple[TrainState, MezoAux]:
+        """Advance U users' slots in ONE dispatch (the multi-tenant step).
+
+        ``state`` is a user-stacked TrainState (``core.batching``): every
+        per-user leaf carries a leading U axis, quantized leaves share
+        the one resident int8 base, ``step`` is (U,). ``batch`` leaves
+        are stacked on a leading U axis; ``seeds`` U host ints; ``eps`` /
+        ``lr`` per-user vectors (or one number); ``active`` the (U,)
+        slot-occupancy mask. Inactive lanes come back bit-identical
+        (the update touches only active lanes), active lanes
+        bit-identical to a lone :meth:`step` with the same (seed, eps,
+        lr). One host sync, for the (U, K) ``gs``.
+
+        Requires a pristine estimator (``fused`` / ``vmapdir``): the
+        walk's in-place sweeps would accumulate roundoff per lane and
+        break the replay-log contract eviction and resume rest on.
+        """
+        if not self.estimator.pristine:
+            raise ValueError(
+                f"step_users requires a pristine direction estimator "
+                f"(got {self.estimator.name!r}): in-place walk roundoff "
+                f"would break per-user replay-log bit-parity")
+        if self.update.users_fn is None:
+            raise NotImplementedError(
+                f"update rule {self.update.name!r} has no user-axis form")
+        seeds = [zrng._u32(s) for s in seeds]
+        u = len(seeds)
+        eps = torch.as_tensor(_f32(eps, cfg.eps)).expand(u).contiguous()
+        lr = torch.as_tensor(_f32(lr, cfg.lr)).expand(u).contiguous()
+        lanes = (list(range(u)) if active is None else
+                 [i for i in range(u) if bool(active[i])])
+        params, gs, ls = self.estimator.users_fn(
+            loss_fn, state.params, batch, seeds, cfg, eps)
+        gs = gs.to("cpu")                 # the one host sync of a dispatch
+        opt = state.opt
+        if lanes:
+            params, opt = self.update.users_fn(
+                params, state.opt, seeds, gs, cfg, lr, lanes,
+                inplace=self.estimator.donate)
+        step = torch.as_tensor(state.step, dtype=torch.int64).clone()
+        step[lanes] += 1
+        aux = MezoAux(loss=torch.stack([ls[i].mean() for i in range(u)]),
+                      gs=gs, seed=seeds, grad_norm_est=gs.abs().mean(1))
+        return TrainState(params=params, step=step, opt=opt), aux
 
     def run_chunk(self, loss_fn: LossFn, state: TrainState, batches: Any,
                   base_seed, cfg: MezoConfig
@@ -461,19 +654,22 @@ def get_strategy(name: str) -> ZOStrategy:
 
 
 WALK = register_estimator(DirectionEvaluator(
-    name="walk", eval_fn=_eval_walk, donate=True))
+    name="walk", eval_fn=_eval_walk, pristine=False, donate=True))
 VMAPDIR = register_estimator(DirectionEvaluator(
-    name="vmapdir", eval_fn=_eval_vmapdir, donate=False))
+    name="vmapdir", eval_fn=_eval_vmapdir, pristine=True, donate=False,
+    users_fn=_eval_vmapdir_users))
 FUSED = register_estimator(DirectionEvaluator(
-    name="fused", eval_fn=_eval_fused, donate=True))
+    name="fused", eval_fn=_eval_fused, pristine=True, donate=True,
+    users_fn=_eval_fused_users))
 
 SGD = register_update_rule(UpdateRule(
-    name="sgd", init_fn=_sgd_init, update_fn=_sgd_update))
+    name="sgd", init_fn=_sgd_init, update_fn=_sgd_update,
+    users_fn=_sgd_update_users))
 STALE_SGD = register_update_rule(UpdateRule(
     name="stale-sgd", init_fn=_sgd_init, update_fn=_stale_sgd_update))
 MOMENTUM = register_update_rule(UpdateRule(
     name="momentum", init_fn=momentum_history_init,
-    update_fn=_momentum_update))
+    update_fn=_momentum_update, users_fn=_momentum_update_users))
 
 register_strategy("mezo", "walk", "sgd")
 register_strategy("mezo-parallel", "vmapdir", "sgd")

@@ -9,6 +9,11 @@ the leaf's path (never ``.../q``), the update lands in its f32 ``delta``
 while the int8 values and scales stay frozen, and a delta-less leaf (a
 frozen base) passes through untouched.
 
+:func:`add_scaled_z_users` is the multi-tenant counterpart: over a
+user-stacked dict (``core.batching``: a leading lane axis on every plain
+leaf and every delta) it adds ``coeffs[i] * z(seeds[i])`` to lane
+``lanes[i]`` of every leaf, one ``zo_add_users`` launch a leaf.
+
 Dispatch follows the device: a CUDA leaf goes through the hand-written
 ``zo_add`` kernel -- every floating leaf, of any shape, since the kernel
 masks its own edges -- and a CPU leaf through its plain version. The
@@ -77,4 +82,35 @@ def add_scaled_z(params: Params, seed, coeff, dist: str = "rademacher",
             continue
         out[path] = kops.zo_add(leaf, seed, zrng.leaf_salt(path), coeff,
                                 dist=dist, out=leaf if inplace else None)
+    return out
+
+
+def add_scaled_z_users(params: Params, seeds, coeffs,
+                       dist: str = "rademacher", lanes=None,
+                       inplace: bool = False) -> Params:
+    """Lane ``lanes[i]`` (default ``i``) of every user-stacked leaf plus
+    ``coeffs[i] * z(seeds[i])``: each lane bit for bit the scalar
+    :func:`add_scaled_z` with that lane's (seed, coeff), one
+    ``zo_add_users`` launch a leaf. Lanes not listed keep their bits;
+    ``inplace`` writes the leaves (and deltas) in place and returns
+    ``params`` itself."""
+    out = params if inplace else {}
+    for path, leaf in params.items():
+        salt = zrng.leaf_salt(path)
+        if is_quantized(leaf):
+            if leaf.delta is not None:
+                dst = leaf.delta if inplace else (
+                    None if lanes is None else leaf.delta.clone())
+                d = kops.zo_add_users(leaf.delta, seeds, salt, coeffs,
+                                      dist=dist, out=dst, lanes=lanes)
+                leaf = leaf if inplace else dataclasses.replace(leaf,
+                                                                delta=d)
+            out[path] = leaf
+            continue
+        if not leaf.is_floating_point():
+            out[path] = leaf
+            continue
+        dst = leaf if inplace else (None if lanes is None else leaf.clone())
+        out[path] = kops.zo_add_users(leaf, seeds, salt, coeffs, dist=dist,
+                                      out=dst, lanes=lanes)
     return out

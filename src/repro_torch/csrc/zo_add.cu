@@ -32,6 +32,20 @@
 // The value is __fadd_rn(__fmul_rn(float(q), s), __fmul_rn(c, z)): with
 // power-of-two scales q * s is exact, so the bits are the plain
 // version's.
+//
+// zo_add_users: out[l] = W[l] + coeff[i] * z(seed[i]) for the lanes
+// l = idx[i] of a user-stacked leaf W (U, *leaf_shape), one launch for
+// every lane (the multi-tenant step's updates, and the per-lane W' of
+// an int8 leaf with stacked deltas).
+//
+// Replaces the Pallas kernel _zo_add_users_kernel (src/repro/kernels/
+// zo_perturb.py:165, launched by zo_add_users at :194). Bound: memory,
+// as zo_add. The lane is the grid's outermost dimension (blockIdx.y) and
+// each lane runs zo_add's body unchanged on its own leaf with its own
+// (base, coeff), so every lane's bits are a lone zo_add launch's. A lane
+// may start anywhere (a layer slice of a stacked leaf has a lane stride
+// of L * leaf size): the 16-byte path is taken only when every lane's
+// start is aligned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -80,12 +94,13 @@ __device__ __forceinline__ uint32_t row_hash(uint32_t base, int64_t row,
   return h;
 }
 
+// VEC contiguous elements of one leaf from element `start` on
 template <typename T, int VEC>
-__global__ void zo_add_kernel(const T* __restrict__ w, T* __restrict__ out,
-                              int64_t n, Shape s, uint32_t base,
-                              int prime_offset, float coeff, int dist) {
-  int64_t start = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x) * VEC;
+__device__ __forceinline__ void zo_add_body(const T* __restrict__ w,
+                                            T* __restrict__ out, int64_t n,
+                                            const Shape& s, uint32_t base,
+                                            int prime_offset, float coeff,
+                                            int dist, int64_t start) {
   if (start >= n) return;
   if (s.nd == 0) {  // a scalar leaf: one extra avalanche unless a slice
     uint32_t h = prime_offset == 0 ? avalanche(base) : base;
@@ -126,6 +141,31 @@ __global__ void zo_add_kernel(const T* __restrict__ w, T* __restrict__ out,
     out[i] = from_f32<T>(__fadd_rn(to_f32(w[i]), __fmul_rn(coeff, z)));
     ++col;
   }
+}
+
+template <typename T, int VEC>
+__global__ void zo_add_kernel(const T* __restrict__ w, T* __restrict__ out,
+                              int64_t n, Shape s, uint32_t base,
+                              int prime_offset, float coeff, int dist) {
+  const int64_t start = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                         threadIdx.x) * VEC;
+  zo_add_body<T, VEC>(w, out, n, s, base, prime_offset, coeff, dist, start);
+}
+
+// grid lane blockIdx.y: lane idx[y] of w and out, with lane y's scalars
+template <typename T, int VEC>
+__global__ void zo_add_users_kernel(const T* __restrict__ w,
+                                    T* __restrict__ out, int64_t n,
+                                    int64_t w_stride, int64_t out_stride,
+                                    Shape s, Lanes lanes, int prime_offset,
+                                    int dist) {
+  const int y = blockIdx.y;
+  const int64_t lane = lanes.idx[y];
+  const int64_t start = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                         threadIdx.x) * VEC;
+  zo_add_body<T, VEC>(w + lane * w_stride, out + lane * out_stride, n, s,
+                      lanes.base[y], prime_offset, lanes.coeff[y], dist,
+                      start);
 }
 
 // q * s + c * z for VEC contiguous int8 elements starting at `start`
@@ -197,6 +237,21 @@ void launch(const void* w, void* out, int64_t n, const Shape& s,
       prime_offset, coeff, dist);
 }
 
+template <typename T, int VEC>
+void launch_users(const void* w, void* out, int64_t n, int64_t w_stride,
+                  int64_t out_stride, const Shape& s, const Lanes& lanes,
+                  int n_lanes, int prime_offset, int dist,
+                  cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  int64_t threads_needed = (n + VEC - 1) / VEC;
+  dim3 grid(static_cast<unsigned>((threads_needed + kThreads - 1) /
+                                  kThreads),
+            static_cast<unsigned>(n_lanes));
+  zo_add_users_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(w), static_cast<T*>(out), n, w_stride,
+      out_stride, s, lanes, prime_offset, dist);
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -259,5 +314,51 @@ extern "C" int repro_zo_add_q(const void* q, const void* scale, void* out,
   else
     zo_add_q_kernel<1><<<blocks, kThreads, 0, st>>>(
         qp, sp, op, n, s, base, prime_offset, coeff, dist);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w, out: n_lanes' leaves of n elements each (dtype 0 float32,
+// 1 bfloat16), lane l of w at w + l * w_stride and of out at
+// out + l * out_stride (elements); grid lane i updates lane idx[i] with
+// base[i] and coeff[i]. shape: one leaf's shape (rank 0..8).
+// vectorized: every lane's start is 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
+extern "C" int repro_zo_add_users(const void* w, void* out, int64_t n,
+                                  int64_t w_stride, int64_t out_stride,
+                                  int dtype, const int64_t* shape, int nd,
+                                  const uint32_t* bases, const float* coeffs,
+                                  const int* idx, int n_lanes,
+                                  int prime_offset, int dist, int vectorized,
+                                  void* stream) {
+  using namespace repro_torch;
+  if (nd < 0 || nd > kMaxRank || n <= 0 || (dtype != 0 && dtype != 1) ||
+      n_lanes <= 0 || n_lanes > kMaxLanes || (dist != 0 && dist != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Shape s{};
+  s.nd = nd;
+  for (int d = 0; d < nd; ++d) s.dim[d] = shape[d];
+  Lanes lanes{};
+  for (int i = 0; i < n_lanes; ++i) {
+    lanes.base[i] = bases[i];
+    lanes.coeff[i] = coeffs[i];
+    lanes.idx[i] = idx[i];
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (vectorized)
+      launch_users<float, 4>(w, out, n, w_stride, out_stride, s, lanes,
+                             n_lanes, prime_offset, dist, st);
+    else
+      launch_users<float, 1>(w, out, n, w_stride, out_stride, s, lanes,
+                             n_lanes, prime_offset, dist, st);
+  } else {
+    if (vectorized)
+      launch_users<__nv_bfloat16, 8>(w, out, n, w_stride, out_stride, s,
+                                     lanes, n_lanes, prime_offset, dist, st);
+    else
+      launch_users<__nv_bfloat16, 1>(w, out, n, w_stride, out_stride, s,
+                                     lanes, n_lanes, prime_offset, dist, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }

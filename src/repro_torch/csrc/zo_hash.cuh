@@ -21,6 +21,19 @@ namespace repro_torch {
 constexpr int kMaxRank = 8;
 constexpr uint32_t kGaussSalt = 0x68E31DA4u;
 
+// The user-batched kernels' per-lane scalars: lane i of the grid uses the
+// pre-hashed base base[i] and the coefficient coeff[i]; zo_add_users
+// reads and writes lane idx[i] of its stacked leaf. The TPU kernels keep
+// their (U,) seed and coefficient vectors in SMEM; here they travel by
+// value in the kernel's parameter space (a constant bank every thread
+// reads), so a launch needs no host-to-device copy and no sync.
+constexpr int kMaxLanes = 64;
+struct Lanes {
+  uint32_t base[kMaxLanes];
+  float coeff[kMaxLanes];
+  int idx[kMaxLanes];
+};
+
 __host__ __device__ __forceinline__ uint32_t dim_prime(int d) {
   switch (d) {
     case 0: return 0x9E3779B1u;

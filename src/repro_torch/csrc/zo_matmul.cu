@@ -34,6 +34,25 @@
 // neither the dequantized base nor the perturbation exists in device
 // memory. Bound: operations, as for zo_matmul (true f32 dot, SIMT f32
 // peak); the weight bytes are a quarter of the f32 kernel's.
+//
+// zo_matmul_users: Y[i] = X[i] @ (W[i % P] + coeff[i] * z(seed[i])) for
+// X (U, M, K) and a W that is shared (P = 1, lane stride 0: the one
+// resident base) or stacked per lane (P lanes, any lane stride: a layer
+// slice of the multi-tenant state's (P, L, K, N) leaf);
+// zo_matmul_users_q: the same over a shared int8 W (K, N) with f32
+// column scales, Y[i] = X[i] @ (q * s + coeff[i] * z(seed[i])).
+//
+// Replace the Pallas kernels _zo_matmul_users_kernel and
+// _zo_matmul_users_q_kernel (src/repro/kernels/zo_perturb.py:332 and
+// :352, launched by zo_matmul_users at :409 and :428): every projection
+// of the multi-tenant step's user-axis forward, one launch for all lanes.
+// Bound: operations, as zo_matmul. The design is zo_matmul's kernel
+// with the lane as blockIdx.z: the same 128 x 128 x 8 tiles, the same k
+// order and the same per-element arithmetic, with the lane's base and
+// coefficient, so every lane's bits are those of a lone zo_matmul (or
+// zo_matmul_q) launch with that lane's seed and coefficient. A simple
+// first version: no wgmma, no TMA, a shared W tile is staged once per
+// lane and output block.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -72,14 +91,13 @@ __device__ __forceinline__ __nv_bfloat16 mm_out<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// one 128 x 128 output block (blockIdx.x, blockIdx.y) of X @ W'
 template <typename T, typename TW>
-__global__ void __launch_bounds__(kThreads)
-zo_matmul_kernel(const T* __restrict__ x, const TW* __restrict__ w,
-                 const float* __restrict__ scale, T* __restrict__ y, int m,
-                 int k, int n, uint32_t base, int prime_offset, float coeff,
-                 int dist) {
-  __shared__ __align__(16) float xs[kBK][kBM];  // X tile, transposed
-  __shared__ __align__(16) float ws[kBK][kBN];  // perturbed W tile
+__device__ __forceinline__ void zo_matmul_block(
+    float (&xs)[kBK][kBM], float (&ws)[kBK][kBN], const T* __restrict__ x,
+    const TW* __restrict__ w, const float* __restrict__ scale,
+    T* __restrict__ y, int m, int k, int n, uint32_t base, int prime_offset,
+    float coeff, int dist) {
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
@@ -148,6 +166,37 @@ zo_matmul_kernel(const T* __restrict__ x, const TW* __restrict__ w,
   }
 }
 
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kThreads)
+zo_matmul_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                 const float* __restrict__ scale, T* __restrict__ y, int m,
+                 int k, int n, uint32_t base, int prime_offset, float coeff,
+                 int dist) {
+  __shared__ __align__(16) float xs[kBK][kBM];  // X tile, transposed
+  __shared__ __align__(16) float ws[kBK][kBN];  // perturbed W tile
+  zo_matmul_block<T, TW>(xs, ws, x, w, scale, y, m, k, n, base,
+                         prime_offset, coeff, dist);
+}
+
+// lane blockIdx.z: X and Y lane z, W lane z % w_lanes at stride w_stride.
+// Two blocks an SM: left to itself the int8 instantiation takes 130
+// registers a thread, so only one 256-thread block fits on an SM.
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kThreads, 2)
+zo_matmul_users_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                       const float* __restrict__ scale, T* __restrict__ y,
+                       int m, int k, int n, int64_t w_stride, int w_lanes,
+                       Lanes lanes, int prime_offset, int dist) {
+  __shared__ __align__(16) float xs[kBK][kBM];
+  __shared__ __align__(16) float ws[kBK][kBN];
+  const int u = blockIdx.z;
+  const int64_t mk = static_cast<int64_t>(m) * k;
+  const int64_t mn = static_cast<int64_t>(m) * n;
+  zo_matmul_block<T, TW>(xs, ws, x + u * mk, w + (u % w_lanes) * w_stride,
+                         scale, y + u * mn, m, k, n, lanes.base[u],
+                         prime_offset, lanes.coeff[u], dist);
+}
+
 // TW void: W has X's dtype T; TW int8_t: an int8 W with f32 scales
 template <typename T, typename TW>
 void launch(const void* x, const void* w, const float* scale, void* y, int m,
@@ -158,6 +207,19 @@ void launch(const void* x, const void* w, const float* scale, void* y, int m,
   zo_matmul_kernel<T, W><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const W*>(w), scale,
       static_cast<T*>(y), m, k, n, base, prime_offset, coeff, dist);
+}
+
+template <typename T, typename TW>
+void launch_users(const void* x, const void* w, const float* scale, void* y,
+                  int m, int k, int n, int64_t w_stride, int w_lanes,
+                  const Lanes& lanes, int n_lanes, int prime_offset,
+                  int dist, cudaStream_t st) {
+  using W = std::conditional_t<std::is_void_v<TW>, T, TW>;
+  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, n_lanes);
+  zo_matmul_users_kernel<T, W><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), scale,
+      static_cast<T*>(y), m, k, n, w_stride, w_lanes, lanes, prime_offset,
+      dist);
 }
 
 bool bad_args(int m, int k, int n, int prime_offset, int dist) {
@@ -213,4 +275,74 @@ extern "C" int repro_zo_matmul_q(const void* x, const void* q,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+int users(const void* x, const void* w, const float* scale, void* y,
+          int dtype, int m, int k, int n, int64_t w_stride, int w_lanes,
+          const uint32_t* bases, const float* coeffs, int n_lanes,
+          int prime_offset, int dist, void* stream) {
+  using namespace repro_torch;
+  if (bad_args(m, k, n, prime_offset, dist) || n_lanes <= 0 ||
+      n_lanes > kMaxLanes || w_lanes <= 0 || n_lanes % w_lanes != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Lanes lanes{};
+  for (int i = 0; i < n_lanes; ++i) {
+    lanes.base[i] = bases[i];
+    lanes.coeff[i] = coeffs[i];
+    lanes.idx[i] = i;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (scale == nullptr && dtype == 0)
+    launch_users<float, void>(x, w, nullptr, y, m, k, n, w_stride, w_lanes,
+                              lanes, n_lanes, prime_offset, dist, st);
+  else if (scale == nullptr && dtype == 1)
+    launch_users<__nv_bfloat16, void>(x, w, nullptr, y, m, k, n, w_stride,
+                                      w_lanes, lanes, n_lanes, prime_offset,
+                                      dist, st);
+  else if (dtype == 0)
+    launch_users<float, int8_t>(x, w, scale, y, m, k, n, w_stride, w_lanes,
+                                lanes, n_lanes, prime_offset, dist, st);
+  else if (dtype == 1)
+    launch_users<__nv_bfloat16, int8_t>(x, w, scale, y, m, k, n, w_stride,
+                                        w_lanes, lanes, n_lanes,
+                                        prime_offset, dist, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x (n_lanes, M, K) and y (n_lanes, M, N) contiguous, of dtype 0 float32
+// / 1 bfloat16; w: w_lanes row-major (K, N) weights of x's dtype, lane j
+// at w + j * w_stride (elements; 0 for one shared W); lane i multiplies
+// by W lane i % w_lanes with bases[i] and coeffs[i]. prime_offset and
+// dist as for repro_zo_matmul. Returns cudaGetLastError() after the
+// launch.
+extern "C" int repro_zo_matmul_users(const void* x, const void* w, void* y,
+                                     int dtype, int m, int k, int n,
+                                     int64_t w_stride, int w_lanes,
+                                     const uint32_t* bases,
+                                     const float* coeffs, int n_lanes,
+                                     int prime_offset, int dist,
+                                     void* stream) {
+  return users(x, w, nullptr, y, dtype, m, k, n, w_stride, w_lanes, bases,
+               coeffs, n_lanes, prime_offset, dist, stream);
+}
+
+// x, y, bases, coeffs as for repro_zo_matmul_users; q (K, N) int8 and
+// scale (N,) float32: one shared int8 base. Returns cudaGetLastError()
+// after the launch.
+extern "C" int repro_zo_matmul_users_q(const void* x, const void* q,
+                                       const void* scale, void* y, int dtype,
+                                       int m, int k, int n,
+                                       const uint32_t* bases,
+                                       const float* coeffs, int n_lanes,
+                                       int prime_offset, int dist,
+                                       void* stream) {
+  if (scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return users(x, q, static_cast<const float*>(scale), y, dtype, m, k, n, 0,
+               1, bases, coeffs, n_lanes, prime_offset, dist, stream);
 }

@@ -35,7 +35,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 LAUNCHES: Dict[str, int] = {"zo_add": 0, "flash_decode": 0,
                             "flash_prefill": 0, "zo_matmul": 0,
                             "flash_attention": 0, "zo_add_q": 0,
-                            "zo_matmul_q": 0}
+                            "zo_matmul_q": 0, "zo_add_users": 0,
+                            "zo_matmul_users": 0, "zo_matmul_users_q": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +57,20 @@ _SIGNATURES = {
                           _I, ctypes.c_float, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, ctypes.c_float, _P),
+    "repro_zo_add_users": (_P, _P, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_int64, _I,
+                           ctypes.POINTER(ctypes.c_int64), _I,
+                           ctypes.POINTER(ctypes.c_uint32),
+                           ctypes.POINTER(ctypes.c_float),
+                           ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I, _P),
+    "repro_zo_matmul_users": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_int64, _I,
+                              ctypes.POINTER(ctypes.c_uint32),
+                              ctypes.POINTER(ctypes.c_float), _I, _I, _I,
+                              _P),
+    "repro_zo_matmul_users_q": (_P, _P, _P, _P, _I, _I, _I, _I,
+                                ctypes.POINTER(ctypes.c_uint32),
+                                ctypes.POINTER(ctypes.c_float), _I, _I, _I,
+                                _P),
 }
 
 _lock = threading.Lock()

@@ -16,7 +16,8 @@ from repro_torch.kernels import zo_perturb as _zo
 from repro_torch.kernels.build import LAUNCHES, reset_launches
 
 __all__ = ["LAUNCHES", "reset_launches", "zo_add", "zo_matmul",
-           "flash_attention", "paged_decode_attn", "paged_prefill_attn"]
+           "zo_add_users", "zo_matmul_users", "flash_attention",
+           "paged_decode_attn", "paged_prefill_attn"]
 
 
 def _on_cpu(kernel: str, t) -> bool:
@@ -74,6 +75,46 @@ def zo_matmul(x, w, seed, salt: int, coeff, dist: str = "rademacher",
                                  prime_offset, prehashed)
     return _zo.zo_matmul_cuda(x, w, seed, salt, coeff, dist, prime_offset,
                               prehashed)
+
+
+def zo_add_users(w, seeds, salt: int, coeffs, dist: str = "rademacher",
+                 prime_offset: int = 0, prehashed: bool = False, out=None,
+                 lanes=None):
+    """User-batched :func:`zo_add`: ``out[l] = w[l] + coeffs[i] *
+    z(seeds[i], salt)`` for each lane ``l = lanes[i]`` (default: every
+    lane in order) of a user-stacked leaf w (U, *leaf_shape), each lane
+    bit for bit a lone ``zo_add``. ``out`` (may be ``w``) is required
+    with ``lanes``; its other lanes stay as they are."""
+    if _on_cpu("zo_add_users", w):
+        if lanes is None:
+            res = _zo.zo_add_users_ref(w, seeds, salt, coeffs, dist,
+                                       prime_offset, prehashed)
+            return res if out is None else out.copy_(res)
+        if out is None:
+            raise ValueError("zo_add_users: lanes= needs out=")
+        seeds = _zo._lane_seeds(seeds)
+        coeffs = _zo._lane_coeffs(coeffs, len(seeds))
+        for lane, s, c in zip(lanes, seeds, coeffs):
+            out[lane] = _zo.zo_add_ref(w[lane], s, salt, c, dist,
+                                       prime_offset, prehashed)
+        return out
+    return _zo.zo_add_users_cuda(w, seeds, salt, coeffs, dist, prime_offset,
+                                 prehashed, out=out, lanes=lanes)
+
+
+def zo_matmul_users(x, w, seeds, salt: int, coeffs,
+                    dist: str = "rademacher", prime_offset: int = 0,
+                    prehashed: bool = False, scale=None):
+    """User-batched :func:`zo_matmul`: ``y[i] = x[i] @ (W_i + coeffs[i] *
+    z(seeds[i], salt))`` for x (U, M, K); ``W_i`` is one shared w (K, N)
+    or lane ``i % P`` of a stacked w (P, K, N). ``scale`` (N,) marks a
+    shared int8 w (the ``zo_matmul_users_q`` kernel on the card). Each
+    lane equals a lone ``zo_matmul`` bit for bit."""
+    if _on_cpu("zo_matmul_users", x):
+        return _zo.zo_matmul_users_ref(x, w, seeds, salt, coeffs, dist,
+                                       prime_offset, prehashed, scale)
+    return _zo.zo_matmul_users_cuda(x, w, seeds, salt, coeffs, dist,
+                                    prime_offset, prehashed, scale)
 
 
 def flash_attention(q, k, v, causal: bool = True):

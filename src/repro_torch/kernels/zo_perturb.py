@@ -1,12 +1,15 @@
 """W + coeff * z(seed) and X @ (W + coeff * z(seed)), plain and CUDA.
 
 Port of the JAX package's ``kernels/zo_perturb.py`` (``_tile_z``,
-``zo_add`` and ``zo_matmul``, with and without ``scale=``) and
-``kernels/ref.py`` (``zo_add_ref``, ``zo_matmul_ref``). The CUDA kernels
+``zo_add``, ``zo_matmul``, ``zo_add_users`` and ``zo_matmul_users``, with
+and without ``scale=``) and ``kernels/ref.py`` (``zo_add_ref``,
+``zo_matmul_ref``). The CUDA kernels
 are ``csrc/zo_add.cu`` (the seed-replay sweep, and ``zo_add_q``: an int8
 leaf dequantized with its per-column scales, ``q*s + c*z`` in f32) and
 ``csrc/zo_matmul.cu`` (the fused perturbed matmul, and ``zo_matmul_q``:
-``X @ (q*s + c*z)`` over an int8 weight); their hash lives in
+``X @ (q*s + c*z)`` over an int8 weight) -- each with a user-batched
+twin that runs one lane per (seed, coeff) pair, each lane's bits those
+of a lone scalar launch; their hash lives in
 ``csrc/zo_hash.cuh``. All reproduce :func:`repro_torch.core.rng.z_field`
 element for element: bit for bit with Rademacher z, to the last ulps of
 ``log``/``cos`` with Gaussian z. The quantized variants form
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core import rng as zrng
@@ -265,4 +269,252 @@ def zo_matmul_q_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
            scale.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], m, k, n,
            _base(seed, salt, prehashed), prime_offset, coeff_f32,
            _DISTS[dist], torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# user-batched: one (seed, coeff) pair a lane, every lane in one launch
+
+#: lanes one launch takes (the CUDA side's kMaxLanes); more are split
+MAX_LANES = 64
+
+
+def _lane_seeds(seeds) -> list:
+    """Host ints from a sequence, numpy array or CPU tensor of seeds."""
+    if isinstance(seeds, torch.Tensor):
+        seeds = seeds.cpu().numpy()
+    return [int(s) for s in np.asarray(seeds, dtype=np.int64).reshape(-1)]
+
+
+def _lane_coeffs(coeffs, n: int) -> list:
+    """n f32 coefficients (as Python floats) from a scalar or (n,)."""
+    c = torch.as_tensor(coeffs, dtype=torch.float32).reshape(-1).cpu()
+    if c.numel() == 1:
+        c = c.expand(n)
+    if c.numel() != n:
+        raise ValueError(f"{c.numel()} coefficients for {n} seeds")
+    return c.tolist()
+
+
+def _lane_view_ok(t: torch.Tensor) -> bool:
+    """Each lane t[i] is a contiguous block (any lane stride)."""
+    want = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != want:
+            return False
+        want *= size
+    return True
+
+
+def zo_add_users_ref(w: torch.Tensor, seeds, salt: int, coeffs,
+                     dist="rademacher", prime_offset: int = 0,
+                     prehashed: bool = False) -> torch.Tensor:
+    """Plain version: ``out[i] = zo_add_ref(w[i], seeds[i], salt,
+    coeffs[i])`` for w (U, *leaf_shape) and U seeds."""
+    seeds = _lane_seeds(seeds)
+    if w.shape[0] != len(seeds):
+        raise ValueError(f"zo_add_users: {len(seeds)} seeds for "
+                         f"{w.shape[0]} lanes")
+    coeffs = _lane_coeffs(coeffs, len(seeds))
+    return torch.stack([zo_add_ref(w[i], s, salt, c, dist, prime_offset,
+                                   prehashed)
+                        for i, (s, c) in enumerate(zip(seeds, coeffs))])
+
+
+def zo_add_users_cuda(w: torch.Tensor, seeds, salt: int, coeffs,
+                      dist="rademacher", prime_offset: int = 0,
+                      prehashed: bool = False, out=None, lanes=None):
+    """Launch the ``zo_add_users`` kernel on the current stream.
+
+    ``w``: (U, *leaf_shape), f32 or bf16 on the card, each lane a
+    contiguous block at any lane stride (a layer slice of a stacked leaf;
+    stride 0 for one leaf expanded over the lanes). Lane ``lanes[i]``
+    (default ``i``) of ``out`` becomes ``w[lanes[i]] + coeffs[i] *
+    z(seeds[i])``; ``out`` (may be ``w`` itself) is required when
+    ``lanes`` is given, and its other lanes are left as they are.
+    """
+    if w.device.type != "cuda":
+        raise ValueError(f"zo_add_users kernel needs a CUDA tensor, got "
+                         f"{w.device}")
+    if w.dtype not in _DTYPES:
+        raise TypeError(f"zo_add_users kernel takes float32/bfloat16, got "
+                        f"{w.dtype}")
+    if dist not in _DISTS:
+        raise ValueError(f"unknown zo distribution: {dist}")
+    if w.dim() < 1 or not _lane_view_ok(w):
+        raise ValueError("zo_add_users kernel needs W (U, *leaf) with "
+                         "contiguous lanes")
+    if w.dim() - 1 + prime_offset > len(zrng._DIM_PRIMES):
+        raise ValueError(f"leaf rank {w.dim() - 1} + offset {prime_offset} "
+                         f"> {len(zrng._DIM_PRIMES)} unsupported")
+    seeds = _lane_seeds(seeds)
+    n_lanes = len(seeds)
+    coeffs = _lane_coeffs(coeffs, n_lanes)
+    u = w.shape[0]
+    if lanes is None:
+        if n_lanes != u:
+            raise ValueError(f"zo_add_users: {n_lanes} seeds for {u} lanes")
+        lanes = range(u)
+    else:
+        lanes = [int(i) for i in lanes]
+        if out is None:
+            raise ValueError("zo_add_users: lanes= needs out=")
+        if len(lanes) != n_lanes or not all(0 <= i < u for i in lanes):
+            raise ValueError(f"zo_add_users: bad lanes {lanes} for {u} "
+                             f"lanes and {n_lanes} seeds")
+    if out is None:
+        out = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    elif (out.shape != w.shape or out.dtype != w.dtype
+          or out.device != w.device or not _lane_view_ok(out)):
+        raise ValueError("zo_add_users: out must match w (shape, dtype, "
+                         "device) with contiguous lanes")
+    leaf = tuple(w.shape[1:])
+    n = int(np.prod(leaf, dtype=np.int64))
+    if n == 0 or n_lanes == 0:
+        return out
+    dims = (ctypes.c_int64 * max(len(leaf), 1))(*leaf)
+    item = w.element_size()
+    ws, os_ = w.stride(0), out.stride(0)
+    vectorized = int(w.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+                     and (ws * item) % 16 == 0 and (os_ * item) % 16 == 0)
+    lanes = list(lanes)
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    for c0 in range(0, n_lanes, MAX_LANES):
+        c1 = min(c0 + MAX_LANES, n_lanes)
+        k = c1 - c0
+        bases = (ctypes.c_uint32 * k)(*[_base(s, salt, prehashed)
+                                        for s in seeds[c0:c1]])
+        cf = (ctypes.c_float * k)(*coeffs[c0:c1])
+        idx = (ctypes.c_int * k)(*lanes[c0:c1])
+        launch("zo_add_users", "repro_zo_add_users", w.data_ptr(),
+               out.data_ptr(), n, ws, os_, _DTYPES[w.dtype], dims,
+               len(leaf), bases, cf, idx, k, prime_offset, _DISTS[dist],
+               vectorized, stream)
+    return out
+
+
+def _users_w(w: torch.Tensor, n_lanes: int, what: str):
+    """(W lanes P, lane stride) of a shared (K, N) or stacked (P, K, N)
+    weight for ``n_lanes`` lanes (lane i multiplies by W lane i % P)."""
+    if w.dim() == 2:
+        return 1, 0
+    if w.dim() != 3:
+        raise ValueError(f"{what}: W must be (K, N) or (P, K, N), got "
+                         f"{tuple(w.shape)}")
+    p = w.shape[0]
+    if p == 0 or n_lanes % p:
+        raise ValueError(f"{what}: {n_lanes} lanes over {p} W lanes")
+    return p, w.stride(0)
+
+
+def _lane_chunks(n_lanes: int, p: int):
+    """(first lane, end lane, W lanes) of each launch: at most MAX_LANES
+    lanes, every chunk's lane j multiplying by W lane (first + j) % P --
+    a chunk starts at a multiple of P (P <= MAX_LANES) or stays inside
+    one run of P lanes."""
+    if p <= MAX_LANES:
+        step = (MAX_LANES // p) * p
+        return [(c0, min(c0 + step, n_lanes), p)
+                for c0 in range(0, n_lanes, step)]
+    return [(c0, min(c0 + MAX_LANES, r0 + p), min(MAX_LANES, r0 + p - c0))
+            for r0 in range(0, n_lanes, p)
+            for c0 in range(r0, r0 + p, MAX_LANES)]
+
+
+def zo_matmul_users_ref(x: torch.Tensor, w: torch.Tensor, seeds, salt: int,
+                        coeffs, dist="rademacher", prime_offset: int = 0,
+                        prehashed: bool = False, scale=None):
+    """Plain version: ``out[i] = zo_matmul_ref(x[i], W_i, seeds[i], salt,
+    coeffs[i])`` (or ``zo_matmul_q_ref`` with ``scale``) for x (U, M, K);
+    ``W_i`` is the shared w (K, N) or lane ``i % P`` of a stacked
+    (P, K, N) w."""
+    seeds = _lane_seeds(seeds)
+    if x.dim() != 3 or x.shape[0] != len(seeds):
+        raise ValueError(f"zo_matmul_users: x {tuple(x.shape)} for "
+                         f"{len(seeds)} seeds")
+    coeffs = _lane_coeffs(coeffs, len(seeds))
+    p, _ = _users_w(w, len(seeds), "zo_matmul_users")
+    outs = []
+    for i, (s, c) in enumerate(zip(seeds, coeffs)):
+        wi = w if w.dim() == 2 else w[i % p]
+        if scale is None:
+            outs.append(zo_matmul_ref(x[i], wi, s, salt, c, dist,
+                                      prime_offset, prehashed))
+        else:
+            outs.append(zo_matmul_q_ref(x[i], wi, scale, s, salt, c, dist,
+                                        prime_offset, prehashed))
+    return torch.stack(outs)
+
+
+def zo_matmul_users_cuda(x: torch.Tensor, w: torch.Tensor, seeds,
+                         salt: int, coeffs, dist="rademacher",
+                         prime_offset: int = 0, prehashed: bool = False,
+                         scale=None):
+    """Launch ``zo_matmul_users`` (or, with ``scale``, ``zo_matmul_users_q``)
+    on the current stream.
+
+    ``x`` (U, M, K) contiguous, float32 or bfloat16; ``w`` a shared (K, N)
+    weight of x's dtype or a stacked (P, K, N) one (U % P == 0, each lane
+    contiguous at any lane stride); with ``scale`` (N,) float32, ``w`` is
+    a shared int8 (K, N). Returns (U, M, N) in x's dtype.
+    """
+    kernel = "zo_matmul_users" if scale is None else "zo_matmul_users_q"
+    ts = [("x", x), ("w", w)] + ([] if scale is None else [("scale", scale)])
+    for name, t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel} kernel needs CUDA tensors, {name} "
+                             f"is on {t.device}")
+    if not x.is_contiguous() or (scale is not None
+                                 and not scale.is_contiguous()):
+        raise ValueError(f"{kernel} kernel needs a contiguous x and scale")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{kernel} kernel takes float32/bfloat16 x, got "
+                        f"{x.dtype}")
+    if scale is None and w.dtype != x.dtype:
+        raise TypeError(f"{kernel} kernel takes x and w of one dtype; got "
+                        f"{x.dtype}, {w.dtype}")
+    if scale is not None:
+        if w.dtype != torch.int8 or scale.dtype != torch.float32 \
+                or w.dim() != 2:
+            raise TypeError(f"{kernel} kernel takes a shared int8 (K, N) w "
+                            f"and float32 scale; got {w.dtype} "
+                            f"{tuple(w.shape)}, {scale.dtype}")
+        _check_scale(w, scale, kernel)
+    seeds = _lane_seeds(seeds)
+    n_lanes = len(seeds)
+    coeffs = _lane_coeffs(coeffs, n_lanes)
+    if x.dim() != 3 or x.shape[0] != n_lanes:
+        raise ValueError(f"{kernel}: x {tuple(x.shape)} for {n_lanes} seeds")
+    p, w_stride = _users_w(w, n_lanes, kernel)
+    wl = w if w.dim() == 2 else w[0]
+    if not _lane_view_ok(w if w.dim() == 3 else w[None]) \
+            or x.shape[2] != wl.shape[0]:
+        raise ValueError(f"{kernel}: bad shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} (or W lanes not contiguous)")
+    if dist not in _DISTS:
+        raise ValueError(f"unknown zo distribution: {dist}")
+    if prime_offset + 2 > len(zrng._DIM_PRIMES):
+        raise ValueError(f"prime_offset {prime_offset} unsupported")
+    _, m, k = x.shape
+    n = wl.shape[1]
+    out = torch.empty((n_lanes, m, n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for c0, c1, w_lanes in _lane_chunks(n_lanes, p):
+        cnt = c1 - c0
+        bases = (ctypes.c_uint32 * cnt)(*[_base(s, salt, prehashed)
+                                          for s in seeds[c0:c1]])
+        cf = (ctypes.c_float * cnt)(*coeffs[c0:c1])
+        xp = x.data_ptr() + c0 * m * k * x.element_size()
+        yp = out.data_ptr() + c0 * m * n * out.element_size()
+        if scale is None:
+            wp = w.data_ptr() + (c0 % p) * w_stride * w.element_size()
+            launch(kernel, "repro_zo_matmul_users", xp, wp, yp,
+                   _DTYPES[x.dtype], m, k, n, w_stride, w_lanes, bases, cf,
+                   cnt, prime_offset, _DISTS[dist], stream)
+        else:
+            launch(kernel, "repro_zo_matmul_users_q", xp, w.data_ptr(),
+                   scale.data_ptr(), yp, _DTYPES[x.dtype], m, k, n, bases,
+                   cf, cnt, prime_offset, _DISTS[dist], stream)
     return out

@@ -39,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="USER=CKPT_DIR",
                     help="register USER's replay log as a ZO adapter "
                          "(repeatable); requests round-robin over users "
-                         "and the base")
+                         "(over the base when none is given)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -104,7 +104,8 @@ def build_engine(args, params=None) -> ServeEngine:
         users.append(user)
         print(f"[serve] adapter {user!r}: {ad.n_steps} steps, "
               f"{ad.nbytes} bytes")
-    users.append(None)                     # the base model serves too
+    if not users:
+        users = [None]                     # base weights only
 
     engine = ServeEngine(cfg, adapters, n_slots=args.slots,
                          max_len=args.prompt_len + args.gen,

@@ -17,7 +17,14 @@ Conventions:
     perturbed forward of the fused MeZO step;
   * attention is the plain dense path the JAX package leaves to XLA, or
     with ``attn_impl="flash"`` the ``flash_attention`` kernel; the paged
-    kernels live in ``repro_torch.kernels``.
+    kernels live in ``repro_torch.kernels``;
+  * under a user-axis ctx (the multi-tenant step) activations carry the
+    n lanes flattened into the batch, ``(n * B, S, D)``; a perturbed leaf
+    comes back with a leading lane axis and is applied to its own lane
+    (``_lanes``), and what the card might sum in another order at
+    another batch size -- the plain attention's products and softmax --
+    runs lane by lane at the scalar path's shapes, so every lane's bits
+    are a lone forward's.
 """
 
 from __future__ import annotations
@@ -60,9 +67,27 @@ def layernorm(x, scale, bias, eps=1e-5):
             + bias.to(torch.float32)).to(x.dtype)
 
 
+def _batched(ctx) -> bool:
+    return ctx is not None and ctx.batched
+
+
+def _lanes(ctx, x, fn, *per_lane):
+    """``fn(x, *per_lane)`` with each per-lane ``(n, ...)`` leaf broadcast
+    over its own lane of ``x`` ``(n * B, ...)``: elementwise, so each lane
+    is the scalar path's ``fn`` on that lane."""
+    xl = ctx.lane_view(x)
+    vs = [v.reshape(v.shape[0], *([1] * (xl.dim() - v.dim())),
+                    *v.shape[1:]) for v in per_lane]
+    return fn(xl, *vs).reshape(x.shape)
+
+
 def norm_apply(cfg, p, x, ctx=None):
     if ctx is not None:
         p = {k: ctx.perturb(k, v) for k, v in p.items()}
+    if _batched(ctx):
+        if cfg.norm == "layernorm":
+            return _lanes(ctx, x, layernorm, p["scale"], p["bias"])
+        return _lanes(ctx, x, rmsnorm, p["scale"])
     if cfg.norm == "layernorm":
         return layernorm(x, p["scale"], p["bias"])
     return rmsnorm(x, p["scale"])
@@ -111,6 +136,8 @@ def dense(p, x, ctx=None):
     base the dequant too -- fuses into the matmul (``PerturbCtx.matmul``)."""
     y = x @ _deq(p["w"]) if ctx is None else ctx.matmul(x, p["w"], "w")
     if "b" in p:
+        if _batched(ctx):
+            return _lanes(ctx, y, torch.add, ctx.perturb("b", p["b"]))
         y = y + (p["b"] if ctx is None else ctx.perturb("b", p["b"]))
     return y
 
@@ -184,6 +211,9 @@ def attn_project_qkv(cfg, p, x, ctx=None):
                                                          p["q_norm"])
         kn = p["k_norm"] if ctx is None else ctx.perturb("k_norm",
                                                          p["k_norm"])
+        if _batched(ctx):
+            return _lanes(ctx, q, rmsnorm, qn), _lanes(ctx, k, rmsnorm,
+                                                       kn), v
         q = rmsnorm(q, qn)
         k = rmsnorm(k, kn)
     return q, k, v
@@ -204,6 +234,16 @@ def attn_apply(cfg, p, x, *, positions=None, kv_mask=None, causal=None,
     if cfg.attn_impl == "flash" and kv_mask is None:
         out = kops.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal)
+    elif _batched(ctx):
+        # lane by lane: the products and softmax at the scalar shapes
+        masks = (ctx.split_lanes(kv_mask) if kv_mask is not None
+                 else [None] * ctx.n_lanes)
+        out = torch.cat([
+            attention(qu, ku, vu, causal=causal, kv_mask=mu,
+                      chunk=cfg.attn_chunk)
+            for qu, ku, vu, mu in zip(ctx.split_lanes(q),
+                                      ctx.split_lanes(k),
+                                      ctx.split_lanes(v), masks)])
     else:
         out = attention(q, k, v, causal=causal, kv_mask=kv_mask,
                         chunk=cfg.attn_chunk)
@@ -220,7 +260,12 @@ def mlp_apply(cfg, p, x, ctx=None):
         # dims, so the 2-D zo_matmul does not apply -- transient perturb
         w_in = _deq(p["w_in"]["w"]) if ctx is None else \
             ctx.perturb("w_in/w", p["w_in"]["w"])
-        h = torch.einsum("...d,dfg->...fg", x, w_in)
+        if _batched(ctx):
+            h = torch.cat([torch.einsum("...d,dfg->...fg", xu, wu)
+                           for xu, wu in zip(ctx.split_lanes(x),
+                                             w_in.unbind(0))])
+        else:
+            h = torch.einsum("...d,dfg->...fg", x, w_in)
         u, g = h[..., 0], h[..., 1]
         gate = (F.silu(g) if cfg.act == "swiglu"
                 else F.gelu(g, approximate="tanh"))
@@ -238,7 +283,18 @@ def mlp_apply(cfg, p, x, ctx=None):
 
 def embed_apply(cfg, p, tokens, positions=None, ctx=None):
     """ctx (scoped to "embed") perturbs only the gathered rows: O(S*D)
-    transient z, never the (V, D) table."""
+    transient z, never the (V, D) table. Under a user-axis ctx each lane
+    gathers its own perturbed token rows and its own perturbed position
+    rows."""
+    if _batched(ctx):
+        x = ctx.take("tok", p["tok"], ctx.lane_view(tokens))
+        if cfg.pos == "learned":
+            pos = (positions if positions is not None
+                   else torch.arange(tokens.shape[-1],
+                                     device=tokens.device))
+            pos = pos.expand(ctx.n_lanes, *pos.shape[-1:])
+            x = x + ctx.take("pos", p["pos"], pos)[:, None]
+        return x.reshape(*tokens.shape, x.shape[-1])
     x = _take_rows(p["tok"], tokens) if ctx is None else ctx.take(
         "tok", p["tok"], tokens)
     if cfg.pos == "learned":
@@ -257,5 +313,9 @@ def unembed(cfg, embed_p, head_p, x, ctx=None):
             return x @ _deq(embed_p["tok"]).T
         # the tied head reads the embedding transposed; the row-major
         # z-field does not transpose into kernel tiles: perturb transiently
-        return x @ ctx.scope("embed").perturb("tok", embed_p["tok"]).T
+        tok = ctx.scope("embed").perturb("tok", embed_p["tok"])
+        if _batched(ctx):
+            return torch.cat([xu @ tu.T for xu, tu in
+                              zip(ctx.split_lanes(x), tok.unbind(0))])
+        return x @ tok.T
     return dense(head_p, x, _sub(ctx, "lm_head"))

@@ -13,8 +13,13 @@ The engine owns the one residual pattern::
         for each sublayer:  x = x + block(norm(x))
 
 Parameters are the flat ``/``-keyed dict (see ``core/perturb.py``); the
-stack's leaves are nested and sliced one layer at a time here. The
-StateCache mirrors the JAX one: ``{scope: {mixer path: {leaf: (L, ...)}}}``
+stack's leaves are nested and sliced one layer at a time here.
+Under a user-axis ctx (the multi-tenant step: ``tokens`` (n, B, S), n
+lanes each with its own seed and coefficient) the lanes ride flattened
+in the batch, the user-stacked parameters' per-user parts are sliced at
+``[:, layer]`` (``core.batching.user_leaf_axes`` says which), and
+``loss`` returns the (n,) per-lane losses, each computed at the scalar
+path's shapes. The StateCache mirrors the JAX one: ``{scope: {mixer path: {leaf: (L, ...)}}}``
 with layers on axis 0 and, for dense leaves, batch on axis 1; paged pool
 leaves are ``(L, n_pages, page_size, KV, hd)``. Blocks update their
 layer's slice in place, so the returned cache is the cache passed in.
@@ -27,6 +32,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.core.batching import user_leaf_axes
 from repro_torch.core.perturb_ctx import sub as _sub
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import RunCtx, get_block
@@ -92,11 +98,25 @@ def nest(params: Dict[str, torch.Tensor], prefix: str) -> dict:
     return out
 
 
-def _index(tree, i: int):
+def _index(tree, i: int, axes=None):
     """Layer ``i`` of every (L, ...) leaf of a nested dict (views); a
-    quantized leaf slices its q, scale and delta together."""
-    return {k: _index(v, i) if isinstance(v, dict)
-            else v.layer(i) if is_quantized(v) else v[i]
+    quantized leaf slices its q, scale and delta together. ``axes``: the
+    tree is user-stacked, and ``core.batching.user_leaf_axes`` gives it;
+    a part on the user axis (0) has its layer axis at 1."""
+    def pick(t, ax):
+        return None if t is None else t[i] if ax is None else t[:, i]
+
+    def one(v, ax):
+        if isinstance(v, dict):
+            return _index(v, i, ax)
+        if axes is None:
+            return v.layer(i) if is_quantized(v) else v[i]
+        if is_quantized(v):
+            return dataclasses.replace(v, q=pick(v.q, ax.q),
+                                       scale=pick(v.scale, ax.scale),
+                                       delta=pick(v.delta, ax.delta))
+        return pick(v, ax)
+    return {k: one(v, None if axes is None else axes[k])
             for k, v in tree.items()}
 
 
@@ -115,9 +135,11 @@ def _stack_apply(cfg, stack: StackPlan, params, x, rc: RunCtx, ctx=None):
     (``at_layer``), so each layer's z slice is that of the stacked leaf."""
     blocks = nest(params, stack.scope)
     sctx = _sub(ctx, stack.scope)
+    axes = (user_leaf_axes(blocks) if ctx is not None and ctx.batched
+            else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(stack.n_layers):
-        bp = _index(blocks, li)
+        bp = _index(blocks, li, axes)
         bctx = None if sctx is None else sctx.at_layer(li)
         for sl in stack.sublayers:
             bt = get_block(sl.block)
@@ -158,13 +180,19 @@ def _stack_seq(cfg, stack: StackPlan, params, state, x, rc: RunCtx,
 
 def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
     """Full-sequence forward -> (logits, aux). ``perturb`` (a PerturbCtx)
-    switches on the fused perturbed forward."""
+    switches on the fused perturbed forward; a user-axis one takes
+    ``tokens`` (n, B, S) and returns logits (n * B, ...)."""
     cfg = plan.cfg
     tokens = batch["tokens"]
+    kv_mask = batch.get("attn_mask")
+    if perturb is not None and perturb.batched:
+        tokens = tokens.reshape(-1, tokens.shape[-1])
+        if kv_mask is not None:
+            kv_mask = kv_mask.reshape(-1, kv_mask.shape[-1])
     x = L.embed_apply(cfg, nest(params, "embed"), tokens,
                       ctx=_sub(perturb, "embed"))
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    rc = RunCtx(positions=positions, kv_mask=batch.get("attn_mask"))
+    rc = RunCtx(positions=positions, kv_mask=kv_mask)
     x, aux = _stack_apply(cfg, plan.stack, params, x, rc, perturb)
     x = L.norm_apply(cfg, nest(params, "ln_f"), x, _sub(perturb, "ln_f"))
     if cfg.n_classes:                  # CLS pooling + head (roberta/SST-2)
@@ -197,8 +225,23 @@ def softmax_xent(logits, targets, mask=None):
 
 def loss(plan: ModelPlan, params, batch, perturb=None):
     """The ZO objective: CE (+ aux) for LMs, the CLS head's CE for the
-    encoder classifier. ``perturb`` switches on the fused forward."""
+    encoder classifier. ``perturb`` switches on the fused forward; a
+    user-axis one returns the (n,) losses of its lanes, each reduced over
+    its own (B, S) exactly as a lone forward reduces it."""
     logits, aux = forward(plan, params, batch, perturb=perturb)
+    if perturb is not None and perturb.batched:
+        lanes = perturb.lane_view(logits).unbind(0)
+        keys = ("label",) if plan.cfg.n_classes else ("targets",
+                                                      "loss_mask")
+        per_lane = [dict(zip(keys, vals)) for vals in zip(*[
+            batch[k].unbind(0) if k in batch else [None] * len(lanes)
+            for k in keys])]
+        return torch.stack([_ce(plan, lg, b, aux)
+                            for lg, b in zip(lanes, per_lane)])
+    return _ce(plan, logits, batch, aux)
+
+
+def _ce(plan: ModelPlan, logits, batch, aux):
     if plan.cfg.n_classes:
         return softmax_xent(logits, batch["label"])
     ce = softmax_xent(logits, batch["targets"], batch.get("loss_mask"))

@@ -21,6 +21,10 @@ the JAX package (an unknown mode, then adam with int8, raise
 ``device`` (default ``"cuda"``) is where parameters live and steps run;
 each step's batch moves there once. Losses stay on the device and come
 to the host every ``log_every`` steps.
+
+:func:`train_multi_tenant` is the one-call multi-tenant path: a batch of
+``TrainJob``s through a :class:`repro_torch.train.TrainEngine` over one
+shared base.
 """
 
 from __future__ import annotations
@@ -165,3 +169,48 @@ class Trainer:
                          f"({dt:.1f}s)")
         self._sync_losses()
         return state.params
+
+
+def train_multi_tenant(model_cfg: ModelConfig, jobs, *, n_slots: int = 4,
+                       estimator: str = "fused", update: str = "sgd",
+                       seed: int = 0, mezo_cfg: Optional[MezoConfig] = None,
+                       quant: str = "none", store=None,
+                       log_dir: Optional[str] = None,
+                       log_fn: Callable[[str], None] = print,
+                       device: str = "cuda", params: Optional[Params] = None):
+    """Run ``jobs`` (a TrainJob sequence) through a batched
+    :class:`repro_torch.train.TrainEngine` over one shared base -- each
+    job's trajectory bit-identical to a lone :class:`Trainer` with
+    ``seed=derive_user_seed(seed, job.user)``.
+
+    The base is ``params`` or the model's seeded random init on
+    ``device``; ``quant="int8"`` quantizes it before the store adopts it
+    (ignored when an explicit ``store`` brings its own base). Returns
+    ``(engine, results)``: the engine for its stats and store, results
+    jid-sorted.
+    """
+    from repro_torch.serve.adapters import AdapterStore
+    from repro_torch.train import TrainEngine
+
+    check_quant_mode(quant)
+    if store is None:
+        dev = resolve_device(device)
+        if params is None:
+            params = build_model(model_cfg).init(
+                torch.Generator(device=dev).manual_seed(seed), dev)
+        if quant != "none" and not tree_is_quantized(params):
+            params = quantize_tree(params, quant, with_delta=True)
+        store = AdapterStore(params, mezo_cfg=mezo_cfg or MezoConfig(),
+                             update_rule=build_strategy(
+                                 estimator, update).update, device=dev)
+    engine = TrainEngine(model_cfg, store, n_slots=n_slots,
+                         estimator=estimator, update=update, seed=seed,
+                         mezo_cfg=mezo_cfg, log_dir=log_dir)
+    for job in jobs:
+        engine.submit(job)
+    results = engine.run()
+    s = engine.stats
+    log_fn(f"[fleet] {s.finished} jobs, {s.user_steps} user-steps in "
+           f"{s.dispatches} dispatches ({s.user_steps_per_s:.2f} "
+           f"user-steps/s)")
+    return engine, results

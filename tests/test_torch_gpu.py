@@ -19,7 +19,10 @@ bf16 output (one rounding). The int8 kernels hold to the same limits:
 ``zo_add_q`` bit-exact with Rademacher z (1e-6 Gaussian), ``zo_matmul_q``
 2e-5 / 1e-2 of max|Y|. Reduced OPT-1.3B and RoBERTa-large (f32) train on
 the card to the CPU's losses within 1e-4 (over an int8 base too), and
-replay equals the live run at atol 0 there.
+replay equals the live run at atol 0 there. The user-batched kernels
+hold to the scalar kernels' limits against their plain versions, and
+every lane equals a lone scalar launch at atol 0; the TrainEngine on the
+card equals lone Trainers on the card at atol 0.
 """
 
 import numpy as np
@@ -441,3 +444,156 @@ def test_reduced_engine_over_int8_base_on_card_matches_cpu(cuda):
         return [c.tokens.tolist() for c in eng.run()]
 
     assert serve(cuda) == serve("cpu")
+
+
+# ---------------------------------------------------------------------------
+# the user-batched kernels (the multi-tenant step)
+
+U_SEEDS = [42, 7, 1000, 3]
+U_COEFFS = [0.125, -0.5, 0.01, 0.0]
+
+
+@pytest.mark.parametrize("shape", [(), (37,), (5, 9), (3, 17, 129),
+                                   (2, 64, 256)], ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dist", ["rademacher", "gaussian"])
+def test_zo_add_users_matches_plain_and_lone_launches(cuda, shape, dtype,
+                                                      dist):
+    # Gaussian z in f32 only: a last-ulp difference of logf/cosf could
+    # flip a bf16 rounding (the scalar test's convention)
+    dt = getattr(torch, dtype) if dist == "rademacher" else torch.float32
+    w = (torch.randn((4,) + shape, device=cuda) * 0.02).to(dt)
+    salt = rng.leaf_salt("blocks/attn/wq/b")
+    before = build.LAUNCHES["zo_add_users"]
+    got = ops.zo_add_users(w, U_SEEDS, salt, U_COEFFS, dist)
+    assert build.LAUNCHES["zo_add_users"] == before + 1
+    want = zp.zo_add_users_ref(w, U_SEEDS, salt, U_COEFFS, dist)
+    atol = 0.0 if dist == "rademacher" else GAUSS_ATOL
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    for i in range(4):
+        assert torch.equal(got[i], ops.zo_add(w[i], U_SEEDS[i], salt,
+                                              U_COEFFS[i], dist))
+
+
+def test_zo_add_users_strided_shared_and_lanes_in_place(cuda):
+    """A layer slice of a stacked (U, L, N) leaf (lane stride L * N), one
+    leaf expanded over the lanes (stride 0), unaligned lanes, and an
+    in-place update of a lane subset that leaves the others' bits."""
+    seed = 17
+    stacked = torch.randn((4, 3, 37), device=cuda)
+    sl = stacked[:, 1]
+    bases = [rng.fold_leading(rng.leaf_base(s, seed), 1) for s in U_SEEDS]
+    got = ops.zo_add_users(sl, bases, 0, U_COEFFS, prime_offset=1,
+                           prehashed=True)
+    for i in range(4):
+        assert torch.equal(got[i], ops.zo_add(
+            sl[i].contiguous(), bases[i], 0, U_COEFFS[i], prime_offset=1,
+            prehashed=True))
+    one = torch.randn((37,), device=cuda)
+    got = ops.zo_add_users(one.expand(4, 37), U_SEEDS, seed, U_COEFFS)
+    for i in range(4):
+        assert torch.equal(got[i], ops.zo_add(one, U_SEEDS[i], seed,
+                                              U_COEFFS[i]))
+    w = torch.randn((4, 8, 33), device=cuda).to(torch.bfloat16)
+    keep = w.clone()
+    ops.zo_add_users(w, U_SEEDS[:2], seed, U_COEFFS[:2], out=w,
+                     lanes=[3, 1])
+    assert torch.equal(w[0], keep[0]) and torch.equal(w[2], keep[2])
+    assert torch.equal(w[3], ops.zo_add(keep[3], U_SEEDS[0], seed,
+                                        U_COEFFS[0]))
+    assert torch.equal(w[1], ops.zo_add(keep[1], U_SEEDS[1], seed,
+                                        U_COEFFS[1]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weight", ["shared", "per-lane", "int8"])
+@pytest.mark.parametrize("mkn", [(7, 33, 130), (64, 128, 256),
+                                 (256, 2048, 8192)], ids=str)
+def test_zo_matmul_users_match_plain_and_lone_launches(cuda, mkn, dtype,
+                                                       weight):
+    m, k, n = mkn
+    dt = getattr(torch, dtype)
+    x = torch.randn((4, m, k), device=cuda).to(dt)
+    kw, kernel = {}, "zo_matmul_users"
+    if weight == "per-lane":
+        # 4 lanes over 2 W lanes, each a layer slice of (2, 3, K, N)
+        w = (torch.randn((2, 3, k, n), device=cuda) * 0.02).to(dt)[:, 1]
+        lane_w = [w[i % 2] for i in range(4)]
+    else:
+        w = (torch.randn((k, n), device=cuda) * 0.02).to(dt)
+        if weight == "int8":
+            w = torch.randint(-127, 128, (k, n), device=cuda,
+                              dtype=torch.int8)
+            kw["scale"] = 2.0 ** torch.randint(-12, -6, (n,), device=cuda
+                                               ).float()
+            kernel = "zo_matmul_users_q"
+        lane_w = [w] * 4
+    salt = rng.leaf_salt("lm_head/w")
+    before = build.LAUNCHES[kernel]
+    got = ops.zo_matmul_users(x, w, U_SEEDS, salt, U_COEFFS, **kw)
+    assert build.LAUNCHES[kernel] == before + 1
+    want = zp.zo_matmul_users_ref(x, w, U_SEEDS, salt, U_COEFFS, **kw)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err <= MM_RTOL[dtype], err
+    for i in range(4):
+        lone = ops.zo_matmul(x[i].contiguous(), lane_w[i].contiguous(),
+                             U_SEEDS[i], salt, U_COEFFS[i], **kw)
+        assert torch.equal(got[i], lone), i
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_reduced_train_engine_on_card_bit_equals_lone_trainers(cuda, quant,
+                                                               tmp_path):
+    """The TrainEngine on the card (3 users on 2 slots, K = 2): each
+    user's losses, parameters and replay log equal a lone Trainer's on
+    the card at atol 0, through the user kernels only; within 1e-4 of
+    the CPU engine's losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import MezoConfig
+    from repro_torch.launch.train_fleet import user_batches
+    from repro_torch.models import build_model
+    from repro_torch.optim.quant import is_quantized
+    from repro_torch.runtime import (Trainer, TrainerConfig,
+                                     train_multi_tenant)
+    from repro_torch.train import TrainJob, derive_user_seed
+    cfg = get_config("opt-1.3b").reduced()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    mz = MezoConfig(eps=1e-3, lr=1e-3, n_directions=2)
+    users = ["u0", "u1", "u2"]
+
+    def fleet(device):
+        jobs = [TrainJob(user=u, batches=user_batches(cfg, u, 2, 8, 0),
+                         n_steps=2) for u in users]
+        return train_multi_tenant(
+            cfg, jobs, n_slots=2, seed=3, mezo_cfg=mz, quant=quant,
+            log_dir=str(tmp_path / device), log_fn=lambda s: None,
+            device=device, params={k: v.to(device, copy=True)
+                                   for k, v in params.items()})
+
+    ops.reset_launches()
+    engine, results = fleet("cuda")
+    assert ops.LAUNCHES["zo_add_users"] > 0
+    assert ops.LAUNCHES["zo_matmul"] == 0
+    if quant == "none":
+        assert ops.LAUNCHES["zo_matmul_users"] > 0
+    for r in results:
+        fn = user_batches(cfg, r.user, 2, 8, 0)
+        tr = Trainer(cfg, TrainerConfig(
+            estimator="fused", update="sgd", mezo=mz, quant=quant,
+            n_steps=2, seed=derive_user_seed(3, r.user),
+            ckpt_dir=str(tmp_path / f"lone-{r.user}"),
+            snapshot_every=10 ** 6, log_every=10 ** 6, device="cuda"),
+            iter([fn(t) for t in range(2)]), log_fn=lambda s: None)
+        final = tr.train({k: v.to(cuda, copy=True)
+                          for k, v in params.items()})
+        assert r.losses == tr.losses, r.user
+        got = engine.store.materialize(r.user)
+        for k, leaf in final.items():
+            a = leaf.delta if is_quantized(leaf) else leaf
+            b = got[k].delta if is_quantized(leaf) else got[k]
+            assert torch.equal(a, b), (r.user, k)
+        assert (tmp_path / "cuda" / f"{r.user}.jsonl").read_bytes() == \
+            (tmp_path / f"lone-{r.user}" / "replay.jsonl").read_bytes()
+    _, cpu_results = fleet("cpu")
+    for a, b in zip(results, cpu_results):
+        np.testing.assert_allclose(a.losses, b.losses, rtol=0, atol=1e-4)

@@ -46,3 +46,19 @@ def test_port_sources_name_no_jax_package():
             assert not code.startswith(("import jax", "from jax",
                                         "import repro.", "from repro.",
                                         "from repro import")), (path, line)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.train",
+                                    "repro_torch.train.engine",
+                                    "repro_torch.launch.train_fleet",
+                                    "repro_torch.core.batching"])
+def test_multi_tenant_modules_import_without_jax(module):
+    probe = ("import sys\nsys.modules['jax'] = None\n"
+             f"import {module}\n"
+             "print(sorted(m for m in sys.modules if m == 'repro' "
+             "or m.startswith(('repro.', 'jax.'))))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

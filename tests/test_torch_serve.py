@@ -281,7 +281,45 @@ def test_cli_on_cpu(tmp_path, capsys):
     assert "[serve] adapter 'alice': 2 steps" in out
     assert "[serve] 3 reqs x (6 prompt + 3 gen)" in out
     assert "chunked prefill C=4" in out
-    assert out.count("user=alice") == 2 and out.count("user=base") == 1
+    # the JAX CLI's mix: with an adapter every request goes to a user
+    assert out.count("user=alice") == 3 and out.count("user=base") == 0
+
+
+@pytest.mark.parametrize("n_adapters", [0, 2])
+def test_cli_request_mix_matches_jax(tmp_path, monkeypatch, n_adapters):
+    """The same argv in both serve CLIs assigns every request to the same
+    user: round-robin over the adapters, the base only when none is
+    given. The engines' ``run`` is stubbed: only the mix is compared."""
+    import sys
+
+    from repro.launch import serve as j_serve_cli
+    from repro_torch.serve import engine as t_engine
+    argv = ["--arch", "opt-1.3b", "--reduced", "--requests", "5",
+            "--prompt-len", "6", "--gen", "2"]
+    for i, user in enumerate(["alice", "bob"][:n_adapters]):
+        ckpt = tmp_path / user
+        ckpt.mkdir()
+        with open(ckpt / "replay.jsonl", "w") as f:
+            for r in _records(2, seed=i):
+                f.write(json.dumps(r) + "\n")
+        argv += ["--adapter", f"{user}={ckpt}"]
+    mixes = {}
+    for name, cls in (("jax", JServeEngine), ("torch", t_engine.ServeEngine)):
+        seen = mixes.setdefault(name, [])
+        orig = cls.submit
+
+        def submit(self, req, _orig=orig, _seen=seen):
+            _seen.append(req.user)
+            return _orig(self, req)
+        monkeypatch.setattr(cls, "submit", submit)
+        monkeypatch.setattr(cls, "run", lambda self: [])
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    j_serve_cli.main()
+    serve_cli.main(argv + ["--device", "cpu"])
+    assert mixes["torch"] == mixes["jax"]
+    want = (["alice", "bob", "alice", "bob", "alice"] if n_adapters
+            else [None] * 5)
+    assert mixes["torch"] == want
 
 
 def test_sampling_seeded_and_in_support():
