@@ -12,7 +12,9 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
    one library call's where there is one, and the bound (the larger of
    bytes over 3.35 TB/s and operations over the peak rate of their type):
    ``zo_add``, ``flash_decode``, ``flash_prefill``; T0 ``zo_matmul`` and
-   ``flash_attention``; Q0 ``zo_add_q`` and ``zo_matmul_q``.
+   ``flash_attention``; Q0 ``zo_add_q`` and ``zo_matmul_q``; S0
+   ``flash_verify`` (B 4, W 4, 32 heads of 64, page 16, positions 96-128,
+   f32 and bf16, two GQA layouts, NaN in the trash page).
 4. serving: ``repro_torch.launch.serve.run`` on full-width, 24-layer
    OPT-1.3B (bf16, random weights from a seed), paged KV with page size 16
    and chunked prefill C = 32, 4 slots, 8 greedy requests (96-token
@@ -23,6 +25,16 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
 5. profile: a shorter run of the same path (4 requests, 16 new tokens)
    under ``torch.profiler``: the device's busy share of the serving wall
    time and the kernels that take the most device time.
+S1. phase 4's requests with ``--spec-k 3`` (the base drafts through
+   ``flash_decode``, each user's weights verify through ``flash_verify``):
+   tokens held to phase 4's under the near-tie rule of
+   ``_hold_to_plain``, acceptance, rounds, decode tok/s, TTFT, and the
+   launches a call read off the code (24 a draft step, 24 a verify).
+S2. a user with lr 1e-6 records (4 requests + 2 base): acceptance above
+   0.9, fewer rounds than half the decode tokens, the plain tokens.
+S4. 4 sampled requests (top-k 8) with ``--spec-k 3``: full length, two
+   runs from one seed give the same tokens.
+S5. phase 5's profile with ``--spec-k 3``.
 T1. the train CLI (``launch.train.run``), full-width OPT-1.3B,
    ``mezo-fused``, 4 steps at B 8 x S 128: losses, step time, tokens/s,
    peak memory, launch counts, and a step-0 snapshot + replay-log restore
@@ -45,6 +57,8 @@ Q3. serving phase 4's requests from one int8 base holding the two
    compact int8 delta (``export_delta`` -> ``put_delta``) against the
    replayed user's weights, serving the same requests closer to the
    replayed user than to the base.
+S3. Q3's int8 base with ``--spec-k 3``, tokens held to Q3's plain ones
+   under S1's rule.
 U0. ``zo_add_users`` (U = 4 stacked f32 deltas of OPT-1.3B's ``w_in`` and
    LM head), ``zo_matmul_users`` (X (4, 1024, 2048) bf16 over a shared and
    a per-lane W) and ``zo_matmul_users(scale=)`` (a shared int8 W) at the
@@ -787,6 +801,73 @@ def kernel_zo_matmul_users(torch, results):
             "library_ms": sum(r["library_ms"] for r in rs)}
 
 
+def kernel_flash_verify(torch, results):
+    """S0: the verify window at serving shapes (B 4, W = k + 1 = 4, 32
+    heads of 64, page 16, ragged positions 96-128) in f32 and bf16, two
+    GQA layouts (W * G = 16 rows, and 64 rows split over blockIdx.z), NaN
+    in the trash page; times in bf16 at OPT-1.3B's shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_verify as fv
+    dev = torch.device("cuda")
+    b, w, h, hd, ps, n_live = 4, 4, 32, 64, 16, 8
+    pos = [96, 110, 124, 101]
+    cover = [p + w - 1 for p in pos]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    errs = {}
+    for kvh, dt, tol in ((32, torch.float32, ATTN_F32_ATOL),
+                         (8, torch.float32, ATTN_F32_ATOL),
+                         (2, torch.float32, ATTN_F32_ATOL),
+                         (8, torch.bfloat16, ATTN_BF16_ATOL),
+                         (2, torch.bfloat16, ATTN_BF16_ATOL),
+                         (32, torch.bfloat16, ATTN_BF16_ATOL)):
+        k, v, pages, _ = _paged_case(torch, b, ps, kvh, hd, n_live, cover,
+                                     1e4)
+        k, v = k.to(dt), v.to(dt)
+        q = torch.randn((b, w, h, hd), generator=gen, device=dev).to(dt)
+        got = fv.flash_verify(q, k, v, pages, pos_t)
+        want = fv.verify_attn_ref(q, k, v, pages, pos_t)
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= tol and torch.isfinite(got).all().item(),
+              f"flash_verify KV {kvh} {dt}: max err {err} > {tol}")
+        k[0], v[0] = float("nan"), float("nan")
+        check(torch.equal(fv.flash_verify(q, k, v, pages, pos_t), got),
+              f"flash_verify KV {kvh} {dt}: NaN in the trash page reached "
+              f"the output")
+        errs[(kvh, str(dt))] = err
+    # q, k, v, pages hold the bf16 case at OPT-1.3B's shape (KV 32)
+    k[0], v[0] = 0.0, 0.0
+    ms = time_ms(lambda: fv.flash_verify(q, k, v, pages, pos_t), iters=200)
+    plain = time_ms(lambda: fv.verify_attn_ref(q, k, v, pages, pos_t),
+                    iters=50)
+    pl = pages.long()
+    kk = k[pl].reshape(b, n_live * ps, h, hd).transpose(1, 2).contiguous()
+    vv = v[pl].reshape(b, n_live * ps, h, hd).transpose(1, 2).contiguous()
+    qpos = pos_t.long()[:, None] + torch.arange(w, device=dev)
+    mask = (torch.arange(n_live * ps, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]               # (B, 1, W, T)
+    qq = q.transpose(1, 2).contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask), iters=200)
+    rows_pos = [[p + r for r in range(w)] for p in pos]
+    n_bytes, flops = _attn_cost(rows_pos, h, 1, hd, 2, q.numel())
+    b_ms, b_by = bound(n_bytes + 4 * (pages.numel() + b), flops, "bf16")
+    err = max(e for (_, dt), e in errs.items() if "bfloat16" in dt)
+    print(json.dumps({"phase": "kernel", "name": "flash_verify",
+                      "shape": [b, w, h, hd], "pos": pos, "page_size": ps,
+                      "n_live": n_live,
+                      "max_abs_err_by_kv_dtype": {f"{kv} {dt}": e for
+                                                  (kv, dt), e in
+                                                  errs.items()},
+                      "tolerance_f32": ATTN_F32_ATOL,
+                      "max_abs_err": err, "tolerance": ATTN_BF16_ATOL,
+                      "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+                      "bound_ms": b_ms, "bound_by": b_by}), flush=True)
+    results["flash_verify"] = {"max_abs_err": err, "ms": ms,
+                               "plain_ms": plain, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": lib}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 
@@ -826,12 +907,12 @@ def _recorded(torch, engine_mod, fn):
 N_BASE = 2   # base requests beside the CLI's mix (phases 4 and Q3)
 
 
-def _serve(torch, serve_mod, engine_mod, argv, params=None):
+def _serve(torch, serve_mod, engine_mod, argv, params=None, hook=None):
     """Build the CLI's engine (``build_engine``, on ``params`` when given),
     submit ``N_BASE`` requests for the base model beside the CLI's
     requests -- with adapters the CLI serves only its users, as the JAX
-    CLI does -- serve them all, and record each request's first-step
-    logits."""
+    CLI does -- call ``hook(engine)``, serve them all, and record each
+    request's first-step logits."""
     import numpy as np
     from repro_torch.serve import Request
     args = serve_mod.build_parser().parse_args(argv)
@@ -842,6 +923,8 @@ def _serve(torch, serve_mod, engine_mod, argv, params=None):
             0, engine.cfg.vocab, (N_BASE, args.prompt_len), dtype=np.int32)
         for p in prompts:
             engine.submit(Request(prompt=p, max_new=args.gen, user=None))
+        if hook is not None:
+            hook(engine)
         t0 = time.perf_counter()
         comps = engine.run()
         return engine, comps, time.perf_counter() - t0
@@ -922,7 +1005,7 @@ def main_path(torch, paths):
                       "first_tokens_equal": same_first}), flush=True)
     check(worst <= LOGITS_BF16_ATOL,
           f"paged/chunked first-step logits differ from dense by {worst}")
-    return paged, common
+    return paged, common, comps
 
 
 def _profiled(torch, fn):
@@ -957,7 +1040,7 @@ def _profile_line(phase, wall_us, by_name, **extra):
         flush=True)
 
 
-def profile_path(torch, paged_argv):
+def profile_path(torch, paged_argv, phase="profile"):
     """Device busy share of serving (4 requests, 16 new tokens)."""
     from repro_torch.launch import serve as serve_mod
     argv = list(paged_argv)
@@ -967,8 +1050,246 @@ def profile_path(torch, paged_argv):
     for user in engine.store.users():          # replay outside the window
         engine.store.materialize(user)
     wall_us, by_name = _profiled(torch, engine.run)
-    _profile_line("profile", wall_us, by_name, requests=4, gen=16,
+    _profile_line(phase, wall_us, by_name, requests=4, gen=16,
                   decode_steps=engine.stats.decode_steps)
+
+
+# ---------------------------------------------------------------------------
+# S1-S5: self-speculative serving (the base drafts, base+delta verifies)
+
+SPEC_K = 3
+# launches a spec round makes, read off the code: every decode_step and
+# verify_window call runs its attention kernel once in each of OPT-1.3B's
+# 24 layers (a draft step is one decode_step with the base weights; a
+# verify is one verify_window call for each distinct active user)
+SPEC_PER_CALL = {"flash_decode": 24, "flash_verify": 24}
+
+
+def _count_calls(counts):
+    """A ``_serve`` hook counting the engine's decode_step and
+    verify_window calls into ``counts``."""
+    import dataclasses
+
+    def hook(engine):
+        model = engine.model
+
+        def counted(name):
+            fn = getattr(model, name)
+
+            def call(*a, **kw):
+                counts[name] = counts.get(name, 0) + 1
+                return fn(*a, **kw)
+            return call
+        engine.model = dataclasses.replace(
+            model, decode_step=counted("decode_step"),
+            verify_window=counted("verify_window"))
+    return hook
+
+
+def _record_rows(rows):
+    """A ``_serve`` hook recording, for every decode call, the logits row
+    each written slot picks its next token from: rows[(rid, index of that
+    token)]."""
+    import dataclasses
+
+    import numpy as np
+
+    def hook(engine):
+        fn = engine.model.decode_step
+
+        def call(params, cache, toks, pos, pages=None, write_mask=None):
+            lg, cache = fn(params, cache, toks, pos, pages=pages,
+                           write_mask=write_mask)
+            host = lg[:, -1].float().cpu()
+            live = (engine._active if write_mask is None
+                    else write_mask.cpu().numpy())
+            for slot in np.flatnonzero(live):
+                rows[(engine._req[slot].rid, len(engine._out[slot]))] = \
+                    host[slot]
+            return lg, cache
+        engine.model = dataclasses.replace(engine.model, decode_step=call)
+    return hook
+
+
+def _hold_to_plain(torch, label, argv, params, spec, plain):
+    """The rule for tokens on the card, stated before the first run: each
+    request's speculative tokens equal the plain engine's, or at the first
+    position where they differ the plain engine's logits for the two
+    tokens lie within LOGITS_BF16_ATOL (a bf16 near-tie that the verify
+    window's M = B * W projections may flip: cuBLAS picks its algorithm
+    by M). The plain logits come from a rerun of the plain
+    engine, made only when some request differs. Returns (identical
+    requests, {rid: gap}) and fails on a wider gap."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import engine as engine_mod
+    check([c.rid for c in spec] == [c.rid for c in plain],
+          f"{label}: completions differ in rids")
+    first_diff = {}
+    for a, b in zip(spec, plain):
+        check(a.tokens.shape == b.tokens.shape,
+              f"{label} rid {a.rid}: {a.tokens.shape} tokens, plain "
+              f"{b.tokens.shape}")
+        ne = (a.tokens != b.tokens).nonzero()[0]
+        if ne.size:
+            first_diff[a.rid] = (int(ne[0]), int(b.tokens[ne[0]]),
+                                 int(a.tokens[ne[0]]))
+    gaps = {}
+    if first_diff:
+        rows = {}
+        _, _, rerun, _, first = _serve(torch, serve_mod, engine_mod, argv,
+                                       params=params,
+                                       hook=_record_rows(rows))
+        for c in rerun:
+            rows[(c.rid, 0)] = first[c.rid]
+        check([c.tokens.tolist() for c in rerun]
+              == [c.tokens.tolist() for c in plain],
+              f"{label}: the plain engine's rerun gave other tokens")
+        for rid, (j, want, got) in first_diff.items():
+            row = rows[(rid, j)]
+            gaps[rid] = abs(row[want] - row[got]).item()
+            check(gaps[rid] <= LOGITS_BF16_ATOL,
+                  f"{label} rid {rid}: token {j} is {got}, plain {want}, "
+                  f"plain logits {gaps[rid]} apart > {LOGITS_BF16_ATOL}")
+    return len(spec) - len(first_diff), gaps
+
+
+def _spec_run(torch, paths, label, argv, params=None):
+    """Serve ``argv`` with ``--spec-k`` through ``_serve``: launch counts
+    against the calls, tokens in range; returns (args, engine,
+    completions, seconds)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import engine as engine_mod
+    calls = {}
+    ops.reset_launches()
+    args, engine, comps, dt, first = _serve(
+        torch, serve_mod, engine_mod, argv, params=params,
+        hook=_count_calls(calls))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    paths[label] = launches
+    print(serve_mod.summary(args, engine, comps, dt), flush=True)
+    for name, per in SPEC_PER_CALL.items():
+        fn = "decode_step" if name == "flash_decode" else "verify_window"
+        check(launches[name] == per * calls.get(fn, 0) > 0,
+              f"{label}: {launches[name]} {name} launches for "
+              f"{calls.get(fn, 0)} {fn} calls (expected {per} a call)")
+    for comp in comps:
+        t = comp.tokens
+        check(t.shape == (args.gen,) and int(t.min()) >= 0
+              and int(t.max()) < engine.cfg.vocab,
+              f"{label} rid {comp.rid}: bad tokens {t.tolist()}")
+        check(torch.isfinite(first[comp.rid]).all().item(),
+              f"{label} rid {comp.rid}: non-finite first-step logits")
+    st = engine.stats
+    n = max(len(comps), 1)
+    print(json.dumps({
+        "phase": label, "spec_k": engine.spec_k,
+        "accept_rate": st.spec_accept_rate, "drafted": st.spec_drafted,
+        "accepted": st.spec_accepted, "rounds": st.decode_steps,
+        "decode_tokens": st.decode_tokens, "decode_tok_s": st.decode_tps,
+        "ttft_avg_s": st.ttft_s / n, "seconds": dt,
+        "accept_rate_by_user": {
+            str(u): [c.accept_rate for c in comps if c.user == u]
+            for u in sorted({c.user for c in comps}, key=str)},
+        "calls": calls, "launches": launches}), flush=True)
+    return args, engine, comps, dt
+
+
+def s1_spec_serving(torch, paths, paged_argv, plain):
+    """S1: phase 4's requests with --spec-k 3 against phase 4's tokens."""
+    argv = paged_argv + ["--spec-k", str(SPEC_K)]
+    _, engine, comps, _ = _spec_run(torch, paths, "S1 spec", argv)
+    check(len(comps) == len(plain),
+          f"S1: {len(comps)} completions, expected {len(plain)}")
+    check(engine.stats.spec_drafted > 0, "S1: nothing drafted")
+    same, gaps = _hold_to_plain(torch, "S1", paged_argv, None, comps, plain)
+    print(json.dumps({"phase": "S1 tokens", "identical_requests": same,
+                      "requests": len(comps), "near_tie_gaps": gaps,
+                      "tolerance": LOGITS_BF16_ATOL}), flush=True)
+
+
+def s2_tiny_delta(torch, paths, common):
+    """S2: a user whose records barely move the weights (lr 1e-6) drafts
+    nearly its own target: acceptance above 0.9, fewer rounds than half
+    the decode tokens, the plain engine's tokens."""
+    import numpy as np
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import engine as engine_mod
+    path = WORK / "tiny"
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(7)
+    with open(path / "replay.jsonl", "w") as f:
+        for step in range(4):
+            f.write(json.dumps({"step": step,
+                                "seed": int(rng.integers(2**31)),
+                                "gs": rng.normal(size=2).astype(
+                                    np.float32).tolist(),
+                                "lr": 1e-6, "eps": 1e-3}) + "\n")
+    argv = list(common)
+    while "--adapter" in argv:
+        i = argv.index("--adapter")
+        del argv[i:i + 2]
+    argv[argv.index("--requests") + 1] = "4"
+    argv += ["--adapter", f"tiny={path}", "--paged", "--page-size", "16",
+             "--prefill-chunk", "32"]
+    _, plain_eng, plain, _, _ = _serve(torch, serve_mod, engine_mod, argv)
+    plain_tps = plain_eng.stats.decode_tps
+    del plain_eng
+    _, engine, comps, _ = _spec_run(torch, paths, "S2 spec tiny",
+                                    argv + ["--spec-k", str(SPEC_K)])
+    st = engine.stats
+    check(st.spec_accept_rate > 0.9,
+          f"S2: acceptance {st.spec_accept_rate} <= 0.9")
+    check(st.decode_steps < st.decode_tokens / 2,
+          f"S2: {st.decode_steps} rounds for {st.decode_tokens} tokens")
+    same, gaps = _hold_to_plain(torch, "S2", argv, None, comps, plain)
+    print(json.dumps({"phase": "S2 tokens", "identical_requests": same,
+                      "requests": len(comps), "near_tie_gaps": gaps,
+                      "plain_decode_tok_s": plain_tps,
+                      "spec_decode_tok_s": st.decode_tps}), flush=True)
+
+
+def s3_int8_spec(torch, paths, paged_argv, base, plain):
+    """S3: Q3's int8 base drafts for itself and its users; tokens held
+    against Q3's plain tokens."""
+    argv = paged_argv + ["--spec-k", str(SPEC_K)]
+    _, engine, comps, _ = _spec_run(torch, paths, "S3 spec int8", argv,
+                                    params=base)
+    same, gaps = _hold_to_plain(torch, "S3", paged_argv, base, comps, plain)
+    print(json.dumps({"phase": "S3 tokens", "identical_requests": same,
+                      "requests": len(comps), "near_tie_gaps": gaps,
+                      "tolerance": LOGITS_BF16_ATOL}), flush=True)
+
+
+def s4_sampled(torch, paths, paged_argv):
+    """S4: 4 sampled requests (top-k 8) with --spec-k 3: full length, and
+    two runs from one seed give the same tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    argv = list(paged_argv)
+    argv[argv.index("--requests") + 1] = "4"
+    argv += ["--spec-k", str(SPEC_K), "--sample", "--topk", "8"]
+    args = serve_mod.build_parser().parse_args(argv)
+    runs = []
+    for i in range(2):
+        ops.reset_launches()
+        engine, comps, dt = serve_mod.run(args)
+        torch.cuda.synchronize()
+        if i == 0:
+            paths["S4 spec sampled"] = dict(ops.LAUNCHES)
+        runs.append([c.tokens.tolist() for c in comps])
+        check(len(comps) == 4 and all(
+            len(c.tokens) == args.gen and 0 <= min(c.tokens) and
+            max(c.tokens) < engine.cfg.vocab for c in comps),
+            f"S4 run {i}: incomplete or bad sampled completions")
+    check(runs[0] == runs[1], "S4: one seed gave two token streams")
+    st = engine.stats
+    print(json.dumps({"phase": "S4 spec sampled", "requests": 4,
+                      "reproduced": True, "accept_rate": st.spec_accept_rate,
+                      "rounds": st.decode_steps,
+                      "decode_tok_s": st.decode_tps, "seconds": dt,
+                      "launches": paths["S4 spec sampled"]}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1440,6 +1761,7 @@ def q3_int8_serving(torch, paths, paged_argv, dense_argv):
             int((a.tokens == b.tokens).all())
             for a, b in zip(compact_comps, alice)),
         "launches": launches}), flush=True)
+    return base, comps
 
 
 # ---------------------------------------------------------------------------
@@ -1772,12 +2094,20 @@ def main():
     kernel_zo_matmul_q(torch, results)
     kernel_zo_add_users(torch, results)
     kernel_zo_matmul_users(torch, results)
+    kernel_flash_verify(torch, results)                   # S0
     torch.cuda.empty_cache()
 
     # 4-5. the serving path, and where its time goes
     paths: dict = {}
-    paged_argv, dense_argv = main_path(torch, paths)
+    paged_argv, dense_argv, plain = main_path(torch, paths)
     profile_path(torch, paged_argv)
+    # S1-S5: self-speculative serving (S3 follows Q3)
+    s1_spec_serving(torch, paths, paged_argv, plain)
+    s2_tiny_delta(torch, paths, dense_argv)
+    s4_sampled(torch, paths, paged_argv)
+    profile_path(torch, paged_argv + ["--spec-k", str(SPEC_K)],
+                 phase="S5 profile spec")
+    torch.cuda.empty_cache()
 
     # T1 + T4: the training CLI, then one profiled step
     tr, state, batch = train_main_path(torch, paths)
@@ -1799,7 +2129,9 @@ def main():
     torch.cuda.empty_cache()
     q2_int8_train(torch, paths)
     torch.cuda.empty_cache()
-    q3_int8_serving(torch, paths, paged_argv, dense_argv)
+    base, q3_plain = q3_int8_serving(torch, paths, paged_argv, dense_argv)
+    s3_int8_spec(torch, paths, paged_argv, base, q3_plain)
+    del base, q3_plain
 
     # U1-U4: multi-tenant training over one resident base
     torch.cuda.empty_cache()
@@ -1820,7 +2152,8 @@ def main():
                 "zo_matmul_q": "src/repro/kernels/zo_perturb.py:234",
                 "zo_add_users": "src/repro/kernels/zo_perturb.py:165",
                 "zo_matmul_users": "src/repro/kernels/zo_perturb.py:332",
-                "zo_matmul_users_q": "src/repro/kernels/zo_perturb.py:352"}
+                "zo_matmul_users_q": "src/repro/kernels/zo_perturb.py:352",
+                "flash_verify": "src/repro/kernels/flash_verify.py:38"}
     sources = {"zo_add_q": "zo_add", "zo_matmul_q": "zo_matmul",
                "zo_add_users": "zo_add", "zo_matmul_users": "zo_matmul",
                "zo_matmul_users_q": "zo_matmul"}

@@ -1,6 +1,7 @@
 // One query row of attention over a paged KV pool, for one warp.
-// Shared by flash_decode.cu (one row per query head) and
-// flash_prefill.cu (C * G rows: chunk offset x query head).
+// Shared by flash_decode.cu (one row per query head), flash_prefill.cu
+// (C * G rows: chunk offset x query head) and flash_verify.cu (W * G
+// rows: window offset x query head).
 //
 // Layout (the JAX package's): k/v pools (NP, ps, KV, hd); a slot's page
 // table row maps logical page p to physical page table[p]; physical page

@@ -36,7 +36,8 @@ LAUNCHES: Dict[str, int] = {"zo_add": 0, "flash_decode": 0,
                             "flash_prefill": 0, "zo_matmul": 0,
                             "flash_attention": 0, "zo_add_q": 0,
                             "zo_matmul_q": 0, "zo_add_users": 0,
-                            "zo_matmul_users": 0, "zo_matmul_users_q": 0}
+                            "zo_matmul_users": 0, "zo_matmul_users_q": 0,
+                            "flash_verify": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +49,8 @@ _SIGNATURES = {
                            _I, ctypes.c_float, _P),
     "repro_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, ctypes.c_float, _P),
+    "repro_flash_verify": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, ctypes.c_float, _P),
     "repro_zo_matmul": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I,
                         ctypes.c_float, _I, _P),
     "repro_zo_add_q": (_P, _P, _P, ctypes.c_int64,

@@ -12,12 +12,13 @@ from __future__ import annotations
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import flash_prefill as _fp
+from repro_torch.kernels import flash_verify as _fv
 from repro_torch.kernels import zo_perturb as _zo
 from repro_torch.kernels.build import LAUNCHES, reset_launches
 
 __all__ = ["LAUNCHES", "reset_launches", "zo_add", "zo_matmul",
            "zo_add_users", "zo_matmul_users", "flash_attention",
-           "paged_decode_attn", "paged_prefill_attn"]
+           "paged_decode_attn", "paged_prefill_attn", "paged_verify_attn"]
 
 
 def _on_cpu(kernel: str, t) -> bool:
@@ -137,3 +138,11 @@ def paged_prefill_attn(q, k_pages, v_pages, pages, pos):
     if _on_cpu("flash_prefill", q):
         return _fp.prefill_attn_ref(q, k_pages, v_pages, pages, pos)
     return _fp.flash_prefill(q, k_pages, v_pages, pages, pos)
+
+
+def paged_verify_attn(q, k_pages, v_pages, pages, pos):
+    """Speculative-verify window attention over a paged KV pool (q: (B, W,
+    H, hd)), window offset w reading positions <= pos + w."""
+    if _on_cpu("flash_verify", q):
+        return _fv.verify_attn_ref(q, k_pages, v_pages, pages, pos)
+    return _fv.flash_verify(q, k_pages, v_pages, pages, pos)

@@ -1,12 +1,12 @@
 """Serving launcher: thin CLI over the personalized serving subsystem.
 
-Port of the JAX package's ``launch/serve.py`` (same flags, minus
-``--spec-k``, plus ``--device``). It builds an engine, loads per-user ZO
-adapters from replay logs, serves a synthetic request mix and prints the
-summary line:
+Port of the JAX package's ``launch/serve.py`` (the same flags but
+``--family``, whose other families the port does not run yet, plus
+``--device``). It builds an engine, loads per-user ZO adapters from
+replay logs, serves a synthetic request mix and prints the summary line:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \\
-      --paged --page-size 16 --prefill-chunk 32 \\
+      --paged --page-size 16 --prefill-chunk 32 --spec-k 3 \\
       --adapter alice=/path/to/ckpt_alice --adapter bob=/path/to/ckpt_bob
 
 Runs on the CUDA device unless ``--device cpu`` is given.
@@ -65,10 +65,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pool-pages", type=int, default=None,
                     help="total pool pages incl. the trash page (default: "
                          "slots x ceil(max_len/page_size) + 1)")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="self-speculative decoding (needs --paged): the "
+                         "frozen base drafts up to K tokens per round into "
+                         "the slot's shared KV pages, base+delta verifies "
+                         "them in one batched window call; greedy output "
+                         "is bit-identical to plain decoding")
     ap.add_argument("--prefill-chunk", type=int, default=None, metavar="N",
                     help="chunked prefill (needs --paged): admissions "
                          "advance at most N prompt tokens per engine step, "
-                         "written straight into the slot's KV pages")
+                         "written straight into the slot's KV pages; "
+                         "composes with --spec-k")
     return ap
 
 
@@ -111,7 +118,7 @@ def build_engine(args, params=None) -> ServeEngine:
                          max_len=args.prompt_len + args.gen,
                          seed=args.seed, paged=args.paged,
                          page_size=args.page_size,
-                         pool_pages=args.pool_pages,
+                         pool_pages=args.pool_pages, spec_k=args.spec_k,
                          prefill_chunk=args.prefill_chunk, device=device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt_len),
@@ -140,6 +147,11 @@ def summary(args, engine, completions, dt) -> str:
     paged_note = (f" | paged: {engine.pool_pages} pages x "
                   f"{engine.page_size} tok, peak in use "
                   f"{st.peak_pages_in_use}" if engine.paged else "")
+    if engine.spec_k:
+        paged_note += (f" | spec k={engine.spec_k}: accepted "
+                       f"{st.spec_accepted}/{st.spec_drafted} drafts "
+                       f"({st.spec_accept_rate:.0%}) in "
+                       f"{st.decode_steps} rounds")
     if engine.prefill_chunk:
         paged_note += f" | chunked prefill C={engine.prefill_chunk}"
     n_done = max(len(completions), 1)

@@ -1,16 +1,18 @@
 """Self-attention block: GQA/MQA attention over a KV cache.
 
 Port of the JAX package's ``models/blocks/attention.py`` (full-sequence
-apply, dense decode, paged decode, chunked paged prefill, whole-prompt
-prefill). Cache layers are updated in place.
+apply, dense decode, paged decode, chunked paged prefill, the
+speculative verify window, whole-prompt prefill). Cache layers are
+updated in place.
 
 Dense mode: per-slot (B, S_max, KV, hd) strips; decode writes position
 ``pos[b]`` of each slot. Paged mode: K/V live in a shared page pool
 (``k_pages``/``v_pages``: (n_pages, page_size, KV, hd) per layer) with a
 per-slot page table in ``rc.pages``; decode and chunked prefill attend
 over live pages only, through the ``flash_decode`` / ``flash_prefill``
-kernels on the card (their plain versions on the CPU). Physical page 0
-is the pool's trash page: masked-out slots (``rc.write_mask``) and
+kernels on the card (their plain versions on the CPU), and the verify
+window through ``flash_verify``. Physical page 0 is the pool's trash
+page: masked-out slots and window offsets (``rc.write_mask``) and
 unallocated table entries point there, so scatters need no merge and
 reads need no index clamping.
 """
@@ -20,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.batching import masked_merge
-from repro_torch.kernels.ops import paged_decode_attn, paged_prefill_attn
+from repro_torch.kernels.ops import (paged_decode_attn, paged_prefill_attn,
+                                     paged_verify_attn)
 from repro_torch.models import layers as L
 from repro_torch.models.blocks.base import BlockType, register_block
 
@@ -98,10 +101,11 @@ def _decode_step(cfg, p, state, x, rc, causal=None):
 
 
 def _window_paged(cfg, p, state, x, rc, attn, what):
-    """Scatter-then-read over the page pool for a multi-token paged entry:
-    the W tokens' own K/V is written through the page table first (masked
-    slots scatter into the trash page), then the attention read sees
-    exactly what a sequential decode of those tokens would have cached."""
+    """Scatter-then-read over the page pool for a multi-token paged entry
+    (speculative verify, chunked prefill): the W tokens' own K/V is
+    written through the page table first (masked slots and offsets
+    scatter into the trash page), then the attention read sees exactly
+    what a sequential decode of those tokens would have cached."""
     if "k_pages" not in state:
         raise ValueError(f"{what} needs a paged KV cache "
                          "(attention state has no k_pages pool)")
@@ -112,7 +116,11 @@ def _window_paged(cfg, p, state, x, rc, attn, what):
     q, k, v = L.attn_project_qkv(cfg, p, x)       # (B,W,H,hd),(B,W,KV,hd)
     posw = pos[:, None] + torch.arange(w, device=x.device)[None, :]
     q, k = _rope(cfg, q, k, posw)
-    phys = torch.gather(rc.pages.long(), 1, posw // ps)
+    # a masked offset (past a slot's draft, or an idle slot's stale
+    # position) may lie past the live table: clamp, as _decode_paged
+    # does; its write goes to the trash page and its output is dropped
+    lp = torch.clamp(posw // ps, max=rc.pages.shape[1] - 1)
+    phys = torch.gather(rc.pages.long(), 1, lp)
     if rc.write_mask is not None:
         wm = rc.write_mask
         if wm.dim() == 1:
@@ -124,6 +132,17 @@ def _window_paged(cfg, p, state, x, rc, attn, what):
     out = attn(q, ck, cv, rc.pages, rc.pos)
     return (L.dense(p["wo"], out.reshape(b, w, -1)),
             {"k_pages": ck, "v_pages": cv})
+
+
+def _verify_paged(cfg, p, state, x, rc, causal=None):
+    """Speculative-verify window: score W candidate tokens per slot at
+    positions ``rc.pos .. rc.pos + W - 1``, overwriting the draft's K/V
+    at those positions with this model's own (offsets past a slot's
+    window, ``rc.write_mask`` (B, W) False, go to the trash page), then
+    attend causally within the window (the flash_verify kernel on the
+    card)."""
+    return _window_paged(cfg, p, state, x, rc, paged_verify_attn,
+                         "verify window")
 
 
 def _prefill_paged(cfg, p, state, x, rc, causal=None):
@@ -150,4 +169,5 @@ def _prefill(cfg, p, state, x, rc, causal=None):
 ATTENTION = register_block(BlockType(
     name="attention", apply=_apply, state_spec=_state_spec,
     prefill=_prefill, decode_step=_decode_step,
-    paged_state_spec=_paged_state_spec, prefill_paged=_prefill_paged))
+    paged_state_spec=_paged_state_spec, verify=_verify_paged,
+    prefill_paged=_prefill_paged))

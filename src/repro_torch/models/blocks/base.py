@@ -7,6 +7,7 @@ over plain param dicts (one layer's slice):
   state_spec(cfg, bsz, max_len, dt)  -> {name: (shape, dtype)}
   prefill(cfg, p, state, x, rc)      -> (y, new_state)  (multi-token)
   decode_step(cfg, p, state, x, rc)  -> (y, new_state)  (one token)
+  verify(cfg, p, state, x, rc)       -> (y, new_state)  (paged window)
 
 The runtime owns the residual pattern: ``apply`` receives the *normed*
 input and returns only the branch output. ``state_spec`` declares
@@ -46,6 +47,12 @@ class BlockType:
     # chunked prefill straight into the page pool: (cfg, p, state,
     # x(B, C, D), rc, **opts) -> (y, new_state)
     prefill_paged: Optional[Callable] = None
+    # speculative-verify window: (cfg, p, state, x(B, W, D), rc, **opts)
+    # -> (y, new_state), scoring W candidate tokens at positions
+    # rc.pos .. rc.pos + W - 1 in one call (causal within the window);
+    # rc.write_mask is (B, W). Stateful blocks without it (recurrent
+    # state) are not ported yet.
+    verify: Optional[Callable] = None
 
     @property
     def stateful(self) -> bool:

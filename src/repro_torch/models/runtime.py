@@ -120,6 +120,20 @@ def _index(tree, i: int, axes=None):
             for k, v in tree.items()}
 
 
+def _embed_positions(cfg, positions, write_mask):
+    """Learned-position ids with those of masked lanes clamped into the
+    table: a draft step or window offset that writes nothing may sit past
+    ``max_seq - 1``, where torch's gather raises (the reference's
+    ``jnp.take`` returns NaN rows, which its trash page then carries). A
+    live position never exceeds the admission reservation."""
+    if cfg.pos != "learned" or write_mask is None:
+        return positions
+    if write_mask.dim() < positions.dim():
+        write_mask = write_mask[:, None]
+    return torch.where(write_mask, positions,
+                       positions.clamp(max=cfg.max_seq - 1))
+
+
 def _pos_vector(pos, b: int, device) -> torch.Tensor:
     """A scalar or (B,) position as a (B,) int32 tensor on ``device``."""
     pos = torch.as_tensor(pos, device=device).to(torch.int32)
@@ -154,8 +168,9 @@ def _stack_apply(cfg, stack: StackPlan, params, x, rc: RunCtx, ctx=None):
 def _stack_seq(cfg, stack: StackPlan, params, state, x, rc: RunCtx,
                mode: str):
     """Stateful stack walk: mode 'decode' (one token), 'prefill' (a whole
-    prompt into a dense cache) or 'chunk' (a prompt chunk straight into
-    the page pool)."""
+    prompt into a dense cache), 'chunk' (a prompt chunk straight into
+    the page pool) or 'verify' (a speculative window over the page
+    pool)."""
     blocks = nest(params, stack.scope)
     for li in range(stack.n_layers):
         bp, ls = _index(blocks, li), _index(state, li)
@@ -167,7 +182,14 @@ def _stack_seq(cfg, stack: StackPlan, params, state, x, rc: RunCtx,
                 y, _ = bt.apply(cfg, _get(bp, sl.mixer), z, rc, **opts)
             else:
                 fn = {"decode": bt.decode_step, "prefill": bt.prefill,
-                      "chunk": bt.prefill_paged}[mode]
+                      "chunk": bt.prefill_paged, "verify": bt.verify}[mode]
+                if fn is None and mode == "verify":
+                    # the reference scans decode_step over the window and
+                    # keeps one recurrent-state snapshot an offset
+                    raise NotImplementedError(
+                        f"block {bt.name!r} has no {mode} entry: verify "
+                        f"windows over recurrent state land with slice 6 "
+                        f"of the port (the other families)")
                 y, _ = fn(cfg, _get(bp, sl.mixer), _get(ls, sl.mixer), z,
                           rc, **opts)
             x = x + y
@@ -304,12 +326,45 @@ def decode_step(plan: ModelPlan, params, cache, tokens, pos, pages=None,
     cfg = plan.cfg
     pos = _pos_vector(pos, tokens.shape[0], tokens.device)
     x = L.embed_apply(cfg, nest(params, "embed"), tokens,
-                      positions=pos.long()[:, None])
+                      positions=_embed_positions(cfg, pos.long()[:, None],
+                                                 write_mask))
     rc = RunCtx(pos=pos, pages=pages, write_mask=write_mask)
     x = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x, rc,
                    "decode")
     x = L.norm_apply(cfg, nest(params, "ln_f"), x)
     return _logits(plan, params, x), cache
+
+
+def _paged_window(plan: ModelPlan, params, cache, tokens, pos, pages,
+                  write_mask, mode: str):
+    """Tokens (B, W) at per-slot positions ``pos .. pos + W - 1`` through
+    the stack in ``mode`` ('chunk' or 'verify') -> (logits (B, W, V),
+    cache); the window's K/V is written through the page table."""
+    cfg = plan.cfg
+    pos = _pos_vector(pos, tokens.shape[0], tokens.device)
+    positions = (pos.long()[:, None]
+                 + torch.arange(tokens.shape[1], device=tokens.device))
+    x = L.embed_apply(cfg, nest(params, "embed"), tokens,
+                      positions=_embed_positions(cfg, positions,
+                                                 write_mask))
+    rc = RunCtx(pos=pos, positions=positions, pages=pages,
+                write_mask=write_mask)
+    x = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x, rc,
+                   mode)
+    x = L.norm_apply(cfg, nest(params, "ln_f"), x)
+    return _logits(plan, params, x), cache
+
+
+def verify_window(plan: ModelPlan, params, cache, tokens, pos, pages=None,
+                  write_mask=None):
+    """Speculative-verify scoring call: tokens (B, W) at per-slot
+    positions ``pos .. pos + W - 1`` -> (logits (B, W, V), cache). The
+    window's K/V is written through the page table, so the pool
+    afterwards holds this model's K/V at every window position;
+    ``write_mask`` (B, W) sends offsets past a slot's window to the trash
+    page."""
+    return _paged_window(plan, params, cache, tokens, pos, pages,
+                         write_mask, "verify")
 
 
 def prefill_chunk(plan: ModelPlan, params, cache, tokens, pos, pages=None,
@@ -318,18 +373,8 @@ def prefill_chunk(plan: ModelPlan, params, cache, tokens, pos, pages=None,
     positions ``pos .. pos + C - 1`` -> (logits (B, C, V), cache). The
     chunk's K/V is written through the page table, which must cover
     ``pos + C - 1``."""
-    cfg = plan.cfg
-    pos = _pos_vector(pos, tokens.shape[0], tokens.device)
-    positions = (pos.long()[:, None]
-                 + torch.arange(tokens.shape[1], device=tokens.device))
-    x = L.embed_apply(cfg, nest(params, "embed"), tokens,
-                      positions=positions)
-    rc = RunCtx(pos=pos, positions=positions, pages=pages,
-                write_mask=write_mask)
-    x = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x, rc,
-                   "chunk")
-    x = L.norm_apply(cfg, nest(params, "ln_f"), x)
-    return _logits(plan, params, x), cache
+    return _paged_window(plan, params, cache, tokens, pos, pages,
+                         write_mask, "chunk")
 
 
 def prefill(plan: ModelPlan, params, cache, tokens):
@@ -348,4 +393,4 @@ def prefill(plan: ModelPlan, params, cache, tokens):
 __all__ = ["AUX_LOSS_WEIGHT", "ModelPlan", "StackPlan", "Sublayer",
            "decode_step", "forward", "init_cache", "init_paged_cache",
            "loss", "nest", "plan_pages", "prefill", "prefill_chunk",
-           "softmax_xent"]
+           "softmax_xent", "verify_window"]

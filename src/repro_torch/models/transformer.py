@@ -14,6 +14,7 @@ model: the same [attn, ffn] plan, bidirectional, a CLS head, no decode).
   prefill(params, cache, prompt)              -> (logits, cache)
   init_paged_cache(bsz, n_pages, page_size, max_len=None, device=...)
   prefill_chunk(params, cache, toks, pos, pages=, write_mask=)
+  verify_window(params, cache, toks, pos, pages=, write_mask=)
 
 ``init`` builds the same tree, shapes, dtypes and init scales as the JAX
 ``_lm_init``; it cannot reproduce ``jax.random``'s numbers, so parity
@@ -59,6 +60,7 @@ class Model:
     prefill: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
     prefill_chunk: Optional[Callable] = None
+    verify_window: Optional[Callable] = None
 
 
 def _lm_plan(cfg: ModelConfig) -> ModelPlan:
@@ -176,5 +178,7 @@ def build_model(cfg: ModelConfig) -> Model:
                                  resolve_device(device), max_len=max_len))
             if RT.plan_pages(plan) else None),
         prefill_chunk=(partial(RT.prefill_chunk, plan)
+                       if RT.plan_pages(plan) else None),
+        verify_window=(partial(RT.verify_window, plan)
                        if RT.plan_pages(plan) else None),
     )

@@ -1,7 +1,8 @@
 """Personalized serving: ZO-adapter store + prefill + continuous-batching
 decode over a dense or paged KV cache."""
 
-from repro_torch.serve.sampling import greedy, sample_topk, step_keys
+from repro_torch.serve.sampling import (greedy, sample_topk, spec_accept,
+                                        step_keys)
 from repro_torch.serve.adapters import (AdapterStore, BASE_USER, ZOAdapter,
                                         tree_bytes)
 from repro_torch.serve.engine import (Completion, EngineStats, Request,
@@ -9,6 +10,6 @@ from repro_torch.serve.engine import (Completion, EngineStats, Request,
 
 __all__ = [
     "AdapterStore", "BASE_USER", "Completion", "EngineStats", "Request",
-    "ServeEngine", "ZOAdapter", "greedy", "sample_topk", "step_keys",
-    "tree_bytes",
+    "ServeEngine", "ZOAdapter", "greedy", "sample_topk", "spec_accept",
+    "step_keys", "tree_bytes",
 ]

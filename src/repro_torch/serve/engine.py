@@ -1,8 +1,8 @@
 """Continuous-batching decode engine over per-user ZO adapters.
 
-Port of the JAX package's ``serve/engine.py`` in dense mode, paged mode
-with whole-prompt admission, and paged mode with chunked admission
-(speculative decoding comes with a later slice).
+Port of the JAX package's ``serve/engine.py``: dense mode, paged mode
+with whole-prompt or chunked admission, and self-speculative decoding
+over the paged cache.
 
 A fixed table of ``n_slots`` sequence slots shares one batched decode
 cache. Requests queue up; whenever a slot is free the next request is
@@ -30,6 +30,24 @@ is bucketed, as in the JAX engine: eager PyTorch does not need the
 bounded shapes, but they keep the port's logits computed on the same
 chunks as the JAX package's. Greedy output is bit-identical to
 whole-prompt admission.
+
+Speculative decoding (``spec_k``, paged only): the engine's own frozen
+base weights (``store.materialize(None)``, the int8 base when quantized)
+draft, so speculation adds no weight bytes. Each round the base drafts
+up to ``k`` tokens per slot greedily (chained ``decode_step`` calls,
+``flash_decode`` on the card), writing its K/V into the slot's reserved
+pages; one ``verify_window`` call per distinct active user then scores
+the k + 1 window positions with that user's weights (``flash_verify``),
+overwriting the window's K/V with the target's own, so the pool holds
+what a sequential target decode would have cached. The longest draft
+prefix matching the target's greedy choices is committed with the
+target's correction or bonus token: greedy output equals the plain
+engine's. Rejected positions need no rollback: reads stop at each
+row's position and the next round overwrites them before they are
+read. Sampled slots run speculative rejection sampling against the
+greedy draft (:func:`~repro_torch.serve.sampling.spec_accept`), which
+keeps the target's top-k distribution. A slot drafts at most
+``remaining`` tokens, so its writes stay inside its reservation.
 
 All state lives on the engine's ``device`` (``"cuda"`` unless the caller
 asks for the CPU); the page tables and bookkeeping live on the host.
@@ -70,6 +88,7 @@ class Completion:
     user: Optional[str]
     prompt: np.ndarray
     tokens: np.ndarray            # (n_generated,) int32
+    accept_rate: Optional[float] = None   # draft acceptance (spec mode)
     queue_wait_s: float = 0.0     # submit -> admission start
     ttft_s: float = 0.0           # submit -> first token picked
 
@@ -85,6 +104,8 @@ class EngineStats:
     finished: int = 0
     peak_active_slots: int = 0
     peak_pages_in_use: int = 0    # paged mode only (excludes trash page)
+    spec_drafted: int = 0         # draft tokens proposed (spec mode)
+    spec_accepted: int = 0        # draft tokens accepted and committed
     # slot-seconds active decode slots sat idle while admission prefill
     # work ran
     decode_stall_s: float = 0.0
@@ -103,6 +124,10 @@ class EngineStats:
     def decode_tps(self) -> float:
         return self._rate(self.decode_tokens, self.decode_s)
 
+    @property
+    def spec_accept_rate(self) -> float:
+        return self._rate(self.spec_accepted, self.spec_drafted)
+
 
 class ServeEngine:
     def __init__(self, cfg, store: AdapterStore, n_slots: int = 4,
@@ -118,10 +143,12 @@ class ServeEngine:
             raise ValueError(f"adapter store lives on {store.device}, the "
                              f"engine on {self.device}")
         self.model = build_model(cfg)
-        if spec_k is not None:
-            raise NotImplementedError(
-                "speculative decoding (spec_k) is not ported yet; it lands "
-                "with the speculative-serving slice (flash_verify)")
+        if spec_k is not None and spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if spec_k is not None and not paged:
+            raise ValueError(
+                "spec_k requires paged=True: the draft writes into (and "
+                "the verifier overwrites) the slot's shared KV pages")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -135,6 +162,12 @@ class ServeEngine:
         self.generator = torch.Generator().manual_seed(seed)
         self.stats = EngineStats()
         self.paged = bool(paged and self.model.init_paged_cache is not None)
+        if spec_k is not None and not self.paged:
+            raise ValueError(
+                f"family {cfg.family!r} has no pageable state; speculative "
+                f"decoding needs a paged KV cache to share between draft "
+                f"and verifier")
+        self.spec_k = int(spec_k or 0)
         self.prefill_chunk = int(prefill_chunk or 0)
         self.page_size = page_size
         if self.paged:
@@ -164,6 +197,8 @@ class ServeEngine:
         self._remaining = np.zeros(n_slots, np.int32)
         self._last = np.zeros(n_slots, np.int32)
         self._out: List[List[int]] = [[] for _ in range(n_slots)]
+        self._slot_drafted = np.zeros(n_slots, np.int64)
+        self._slot_accepted = np.zeros(n_slots, np.int64)
         self._queue_wait = np.zeros(n_slots)
         self._ttft = np.zeros(n_slots)
         self._prefill_slot: Optional[int] = None   # chunked: slot mid-prefill
@@ -370,6 +405,8 @@ class ServeEngine:
         self._remaining[slot] = req.max_new - 1
         self._last[slot] = tok
         self._out[slot] = [tok]
+        self._slot_drafted[slot] = 0
+        self._slot_accepted[slot] = 0
         self.stats.peak_active_slots = max(self.stats.peak_active_slots,
                                            int(self._active.sum()))
         if self._remaining[slot] == 0:
@@ -386,9 +423,12 @@ class ServeEngine:
 
     def _finish(self, slot: int):
         req = self._req[slot]
+        drafted = int(self._slot_drafted[slot])
         self._finished.append(Completion(
             rid=req.rid, user=req.user, prompt=np.asarray(req.prompt),
             tokens=np.asarray(self._out[slot], np.int32),
+            accept_rate=(int(self._slot_accepted[slot]) / drafted
+                         if drafted else None),
             queue_wait_s=float(self._queue_wait[slot]),
             ttft_s=float(self._ttft[slot])))
         self._active[slot] = False
@@ -399,9 +439,11 @@ class ServeEngine:
 
     # ---- decode ---------------------------------------------------------
     def _live_pages(self, cover: np.ndarray) -> torch.Tensor:
-        """Grow page tables to cover this step's write position per slot,
-        then return the (n_slots, n_live) table slice spanning every live
-        page -- n_live bucketed to powers of two."""
+        """Grow page tables to cover this step's highest write position
+        per slot (plain decode: ``pos``; speculative rounds: ``pos + d``,
+        which the admission reservation still covers), then return the
+        (n_slots, n_live) table slice spanning every live page -- n_live
+        bucketed to powers of two."""
         for slot in np.flatnonzero(self._active):
             while (len(self._slot_alloc[slot])
                    <= cover[slot] // self.page_size):
@@ -413,8 +455,102 @@ class ServeEngine:
         n_live = min(n_live, self.slot_pages)
         return self._dev(self._table[:, :n_live])
 
+    def _commit(self, slot: int, toks: List[int]) -> None:
+        self._out[slot].extend(toks)
+        self._last[slot] = toks[-1]
+        self._pos[slot] += len(toks)
+        self._remaining[slot] -= len(toks)
+        if (self._remaining[slot] == 0
+                or self._pos[slot] >= self.max_len - 1):
+            self._finish(slot)
+
+    def _spec_step(self):
+        """One speculative round: the base drafts up to ``spec_k`` tokens
+        per slot into the slot's pages, each distinct active user's
+        weights verify the whole window in one call, and the longest
+        accepted prefix plus the target's correction/bonus token is
+        committed. Greedy slots accept by argmax prefix match on the f32
+        host logits, as the plain step picks; sampled slots run
+        :func:`~repro_torch.serve.sampling.spec_accept`."""
+        self._admit()
+        if not self._active.any():
+            return
+        t0 = time.perf_counter()
+        k = self.spec_k
+        act = self._active.copy()
+        d = np.where(act, np.minimum(k, self._remaining), 0).astype(np.int32)
+        pos_np = np.minimum(self._pos, self.max_len - 1)
+        pages = self._live_pages(pos_np + d)
+        pos = self._dev(pos_np)
+        d_dev = self._dev(d)
+        # draft: chained base decode steps with no host sync between them;
+        # slot b writes (and advances its token) only while i < d[b],
+        # later steps scatter into the trash page and freeze the token.
+        # Steps past max(d) would write and propose nothing: not run.
+        base = self.store.materialize(None)
+        tok = self._dev(self._last, torch.long)
+        steps = []
+        for i in range(int(d.max())):
+            live = d_dev > i
+            lg, self.cache = self.model.decode_step(
+                base, self.cache, tok[:, None], pos + i, pages=pages,
+                write_mask=live)
+            tok = torch.where(live, torch.argmax(lg[:, -1, :], dim=-1), tok)
+            steps.append(tok)
+        drafts = torch.stack(steps).cpu().numpy()   # (max d, n_slots)
+        drafts = np.concatenate(
+            [drafts, np.repeat(drafts[-1:], k - len(drafts), axis=0)])
+        win = np.concatenate([self._last[:, None], drafts.T], axis=1)
+        win_dev = self._dev(win, torch.long)             # (n_slots, k + 1)
+        wlive = np.arange(k + 1)[None, :] <= d[:, None]
+        # slot -> user before any commit can finish (and clear) a slot
+        slot_user = {int(i): self._req[i].user for i in np.flatnonzero(act)}
+        gens = (sampling.step_keys(self.generator, self.n_slots)
+                if any(not self._req[i].greedy for i in slot_user) else None)
+        n_committed = 0
+        for u in dict.fromkeys(slot_user.values()):     # first-seen order
+            mask = np.array([slot_user.get(i, ()) == u
+                             for i in range(self.n_slots)])
+            lg, self.cache = self.model.verify_window(
+                self.store.materialize(u), self.cache, win_dev, pos,
+                pages=pages,
+                write_mask=self._dev(mask[:, None] & wlive, torch.bool))
+            # the pool already holds the target's K/V for every window
+            # position of these slots (masked offsets wrote the trash
+            # page): nothing to commit on the device
+            lg = lg.float().cpu().numpy()               # (n_slots, k+1, V)
+            for slot in np.flatnonzero(mask):
+                req = self._req[slot]
+                ds, rem = int(d[slot]), int(self._remaining[slot])
+                if req.greedy:
+                    tgt = lg[slot, :ds + 1].argmax(axis=1)
+                    a = 0
+                    while a < ds and drafts[a, slot] == tgt[a]:
+                        a += 1
+                    toks = tgt[:min(a + 1, rem)].tolist()
+                else:
+                    a, nxt = sampling.spec_accept(
+                        gens[slot], drafts[:ds, slot],
+                        torch.from_numpy(lg[slot, :ds + 1]),
+                        req.topk or self.cfg.vocab, req.temperature)
+                    toks = (drafts[:a, slot].tolist() + [nxt])[:min(a + 1,
+                                                                     rem)]
+                accepted = min(a, len(toks))
+                self._slot_drafted[slot] += ds
+                self._slot_accepted[slot] += accepted
+                self.stats.spec_drafted += ds
+                self.stats.spec_accepted += accepted
+                n_committed += len(toks)
+                self._commit(slot, toks)
+        self.stats.decode_s += time.perf_counter() - t0
+        self.stats.decode_tokens += n_committed
+        self.stats.decode_steps += 1
+
     def step(self):
-        """Admit whatever fits, then advance every active slot one token."""
+        """Admit whatever fits, then advance every active slot one token
+        (or one speculative window when ``spec_k`` is set)."""
+        if self.spec_k:
+            return self._spec_step()
         self._admit()
         if not self._active.any():
             return
@@ -462,13 +598,7 @@ class ServeEngine:
                     torch.from_numpy(merged[slots]), k, temp)
                 picked.update(zip(slots, toks_s.tolist()))
         for slot, tok in picked.items():
-            self._out[slot].append(tok)
-            self._last[slot] = tok
-            self._pos[slot] += 1
-            self._remaining[slot] -= 1
-            if (self._remaining[slot] == 0
-                    or self._pos[slot] >= self.max_len - 1):
-                self._finish(slot)
+            self._commit(slot, [tok])
         self.stats.decode_s += time.perf_counter() - t0
         self.stats.decode_tokens += n_active
         self.stats.decode_steps += 1

@@ -22,7 +22,9 @@ the card to the CPU's losses within 1e-4 (over an int8 base too), and
 replay equals the live run at atol 0 there. The user-batched kernels
 hold to the scalar kernels' limits against their plain versions, and
 every lane equals a lone scalar launch at atol 0; the TrainEngine on the
-card equals lone Trainers on the card at atol 0.
+card equals lone Trainers on the card at atol 0. ``flash_verify`` holds
+to the attention limits, and the speculative engine on the card serves
+the CPU's greedy tokens.
 """
 
 import numpy as np
@@ -134,6 +136,65 @@ def test_attention_launchers_reject_what_they_do_not_take(cuda):
         fd.flash_decode(q[:, 0].contiguous(), k, v, pages, pos)
     with pytest.raises(TypeError, match="int32"):
         fp.flash_prefill(q, k, v, pages.long(), pos)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("kvh,g,hd", [(4, 1, 64), (2, 2, 128), (1, 4, 64),
+                                      (2, 8, 32), (1, 16, 64), (1, 2, 256),
+                                      (2, 2, 16)])
+@pytest.mark.parametrize("w", [1, 4])
+def test_flash_verify_matches_plain_and_ignores_nan(cuda, dtype, atol, kvh,
+                                                   g, hd, w):
+    """The verify window (W * G rows a (slot, KV head); 64 rows at G 16,
+    W 4 split over blockIdx.z) against its plain version; NaN in the
+    trash page never reaches the output."""
+    from repro_torch.kernels import flash_verify as fv
+    dt = getattr(torch, dtype)
+    q, k, v, pages, pos = [t.to(cuda) for t in _case(
+        6, 4, w, kvh * g, kvh, hd, 6, RAGGED_POS, garbage=1e3)]
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    before = build.LAUNCHES["flash_verify"]
+    got = ops.paged_verify_attn(q, k, v, pages, pos)
+    assert build.LAUNCHES["flash_verify"] == before + 1
+    want = fv.verify_attn_ref(q, k, v, pages, pos)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    k[0], v[0] = float("nan"), float("nan")
+    assert torch.equal(fv.flash_verify(q, k, v, pages, pos), got)
+
+
+def test_reduced_spec_engine_on_card_matches_cpu(cuda):
+    """Speculative serving end to end on reduced OPT-1.3B (f32): the card
+    (flash_decode drafts, flash_verify windows) serves the CPU's greedy
+    tokens, which equal the plain engine's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import AdapterStore, Request, ServeEngine
+    cfg = get_config("opt-1.3b").reduced()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    r = np.random.default_rng(2)
+    records = [{"step": i, "seed": int(r.integers(2**31)),
+                "gs": r.normal(size=2).astype(np.float32).tolist(),
+                "lr": 5e-2, "eps": 1e-2} for i in range(3)]
+    prompts = [r.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (7, 5, 9, 6, 8)]
+
+    def serve(device, spec_k):
+        st = AdapterStore({k: v.to(device) for k, v in params.items()},
+                          device=device)
+        st.put("alice", records)
+        eng = ServeEngine(cfg, st, n_slots=2, max_len=24, paged=True,
+                          page_size=4, prefill_chunk=4, spec_k=spec_k,
+                          device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(prompt=p, max_new=9,
+                               user="alice" if i % 2 == 0 else None))
+        return [c.tokens.tolist() for c in eng.run()]
+
+    before = ops.LAUNCHES["flash_verify"]
+    on_card = serve(cuda, 3)
+    assert ops.LAUNCHES["flash_verify"] > before
+    assert on_card == serve("cpu", 3) == serve("cpu", None)
 
 
 def test_reduced_engine_on_card_matches_cpu(cuda):

@@ -53,6 +53,20 @@ def test_port_sources_name_no_jax_package():
                                     "repro_torch.launch.train_fleet",
                                     "repro_torch.core.batching"])
 def test_multi_tenant_modules_import_without_jax(module):
+    _import_alone(module)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.kernels.flash_verify",
+                                    "repro_torch.serve.sampling",
+                                    "repro_torch.serve.engine",
+                                    "repro_torch.launch.serve"])
+def test_speculative_serving_modules_import_without_jax(module):
+    _import_alone(module)
+
+
+def _import_alone(module):
+    """``module`` imports in a fresh interpreter with JAX blocked, and
+    loads nothing of JAX or the JAX package."""
     probe = ("import sys\nsys.modules['jax'] = None\n"
              f"import {module}\n"
              "print(sorted(m for m in sys.modules if m == 'repro' "

@@ -258,8 +258,11 @@ def test_serve_engines_emit_identical_greedy_tokens(opt):
 def test_engine_rejects_unported_and_missing_device(opt):
     jcfg, jparams, cfg, params = opt
     st = AdapterStore(params, device=CPU)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ServeEngine(cfg, st, paged=True, spec_k=2, device=CPU)
+    # speculative decoding is ported: its flags fail as the JAX engine's
+    with pytest.raises(ValueError, match="spec_k must be >= 1"):
+        ServeEngine(cfg, st, paged=True, spec_k=0, device=CPU)
+    with pytest.raises(ValueError, match="spec_k requires paged=True"):
+        ServeEngine(cfg, st, paged=False, spec_k=2, device=CPU)
     with pytest.raises(NotImplementedError, match="later slice"):
         build_model(get_config("rwkv6-7b").reduced())
     if not torch.cuda.is_available():
