@@ -10,7 +10,14 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main paths' shapes, with its time, the plain version's,
    one library call's where there is one, and the bound (the larger of
-   bytes over 3.35 TB/s and operations over the peak rate of their type):
+   bytes over 3.35 TB/s and operations over the peak rate of their type;
+   bf16 tensor cores for the bf16 bodies of ``zo_matmul*`` and
+   ``flash_attention``, their SIMT f32 bound beside it). A kernel and its
+   library calls are timed in one process, in turns, as CUDA-graph
+   replays (5 rounds of 200 calls, medians; ``time_interleaved``): every
+   SDPA backend that takes the case, the fastest named as the library;
+   cuBLAS SGEMM for the ``zo_matmul`` family, with bf16 cuBLAS of the
+   unperturbed W beside it as the product's floor:
    ``zo_add``, ``flash_decode``, ``flash_prefill``; T0 ``zo_matmul`` and
    ``flash_attention``; Q0 ``zo_add_q`` and ``zo_matmul_q``; S0
    ``flash_verify`` (B 4, W 4, 32 heads of 64, page 16, positions 96-128,
@@ -80,18 +87,23 @@ Then one ``{"kernels": [...]}`` line (each kernel with its launches on
 every path above; each must have launched on one) and the final
 ``{"ok": true, ...}``.
 
-Launch counts are reset just before each path and read just after. Any
+Launch counts are reset just before each path and read just after, by
+kernel and, for the two-body kernels, by body (``ops.BODIES``): T1-T4,
+Q1, U1 and U3 must run every ``zo_matmul*`` / ``flash_attention``
+launch on the body the dtype picks (bf16: tensor cores, f32: SIMT). Any
 failed check exits non-zero before the final line. Imports nothing of JAX
 and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -145,6 +157,81 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_interleaved(torch, fns: dict, iters: int = 200, repeats: int = 5):
+    """Median ms a call of each of ``fns`` (name -> fn, or name -> (fn,
+    ctx) with ``ctx()`` a context manager held around the calls), timed in
+    one process in turns: ``repeats`` rounds, each replaying every fn's
+    CUDA graph of ``iters`` calls once between two CUDA events. Graph
+    replays keep the host's launch cost out of the device time, so a
+    kernel and its library call are compared on the card alone."""
+    graphs = {}
+    side = torch.cuda.Stream()
+    for name, entry in fns.items():
+        fn, ctx = entry if isinstance(entry, tuple) else (entry, None)
+        with (ctx() if ctx else contextlib.nullcontext()):
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):          # warm-up off the graph
+                fn()
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(iters):
+                    fn()
+        graphs[name] = g
+    torch.cuda.synchronize()
+    samples: dict = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, g in graphs.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            samples[name].append(start.elapsed_time(end) / iters)
+    del graphs
+    torch.cuda.empty_cache()
+    return {name: sorted(v)[len(v) // 2] for name, v in samples.items()}
+
+
+def sdpa_backends(torch, call):
+    """``{"sdpa_<backend>": (call, ctx)}`` for every SDPA backend that
+    accepts ``call()``'s case (each one tried once under
+    ``torch.nn.attention.sdpa_kernel``, eagerly and in a CUDA graph; one
+    that refuses the case raises and is left out). The port calls none of
+    them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(be), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # "kernel not used because"
+                call()
+                torch.cuda.synchronize()
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    call()
+            torch.cuda.synchronize()
+            del g
+        except RuntimeError:
+            torch.cuda.synchronize()
+            continue
+        out[f"sdpa_{be.name.lower()}"] = (call, lambda be=be: sdpa_kernel(be))
+    check(bool(out), "no SDPA backend accepts the yardstick's case")
+    return out
+
+
+def kernel_vs_library(torch, kernel, library: dict, iters: int = 200):
+    """The kernel and each library call through ``time_interleaved``:
+    (kernel ms, fastest library ms, its name, every library ms)."""
+    t = time_interleaved(torch, {"kernel": kernel, **library}, iters=iters)
+    ms = t.pop("kernel")
+    name = min(t, key=t.get)
+    return ms, t[name], name, t
 
 
 def bound(n_bytes: float, flops: float, kind: str):
@@ -280,7 +367,6 @@ def kernel_attention(torch, results):
         # q, k, v, pages, pos now hold the bf16 case at the main path's
         # shapes; times on those
         k[0], v[0] = 0.0, 0.0
-        ms = time_ms(lambda: kern(q, k, v, pages, pos_t), iters=200)
         plain = time_ms(lambda: ref(q, k, v, pages, pos_t), iters=50)
         # library yardstick: SDPA over the K/V gathered to logical order
         pl = pages.long()
@@ -292,8 +378,10 @@ def kernel_attention(torch, results):
         mask = (torch.arange(n_live * ps, device=dev)[None, None, :]
                 <= qpos[:, :, None])[:, None]           # (B, 1, rows, T)
         qq = q.reshape(b, rows, h, hd).transpose(1, 2).contiguous()
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask), iters=200)
+        ms, lib, lib_name, lib_all = kernel_vs_library(
+            torch, lambda: kern(q, k, v, pages, pos_t),
+            sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask)))
         rows_pos = [[p + r for r in range(rows)] for p in pos]
         n_bytes, flops = _attn_cost(rows_pos, kvh, h // kvh, hd, 2,
                                     q.numel())
@@ -306,10 +394,42 @@ def kernel_attention(torch, results):
                           "max_abs_err": errs[torch.bfloat16],
                           "tolerance": ATTN_BF16_ATOL, "kernel_ms": ms,
                           "plain_ms": plain, "library_ms": lib,
+                          "library": lib_name, "library_ms_by_call": lib_all,
                           "bound_ms": b_ms, "bound_by": b_by}), flush=True)
         results[name] = {"max_abs_err": errs[torch.bfloat16], "ms": ms,
                          "plain_ms": plain, "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": lib}
+                         "bound_by": b_by, "library_ms": lib,
+                         "library": lib_name}
+
+
+def _mm_row(bf16, m, k, n, n_bytes, lanes, t):
+    """The timing and bound keys of a ``zo_matmul``-family row: kernel
+    and library (cuBLAS SGEMM, TF32 off) ms from ``time_interleaved``, the
+    bf16 cuBLAS product of the unperturbed W as the product's floor
+    (context, not the yardstick), the bound at the peak of the body that
+    runs (bf16 X, Rademacher z: bf16 tensor cores) and the SIMT body's f32
+    bound beside it."""
+    flops = 2.0 * lanes * m * k * n
+    b_ms, b_by = bound(n_bytes, flops, "bf16" if bf16 else "f32")
+    return {"body": "tc" if bf16 else "simt", "kernel_ms": t["kernel"],
+            "library_ms": t["sgemm"], "library": "sgemm",
+            "cublas_bf16_ms": t.get("cublas_bf16"), "bound_ms": b_ms,
+            "bound_by": b_by,
+            "bound_f32_simt_ms": bound(n_bytes, flops, "f32")[0]}
+
+
+def _mm_result(rows, opt):
+    """The kernels line's entry: OPT-1.3B's two shapes summed (one w_in
+    slice and the LM head), as zo_add's row sums its two largest leaves."""
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["kernel_ms"] for r in opt),
+            "plain_ms": sum(r["plain_ms"] for r in opt),
+            "bound_ms": sum(r["bound_ms"] for r in opt),
+            "bound_by": "operations",
+            "library_ms": sum(r["library_ms"] for r in opt),
+            "library": "sgemm",
+            "cublas_bf16_ms": sum(r["cublas_bf16_ms"] for r in opt),
+            "bound_f32_simt_ms": sum(r["bound_f32_simt_ms"] for r in opt)}
 
 
 def kernel_zo_matmul(torch, results):
@@ -351,8 +471,6 @@ def kernel_zo_matmul(torch, results):
             errs[dist] = err
             abs_err = max(abs_err, diff.item())
             del got, want
-        ms = time_ms(lambda: zp.zo_matmul_cuda(x, w, coeff=coeff, **kw),
-                     iters=10)
         plain = time_ms(lambda: zp.zo_matmul_ref(x, w, coeff=coeff, **kw),
                         iters=2, warmup=1)
         z = zp.tile_z(kw["seed"], kw["salt"], (k, n), 0, 0, "rademacher",
@@ -361,32 +479,24 @@ def kernel_zo_matmul(torch, results):
                                       device=dev) * z
         del z
         xf = x.float()
-        lib = time_ms(lambda: xf @ wp, iters=10)
+        t = time_interleaved(torch, {
+            "kernel": lambda: zp.zo_matmul_cuda(x, w, coeff=coeff, **kw),
+            "sgemm": lambda: xf @ wp,
+            **({"cublas_bf16": lambda: x @ w} if dt == torch.bfloat16
+               else {})})
         del wp, xf
-        item = x.element_size()
-        b_ms, b_by = bound((m * k + k * n + m * n) * item, 2.0 * m * k * n,
-                           "f32")
         row = {"phase": "kernel", "name": "zo_matmul", "case": label,
                "shape": [m, k, n], "dtype": str(dt).split(".")[-1],
+               **_mm_row(dt == torch.bfloat16, m, k, n,
+                         (m * k + k * n + m * n) * x.element_size(), 1, t),
                "rel_err_rademacher": errs["rademacher"],
                "rel_err_gaussian": errs["gaussian"], "tolerance": tol,
-               "max_abs_err": abs_err,
-               "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
-               "bound_ms": b_ms, "bound_by": b_by}
+               "max_abs_err": abs_err, "plain_ms": plain}
         print(json.dumps(row), flush=True)
         rows.append(row)
         del x, w
         torch.cuda.empty_cache()
-    # the kernels line: OPT-1.3B's two shapes summed (one w_in slice and
-    # the LM head), as zo_add's row sums its two largest leaves
-    opt = rows[:2]
-    results["zo_matmul"] = {
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["kernel_ms"] for r in opt),
-        "plain_ms": sum(r["plain_ms"] for r in opt),
-        "bound_ms": sum(r["bound_ms"] for r in opt),
-        "bound_by": "operations",
-        "library_ms": sum(r["library_ms"] for r in opt)}
+    results["zo_matmul"] = _mm_result(rows, rows[:2])
 
 
 def _flash_cost(b, s, t, h, kvh, hd, causal, item):
@@ -423,28 +533,36 @@ def kernel_flash_attention(torch, results):
         tol = ATTN_F32_ATOL if dt == torch.float32 else ATTN_BF16_ATOL
         check(err <= tol and torch.isfinite(got).all().item(),
               f"flash_attention {label}: max err {err} > {tol}")
-        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal),
-                     iters=50)
         plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal),
                         iters=10)
         qq, kk, vv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=causal, enable_gqa=kvh != h), iters=50)
+        ms, lib, lib_name, lib_all = kernel_vs_library(
+            torch, lambda: fa.flash_attention_cuda(q, k, v, causal),
+            sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=causal, enable_gqa=kvh != h)))
         n_bytes, flops = _flash_cost(b, s, s, h, kvh, hd, causal,
                                      q.element_size())
-        b_ms, b_by = bound(n_bytes, flops, "f32")
+        # bf16 runs the tensor-core body: the bound at the bf16 peak; the
+        # SIMT body's f32 bound beside it
+        bf16 = dt == torch.bfloat16
+        b_ms, b_by = bound(n_bytes, flops, "bf16" if bf16 else "f32")
         row = {"phase": "kernel", "name": "flash_attention", "case": label,
                "shape": [b, s, h, kvh, hd], "causal": causal,
-               "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+               "dtype": str(dt).split(".")[-1],
+               "body": "tc" if bf16 else "simt", "max_abs_err": err,
                "tolerance": tol, "kernel_ms": ms, "plain_ms": plain,
-               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": lib, "library": lib_name,
+               "library_ms_by_call": lib_all, "bound_ms": b_ms,
+               "bound_by": b_by,
+               "bound_f32_simt_ms": bound(n_bytes, flops, "f32")[0]}
         print(json.dumps(row), flush=True)
         rows.append(row)
     main = rows[0]                       # the OPT-1.3B training shape
     results["flash_attention"] = {
         "max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library": main["library"]}
 
 
 def kernel_zo_add_q(torch, results):
@@ -541,37 +659,33 @@ def kernel_zo_matmul_q(torch, results):
             errs[dist] = err
             abs_err = max(abs_err, diff.item())
             del got, want
-        ms = time_ms(lambda: zp.zo_matmul_q_cuda(x, q, sc, coeff=coeff,
-                                                 **kw), iters=10)
         plain = time_ms(lambda: zp.zo_matmul_q_ref(x, q, sc, coeff=coeff,
                                                    **kw), iters=2, warmup=1)
         wp = zp.zo_add_q_ref(q, sc, kw["seed"], kw["salt"], coeff,
                              prime_offset=kw["prime_offset"],
                              prehashed=kw["prehashed"])
         xf = x.float()
-        lib = time_ms(lambda: xf @ wp, iters=10)
-        del wp, xf
-        item = x.element_size()
-        b_ms, b_by = bound((m * k + m * n) * item + k * n + 4 * n,
-                           2.0 * m * k * n, "f32")
+        wd = (q.float() * sc).to(dt)             # the dequantized base
+        t = time_interleaved(torch, {
+            "kernel": lambda: zp.zo_matmul_q_cuda(x, q, sc, coeff=coeff,
+                                                  **kw),
+            "sgemm": lambda: xf @ wp,
+            **({"cublas_bf16": lambda: x @ wd} if dt == torch.bfloat16
+               else {})})
+        del wp, xf, wd
         row = {"phase": "kernel", "name": "zo_matmul_q", "case": label,
                "shape": [m, k, n], "dtype": str(dt).split(".")[-1],
+               **_mm_row(dt == torch.bfloat16, m, k, n,
+                         (m * k + m * n) * x.element_size()
+                         + k * n + 4 * n, 1, t),
                "rel_err_rademacher": errs["rademacher"],
                "rel_err_gaussian": errs["gaussian"], "tolerance": tol,
-               "max_abs_err": abs_err, "kernel_ms": ms, "plain_ms": plain,
-               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+               "max_abs_err": abs_err, "plain_ms": plain}
         print(json.dumps(row), flush=True)
         rows.append(row)
         del x, ql, q, sc
         torch.cuda.empty_cache()
-    opt = rows[:2]            # OPT-1.3B's two shapes, as for zo_matmul
-    results["zo_matmul_q"] = {
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["kernel_ms"] for r in opt),
-        "plain_ms": sum(r["plain_ms"] for r in opt),
-        "bound_ms": sum(r["bound_ms"] for r in opt),
-        "bound_by": "operations",
-        "library_ms": sum(r["library_ms"] for r in opt)}
+    results["zo_matmul_q"] = _mm_result(rows, rows[:2])
 
 
 # ---------------------------------------------------------------------------
@@ -750,37 +864,16 @@ def kernel_zo_matmul_users(torch, results):
                 errs[dist] = err
                 abs_err = max(abs_err, diff.item())
                 del got
-            ms = time_ms(lambda: zp.zo_matmul_users_cuda(
-                x, w, lane_seeds, coeffs=U_COEFFS, scale=scale, **kw),
-                iters=3)
-            plain = time_ms(lambda: zp.zo_matmul_users_ref(
-                x, w, lane_seeds, coeffs=U_COEFFS, scale=scale, **kw),
-                iters=1, warmup=1)
-            wp = torch.stack([
-                zp.zo_add_q_ref(w, scale, lane_seeds[i], kw["salt"],
-                                U_COEFFS[i], prime_offset=kw["prime_offset"],
-                                prehashed=kw["prehashed"])
-                if scale is not None else
-                zp.zo_add_ref(lane_w(i).float(), lane_seeds[i], kw["salt"],
-                              U_COEFFS[i], prime_offset=kw["prime_offset"],
-                              prehashed=kw["prehashed"])
-                for i in range(u)])
-            xf = x.float()
-            lib = time_ms(lambda: torch.bmm(xf, wp), iters=3)
-            del wp, xf
-            w_bytes = w.numel() * w.element_size() + (
-                0 if scale is None else 4 * n)
-            b_ms, b_by = bound(2.0 * u * (m * k + m * n) + w_bytes,
-                               2.0 * u * m * k * n, "f32")
             row = {"phase": "U0 kernel", "name": kernel, "case": label,
                    "weight": weight, "lanes": u, "shape": [m, k, n],
                    "dtype": "bfloat16",
                    "rel_err_rademacher": errs["rademacher"],
                    "rel_err_gaussian": errs["gaussian"],
                    "tolerance": ZO_MM_BF16_RTOL, "max_abs_err": abs_err,
-                   "lanes_equal_lone_launches": True, "kernel_ms": ms,
-                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                   "bound_by": b_by}
+                   "lanes_equal_lone_launches": True}
+            if weight != "shared":   # the kernels line's two weights
+                row.update(_users_times(torch, zp, x, w, scale, lane_seeds,
+                                        kw, u, m, k, n, lane_w))
             print(json.dumps(row), flush=True)
             rows[weight].append(row)
             del w
@@ -791,14 +884,40 @@ def kernel_zo_matmul_users(torch, results):
     # each summed over the two shapes
     for name, weight in (("zo_matmul_users", "per-lane"),
                          ("zo_matmul_users_q", "int8")):
-        rs = rows[weight]
-        results[name] = {
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": sum(r["kernel_ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs),
-            "bound_ms": sum(r["bound_ms"] for r in rs),
-            "bound_by": "operations",
-            "library_ms": sum(r["library_ms"] for r in rs)}
+        results[name] = _mm_result(rows[weight], rows[weight])
+
+
+def _users_times(torch, zp, x, w, scale, lane_seeds, kw, u, m, k, n,
+                 lane_w):
+    """A U0 row's times: the kernel, one cuBLAS SGEMM ``torch.bmm`` of
+    ``X.float()`` with every lane's W' made beforehand (the yardstick) and
+    one bf16 ``torch.bmm`` of the unperturbed W (the product's floor),
+    through ``time_interleaved``; the plain version's time; the bound."""
+    plain = time_ms(lambda: zp.zo_matmul_users_ref(
+        x, w, lane_seeds, coeffs=U_COEFFS, scale=scale, **kw),
+        iters=1, warmup=1)
+    wp = torch.stack([
+        zp.zo_add_q_ref(w, scale, lane_seeds[i], kw["salt"], U_COEFFS[i],
+                        prime_offset=kw["prime_offset"],
+                        prehashed=kw["prehashed"])
+        if scale is not None else
+        zp.zo_add_ref(lane_w(i).float(), lane_seeds[i], kw["salt"],
+                      U_COEFFS[i], prime_offset=kw["prime_offset"],
+                      prehashed=kw["prehashed"])
+        for i in range(u)])
+    xf = x.float()
+    wd = (w.float() * scale).to(x.dtype) if scale is not None else w
+    wd = wd.expand(u, k, n) if wd.dim() == 2 else wd
+    t = time_interleaved(torch, {
+        "kernel": lambda: zp.zo_matmul_users_cuda(
+            x, w, lane_seeds, coeffs=U_COEFFS, scale=scale, **kw),
+        "sgemm": lambda: torch.bmm(xf, wp),
+        "cublas_bf16": lambda: torch.bmm(x, wd)})
+    del wp, xf, wd
+    w_bytes = w.numel() * w.element_size() + (0 if scale is None else 4 * n)
+    return {**_mm_row(x.dtype == torch.bfloat16, m, k, n,
+                      2.0 * u * (m * k + m * n) + w_bytes, u, t),
+            "plain_ms": plain}
 
 
 def kernel_flash_verify(torch, results):
@@ -837,7 +956,6 @@ def kernel_flash_verify(torch, results):
         errs[(kvh, str(dt))] = err
     # q, k, v, pages hold the bf16 case at OPT-1.3B's shape (KV 32)
     k[0], v[0] = 0.0, 0.0
-    ms = time_ms(lambda: fv.flash_verify(q, k, v, pages, pos_t), iters=200)
     plain = time_ms(lambda: fv.verify_attn_ref(q, k, v, pages, pos_t),
                     iters=50)
     pl = pages.long()
@@ -847,8 +965,10 @@ def kernel_flash_verify(torch, results):
     mask = (torch.arange(n_live * ps, device=dev)[None, None, :]
             <= qpos[:, :, None])[:, None]               # (B, 1, W, T)
     qq = q.transpose(1, 2).contiguous()
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask), iters=200)
+    ms, lib, lib_name, lib_all = kernel_vs_library(
+        torch, lambda: fv.flash_verify(q, k, v, pages, pos_t),
+        sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask)))
     rows_pos = [[p + r for r in range(w)] for p in pos]
     n_bytes, flops = _attn_cost(rows_pos, h, 1, hd, 2, q.numel())
     b_ms, b_by = bound(n_bytes + 4 * (pages.numel() + b), flops, "bf16")
@@ -862,10 +982,12 @@ def kernel_flash_verify(torch, results):
                       "tolerance_f32": ATTN_F32_ATOL,
                       "max_abs_err": err, "tolerance": ATTN_BF16_ATOL,
                       "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+                      "library": lib_name, "library_ms_by_call": lib_all,
                       "bound_ms": b_ms, "bound_by": b_by}), flush=True)
     results["flash_verify"] = {"max_abs_err": err, "ms": ms,
                                "plain_ms": plain, "bound_ms": b_ms,
-                               "bound_by": b_by, "library_ms": lib}
+                               "bound_by": b_by, "library_ms": lib,
+                               "library": lib_name}
 
 
 # ---------------------------------------------------------------------------
@@ -955,7 +1077,7 @@ def main_path(torch, paths):
     args, engine, comps, dt, first = _serve(torch, serve_mod, engine_mod,
                                             paged)
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = _snapshot(ops)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(serve_mod.summary(args, engine, comps, dt), flush=True)
     print(json.dumps({"phase": "main_path", "launches": launches,
@@ -1166,7 +1288,7 @@ def _spec_run(torch, paths, label, argv, params=None):
         torch, serve_mod, engine_mod, argv, params=params,
         hook=_count_calls(calls))
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = _snapshot(ops)
     paths[label] = launches
     print(serve_mod.summary(args, engine, comps, dt), flush=True)
     for name, per in SPEC_PER_CALL.items():
@@ -1277,7 +1399,7 @@ def s4_sampled(torch, paths, paged_argv):
         engine, comps, dt = serve_mod.run(args)
         torch.cuda.synchronize()
         if i == 0:
-            paths["S4 spec sampled"] = dict(ops.LAUNCHES)
+            paths["S4 spec sampled"] = _snapshot(ops)
         runs.append([c.tokens.tolist() for c in comps])
         check(len(comps) == 4 and all(
             len(c.tokens) == args.gen and 0 <= min(c.tokens) and
@@ -1325,12 +1447,35 @@ def _forward_counts(cfg):
             len(param_shapes(cfg)))
 
 
+def _snapshot(ops):
+    """Launches since the last reset: by kernel, and for the two-body
+    kernels by body too (``"zo_matmul/tc"``, ``"zo_matmul/simt"``)."""
+    return {**ops.LAUNCHES, **ops.BODIES}
+
+
+def _check_bodies(label, launches, want, bf16):
+    """The two-body kernels' launches ``want`` (read off the code) are all
+    on the tensor-core body on a bf16 path -- every path here draws
+    Rademacher z -- and all on the SIMT body on an f32 one
+    (``csrc/zo_matmul.cu``'s and ``csrc/flash_attention.cu``'s rule)."""
+    body, other = ("tc", "simt") if bf16 else ("simt", "tc")
+    exp = {}
+    for k, n in want.items():
+        if f"{k}/tc" in launches:
+            exp[f"{k}/{body}"], exp[f"{k}/{other}"] = n, 0
+    got = {k: launches[k] for k in exp}
+    print(json.dumps({"phase": f"{label} bodies", "launches": got,
+                      "expected": exp}), flush=True)
+    check(got == exp, f"{label}: launches by body {got} != expected {exp}")
+
+
 def _check_launches(label, launches, cfg, steps):
     want = {k: steps * v for k, v in _leaf_counts(cfg).items()}
     got = {k: launches[k] for k in want}
     print(json.dumps({"phase": label, "launches": launches,
                       "expected": want}), flush=True)
     check(got == want, f"{label}: launches {got} != expected {want}")
+    _check_bodies(label, launches, want, cfg.dtype == "bfloat16")
 
 
 def _batches(cfg, bsz, seq):
@@ -1375,7 +1520,7 @@ def train_main_path(torch, paths):
     tr = train_mod.run(argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = _snapshot(ops)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     paths["train_opt"] = launches
     cfg = tr.mcfg
@@ -1418,14 +1563,19 @@ def train_main_path(torch, paths):
 
 
 def profile_train(torch, tr, state, batch, label="T4 profile"):
-    """T4 (and Q2's): one fused OPT-1.3B step under the profiler."""
+    """T4 (and Q2's): one fused OPT-1.3B step under the profiler; T4's
+    launches against one T1 step's, read off the code."""
     from repro_torch.core import rng
+    from repro_torch.kernels import ops
 
     def one():
         tr.strategy.step(tr.model.loss, state, batch, rng.fold_seed(777, 0),
                          tr.tcfg.mezo)
+    ops.reset_launches()
     wall_us, by_name = _profiled(torch, one)
     _profile_line(label, wall_us, by_name, steps=1)
+    if tr.tcfg.quant == "none":
+        _check_launches(f"{label} launches", _snapshot(ops), tr.mcfg, 1)
 
 
 def train_fused_vs_materialized(torch, paths, arch, label, tol):
@@ -1461,7 +1611,7 @@ def train_fused_vs_materialized(torch, paths, arch, label, tol):
     tr.train(params)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = _snapshot(ops)
     paths[label] = launches
     _check_launches(f"{label} launches", launches, cfg, 2)
     err = abs(tr.losses[0] - mat)
@@ -1516,14 +1666,14 @@ def q1_frozen_base(torch, paths, arch, tol):
                                         perturb=PerturbCtx(seed, c)))
         torch.cuda.synchronize()
         fused_s = (time.perf_counter() - t0) / 2
-        fused_launches = dict(ops.LAUNCHES)
+        fused_launches = _snapshot(ops)
         peak = torch.cuda.max_memory_allocated()
         ops.reset_launches()
         for c in (eps, -eps):
             mat[c] = float(model.loss(PerturbCtx(seed, c).materialize(
                 qparams), batch))
         torch.cuda.synchronize()
-        mat_launches = dict(ops.LAUNCHES)
+        mat_launches = _snapshot(ops)
     label = f"Q1 {arch}"
     paths[f"{label} fused"] = fused_launches
     paths[f"{label} materialized"] = mat_launches
@@ -1551,6 +1701,8 @@ def q1_frozen_base(torch, paths, arch, tol):
           f"{label}: losses {fused} {mat}")
     check({k: fused_launches[k] for k in want_fused} == want_fused,
           f"{label}: fused launches {fused_launches} != {want_fused}")
+    _check_bodies(f"{label} fused", fused_launches, want_fused,
+                  cfg.dtype == "bfloat16")
     check({k: mat_launches[k] for k in want_mat} == want_mat,
           f"{label}: materialize launches {mat_launches} != {want_mat}")
     check(err <= tol, f"{label}: fused vs materialized {err} > {tol}")
@@ -1575,7 +1727,7 @@ def q2_int8_train(torch, paths):
     tr = train_mod.run(argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = _snapshot(ops)
     peak_gb = _gib(torch.cuda.max_memory_allocated())
     paths["Q2 train int8"] = launches
     cfg = tr.mcfg
@@ -1655,7 +1807,7 @@ def q3_int8_serving(torch, paths, paged_argv, dense_argv):
     args, engine, comps, dt, first = _serve(torch, serve_mod, engine_mod,
                                             paged_argv, params=base)
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = _snapshot(ops)
     paths["Q3 serve int8"] = launches
     print(serve_mod.summary(args, engine, comps, dt), flush=True)
     for name in SERVE_KERNELS:
@@ -1858,7 +2010,7 @@ def u_fleet(torch, paths, quant):
     engine, results = train_fleet.run(argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = _snapshot(ops)
     peak = _gib(torch.cuda.max_memory_allocated())
     paths[label] = launches
     st, cfg, store = engine.stats, engine.cfg, engine.store
@@ -1872,6 +2024,7 @@ def u_fleet(torch, paths, quant):
                       "expected": want, "per_dispatch": per,
                       "dispatches": st.dispatches}), flush=True)
     check(got == want, f"{label}: launches {got} != expected {want}")
+    _check_bodies(label, launches, want, cfg.dtype == "bfloat16")
     resident = None
     if quant == "int8":
         # q and the scales: the CLI's seeded init quantized, bit-frozen
@@ -1937,7 +2090,7 @@ def u_fleet(torch, paths, quant):
     resumed = [r for r in eng.run()
                if r.user == "user-0" and not r.evicted][0]
     torch.cuda.synchronize()
-    paths[f"{label} evict"] = dict(ops.LAUNCHES)
+    paths[f"{label} evict"] = _snapshot(ops)
     del eng
     want_losses = [r for r in results if r.user == "user-0"][0].losses
     check(first.evicted and resumed.start_step == 1,
@@ -2037,7 +2190,7 @@ def u3_shared_base(torch, paths, base):
             seed=seeds, coeff=coeffs))
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
+        launches = _snapshot(ops)
         peak = torch.cuda.max_memory_allocated()
         paths[label] = launches
         scalar = [model.loss(params, batch, perturb=PerturbCtx(s, c))
@@ -2053,6 +2206,7 @@ def u3_shared_base(torch, paths, base):
     check(got == scalar, f"{label}: lane losses {got} != scalar {scalar}")
     check({k: launches[k] for k in want} == want,
           f"{label}: launches {launches} != {want}")
+    _check_bodies(label, launches, want, cfg.dtype == "bfloat16")
 
 
 def main():
@@ -2143,6 +2297,7 @@ def main():
         u3_shared_base(torch, paths, base)
 
     # 6. the kernels line, then the result
+    from repro_torch.kernels import ops
     replaces = {"zo_add": "src/repro/kernels/zo_perturb.py:90",
                 "flash_decode": "src/repro/kernels/flash_decode.py:57",
                 "flash_prefill": "src/repro/kernels/flash_prefill.py:45",
@@ -2171,7 +2326,13 @@ def main():
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **{k: r[k] for k in ("library", "cublas_bf16_ms",
+                                             "bound_f32_simt_ms") if k in r},
+                        **({"launches_by_body": {
+                            b: sum(p[f"{name}/{b}"] for p in paths.values())
+                            for b in ("tc", "simt")}}
+                           if f"{name}/tc" in ops.BODIES else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,7 +10,10 @@ checkout root. A failed build raises; nothing falls back.
 Each kernel's C function returns ``cudaGetLastError()`` right after its
 launch; :func:`launch` raises on a nonzero code and otherwise adds one to
 the kernel's entry in :data:`LAUNCHES`, the count of launches a run can
-read back to show which kernels it went through.
+read back to show which kernels it went through. A kernel with two
+bodies (``zo_matmul`` and its three twins, ``flash_attention``: bf16
+tensor cores or the SIMT body, as the C side's ``*_body`` rule picks)
+also counts the body in :data:`BODIES`.
 """
 
 from __future__ import annotations
@@ -38,6 +41,12 @@ LAUNCHES: Dict[str, int] = {"zo_add": 0, "flash_decode": 0,
                             "zo_matmul_q": 0, "zo_add_users": 0,
                             "zo_matmul_users": 0, "zo_matmul_users_q": 0,
                             "flash_verify": 0}
+
+#: launches of the two-body kernels by body: ``"<kernel>/tc"`` (bf16
+#: tensor cores) and ``"<kernel>/simt"``
+BODIES: Dict[str, int] = {f"{k}/{b}": 0 for k in (
+    "zo_matmul", "zo_matmul_q", "zo_matmul_users", "zo_matmul_users_q",
+    "flash_attention") for b in ("tc", "simt")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,6 +83,8 @@ _SIGNATURES = {
                                 ctypes.POINTER(ctypes.c_uint32),
                                 ctypes.POINTER(ctypes.c_float), _I, _I, _I,
                                 _P),
+    "repro_zo_matmul_body": (_I, _I),
+    "repro_flash_attention_body": (_I,),
 }
 
 _lock = threading.Lock()
@@ -158,15 +169,25 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def launch(kernel: str, fn_name: str, *args) -> None:
+def launch(kernel: str, fn_name: str, *args, body: Optional[str] = None
+           ) -> None:
     """Call ``fn_name`` of the library; raise on a launch error, else
-    count one launch of ``kernel``."""
+    count one launch of ``kernel`` (and of its ``body``, if given)."""
     rc = getattr(library(), fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
     LAUNCHES[kernel] += 1
+    if body is not None:
+        BODIES[f"{kernel}/{body}"] += 1
+
+
+def body(fn_name: str, *args) -> str:
+    """``"tc"`` or ``"simt"``: the body the C side's rule ``fn_name``
+    picks for these arguments (dtype, dist)."""
+    return "tc" if getattr(library(), fn_name)(*args) else "simt"
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BODIES):
+        for k in counts:
+            counts[k] = 0

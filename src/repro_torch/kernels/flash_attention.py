@@ -14,7 +14,9 @@ scores, ``-1e30`` masking, softmax numerator and ``p @ f32(v)`` in f32,
 the ``max(l, 1e-30)`` denominator, then the cast to q's dtype. (The
 plain ``layers.attention`` rounds the probabilities to the activation
 dtype before ``p @ v``; this does not.) :func:`flash_attention_cuda`
-launches ``csrc/flash_attention.cu``.
+launches ``csrc/flash_attention.cu``: bf16 takes its tensor-core body
+(bf16 scores exact in f32, P rounded to bf16 for ``P @ V``, inside the
+bf16 limit), f32 its SIMT body.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import launch
+from repro_torch.kernels.build import body, launch
 from repro_torch.kernels.flash_decode import _DTYPES, KERNEL_HEAD_DIMS
 
 _NEG_INF = -1e30
@@ -83,5 +85,6 @@ def flash_attention_cuda(q, k, v, causal: bool = True):
     launch("flash_attention", "repro_flash_attention", q.data_ptr(),
            k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b,
            s, t, h, kvh, hd, int(causal), _scale(hd),
-           torch.cuda.current_stream(q.device).cuda_stream)
+           torch.cuda.current_stream(q.device).cuda_stream,
+           body=body("repro_flash_attention_body", _DTYPES[q.dtype]))
     return out

@@ -4,7 +4,9 @@ Each wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches the hand-written CUDA kernel (``src/repro_torch/csrc``) for a
 tensor on a CUDA device -- never a fallback: a CUDA input the kernel
 does not take, a failed build or a failed launch raises. Launches are
-counted in :data:`LAUNCHES` (``LAUNCHES["zo_add"]`` and so on).
+counted in :data:`LAUNCHES` (``LAUNCHES["zo_add"]`` and so on), and
+the two-body kernels' launches by body in :data:`BODIES`
+(``BODIES["zo_matmul/tc"]``: bf16 tensor cores; ``.../simt``).
 """
 
 from __future__ import annotations
@@ -14,9 +16,9 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import flash_verify as _fv
 from repro_torch.kernels import zo_perturb as _zo
-from repro_torch.kernels.build import LAUNCHES, reset_launches
+from repro_torch.kernels.build import BODIES, LAUNCHES, reset_launches
 
-__all__ = ["LAUNCHES", "reset_launches", "zo_add", "zo_matmul",
+__all__ = ["BODIES", "LAUNCHES", "reset_launches", "zo_add", "zo_matmul",
            "zo_add_users", "zo_matmul_users", "flash_attention",
            "paged_decode_attn", "paged_prefill_attn", "paged_verify_attn"]
 
@@ -58,9 +60,12 @@ def zo_add(w, seed, salt: int, coeff, dist: str = "rademacher",
 
 def zo_matmul(x, w, seed, salt: int, coeff, dist: str = "rademacher",
               prime_offset: int = 0, prehashed: bool = False, scale=None):
-    """``x @ (w + coeff * z(seed, salt))`` for x (M, K), w (K, N): f32
-    perturbed weight, f32 dot, result in ``x``'s dtype (the Pallas
-    kernel's arithmetic; any shape, no alignment gate).
+    """``x @ (w + coeff * z(seed, salt))`` for x (M, K), w (K, N), the
+    Pallas kernel's true-f32 dot, result in ``x``'s dtype (any shape, no
+    alignment gate). On the card, bf16 x with Rademacher z runs the
+    tensor-core body (``x @ w + coeff * (x @ z)``, exact term by term on
+    these inputs), anything else the SIMT body of the f32 perturbed
+    weight.
 
     ``scale`` (f32, (N,)) marks ``w`` as an int8 base: ``x @ (w * scale +
     coeff * z)``, the ``zo_matmul_q`` kernel on the card (counted as

@@ -22,7 +22,14 @@ z.
 ``f32(W) + f32(c) * z`` stays in f32 and is dotted in f32 with
 ``f32(X)``; the result is cast to ``X``'s dtype. For bf16 leaves that
 differs from the JAX package's jnp fallback, which rounds ``W + c*z``
-back to bf16 before the dot; in f32 the two agree.
+back to bf16 before the dot; in f32 the two agree. On the card the
+kernel has two bodies (``csrc/zo_matmul.cu``): bf16 ``X`` with
+Rademacher z takes bf16 tensor cores, ``X @ W + c * (X @ z)`` (``X @
+q`` times the column scales for an int8 W), which is that true-f32 dot
+up to summation order because every product of these inputs is exact
+in f32; f32 ``X`` or Gaussian z takes the SIMT body of the f32 W'. The
+choice depends on dtype and dist only, so a user lane still equals a
+lone launch bit for bit.
 
 Seed conventions (the Pallas kernel's): ``prehashed=False`` takes the
 step seed and folds the leaf ``salt`` in; ``prehashed=True`` takes a base
@@ -39,10 +46,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import rng as zrng
-from repro_torch.kernels.build import launch
+from repro_torch.kernels.build import body, launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DISTS = {"rademacher": 0, "gaussian": 1}
+
+
+def _mm_body(x: torch.Tensor, dist: str) -> str:
+    """The ``zo_matmul`` body a launch runs (``csrc/zo_matmul.cu``'s
+    rule): ``"tc"`` for bf16 x with Rademacher z, else ``"simt"``."""
+    return body("repro_zo_matmul_body", _DTYPES[x.dtype], _DISTS[dist])
 
 
 def _base(seed, salt: int, prehashed: bool) -> int:
@@ -153,7 +166,8 @@ def zo_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed, salt: int,
     launch("zo_matmul", "repro_zo_matmul", x.data_ptr(), w.data_ptr(),
            out.data_ptr(), _DTYPES[x.dtype], m, k, n,
            _base(seed, salt, prehashed), prime_offset, coeff_f32,
-           _DISTS[dist], torch.cuda.current_stream(x.device).cuda_stream)
+           _DISTS[dist], torch.cuda.current_stream(x.device).cuda_stream,
+           body=_mm_body(x, dist))
     return out
 
 
@@ -268,7 +282,8 @@ def zo_matmul_q_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     launch("zo_matmul_q", "repro_zo_matmul_q", x.data_ptr(), q.data_ptr(),
            scale.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], m, k, n,
            _base(seed, salt, prehashed), prime_offset, coeff_f32,
-           _DISTS[dist], torch.cuda.current_stream(x.device).cuda_stream)
+           _DISTS[dist], torch.cuda.current_stream(x.device).cuda_stream,
+           body=_mm_body(x, dist))
     return out
 
 
@@ -512,9 +527,11 @@ def zo_matmul_users_cuda(x: torch.Tensor, w: torch.Tensor, seeds,
             wp = w.data_ptr() + (c0 % p) * w_stride * w.element_size()
             launch(kernel, "repro_zo_matmul_users", xp, wp, yp,
                    _DTYPES[x.dtype], m, k, n, w_stride, w_lanes, bases, cf,
-                   cnt, prime_offset, _DISTS[dist], stream)
+                   cnt, prime_offset, _DISTS[dist], stream,
+                   body=_mm_body(x, dist))
         else:
             launch(kernel, "repro_zo_matmul_users_q", xp, w.data_ptr(),
                    scale.data_ptr(), yp, _DTYPES[x.dtype], m, k, n, bases,
-                   cf, cnt, prime_offset, _DISTS[dist], stream)
+                   cf, cnt, prime_offset, _DISTS[dist], stream,
+                   body=_mm_body(x, dist))
     return out

@@ -24,11 +24,24 @@ import json
 import os
 from typing import Optional
 
+import numpy as np
+
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.engine import (MezoConfig, estimator_names,
                                      strategy_names, update_rule_names)
 from repro_torch.data.synthetic import lm_batches, sst2_batches
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+
+def _with_patch_stub(batches, bsz: int, cfg, seed: int):
+    """The vlm frontend stub (the JAX CLI's): each batch gains standard
+    normal ``patch_embeds`` (B, num_patches, d_model) from one numpy
+    stream seeded ``seed + 7``. The encdec stub lands with whisper."""
+    rng = np.random.default_rng(seed + 7)
+    for b in batches:
+        b["patch_embeds"] = rng.standard_normal(
+            (bsz, cfg.num_patches, cfg.d_model), dtype=np.float32)
+        yield b
 
 
 def make_trainer(args) -> Trainer:
@@ -43,6 +56,8 @@ def make_trainer(args) -> Trainer:
     else:
         batches = lm_batches(args.batch, args.seq or 64, cfg.vocab,
                              seed=args.seed)
+        if cfg.num_patches:
+            batches = _with_patch_stub(batches, args.batch, cfg, args.seed)
     tcfg = TrainerConfig(
         optimizer=args.optimizer,
         estimator=args.estimator, update=args.update,

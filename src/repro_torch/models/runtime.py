@@ -203,16 +203,25 @@ def _stack_seq(cfg, stack: StackPlan, params, state, x, rc: RunCtx,
 def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
     """Full-sequence forward -> (logits, aux). ``perturb`` (a PerturbCtx)
     switches on the fused perturbed forward; a user-axis one takes
-    ``tokens`` (n, B, S) and returns logits (n * B, ...)."""
+    ``tokens`` (n, B, S) and returns logits (n * B, ...). A batch's
+    ``patch_embeds`` (B, P, d), the vlm frontend stub, is prepended to
+    the token embeddings and cut off again before the LM head."""
     cfg = plan.cfg
     tokens = batch["tokens"]
     kv_mask = batch.get("attn_mask")
+    patches = batch.get("patch_embeds")
     if perturb is not None and perturb.batched:
         tokens = tokens.reshape(-1, tokens.shape[-1])
         if kv_mask is not None:
             kv_mask = kv_mask.reshape(-1, kv_mask.shape[-1])
+        if patches is not None:
+            patches = patches.reshape(-1, *patches.shape[-2:])
     x = L.embed_apply(cfg, nest(params, "embed"), tokens,
                       ctx=_sub(perturb, "embed"))
+    n_prefix = 0
+    if patches is not None:            # vlm: prepend the stub patches
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        n_prefix = patches.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)[None]
     rc = RunCtx(positions=positions, kv_mask=kv_mask)
     x, aux = _stack_apply(cfg, plan.stack, params, x, rc, perturb)
@@ -221,6 +230,8 @@ def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
         cls = x[:, 0].to(torch.float32)
         return L.dense(nest(params, "cls_head"), torch.tanh(cls),
                        _sub(perturb, "cls_head")), aux
+    if n_prefix:
+        x = x[:, n_prefix:]
     if last_only:
         x = x[:, -1:]
     return _logits(plan, params, x, perturb), aux

@@ -24,7 +24,12 @@ hold to the scalar kernels' limits against their plain versions, and
 every lane equals a lone scalar launch at atol 0; the TrainEngine on the
 card equals lone Trainers on the card at atol 0. ``flash_verify`` holds
 to the attention limits, and the speculative engine on the card serves
-the CPU's greedy tokens.
+the CPU's greedy tokens. ``zo_matmul`` (all four entry points) and
+``flash_attention`` have two bodies: bf16 activations with Rademacher z
+run on the tensor cores, f32 or Gaussian z on the SIMT body, as
+``build.BODIES`` counts; the tensor-core body holds to the same limits,
+at every head dim for attention and at OPT-1.3B's LM head for the
+matmuls, with every lane equal to a lone tensor-core launch.
 """
 
 import numpy as np
@@ -332,7 +337,8 @@ def test_zo_add_q_prehashed_slice_and_unaligned(cuda):
 @pytest.mark.parametrize("dist", ["rademacher", "gaussian"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mkn", [(7, 33, 130), (16, 96, 160), (33, 64, 256),
-                                 (1024, 2048, 8192)], ids=str)
+                                 (1024, 2048, 8192), (1024, 2048, 50272)],
+                         ids=str)
 def test_zo_matmul_q_matches_plain(cuda, mkn, dtype, dist):
     from repro_torch.optim.quant import quantize_leaf
     m, k, n = mkn
@@ -569,7 +575,8 @@ def test_zo_add_users_strided_shared_and_lanes_in_place(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("weight", ["shared", "per-lane", "int8"])
 @pytest.mark.parametrize("mkn", [(7, 33, 130), (64, 128, 256),
-                                 (256, 2048, 8192)], ids=str)
+                                 (256, 2048, 8192), (1024, 2048, 50272)],
+                         ids=str)
 def test_zo_matmul_users_match_plain_and_lone_launches(cuda, mkn, dtype,
                                                        weight):
     m, k, n = mkn
@@ -658,3 +665,63 @@ def test_reduced_train_engine_on_card_bit_equals_lone_trainers(cuda, quant,
     _, cpu_results = fleet("cpu")
     for a, b in zip(results, cpu_results):
         np.testing.assert_allclose(a.losses, b.losses, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the two bodies: bf16 tensor cores (bf16 x, Rademacher z) and SIMT
+
+
+def _mm_launch(kernel, x, dist, cuda):
+    """One launch of ``kernel`` (a zo_matmul entry point) on x's dtype."""
+    k, n = x.shape[-1], 136
+    salt = rng.leaf_salt("lm_head/w")
+    if kernel.endswith("_q"):
+        w = torch.randint(-127, 128, (k, n), device=cuda, dtype=torch.int8)
+        scale = 2.0 ** torch.randint(-12, -6, (n,), device=cuda).float()
+    else:
+        w, scale = (torch.randn((k, n), device=cuda) * 0.02).to(x.dtype), None
+    if kernel.startswith("zo_matmul_users"):
+        return ops.zo_matmul_users(x[None].expand(2, *x.shape).contiguous(),
+                                   w, U_SEEDS[:2], salt, U_COEFFS[:2], dist,
+                                   scale=scale)
+    return ops.zo_matmul(x, w, 3, salt, 1e-3, dist, scale=scale)
+
+
+@pytest.mark.parametrize("dist", ["rademacher", "gaussian"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["zo_matmul", "zo_matmul_q",
+                                    "zo_matmul_users", "zo_matmul_users_q"])
+def test_zo_matmul_body_follows_dtype_and_dist(cuda, kernel, dtype, dist):
+    """bf16 x with Rademacher z takes the tensor-core body, f32 x or
+    Gaussian z the SIMT body, at every entry point; each launch counts
+    once, in its body."""
+    want = "tc" if (dtype, dist) == ("bfloat16", "rademacher") else "simt"
+    other = "simt" if want == "tc" else "tc"
+    x = torch.randn((40, 72), device=cuda).to(getattr(torch, dtype))
+    before = dict(build.BODIES)
+    _mm_launch(kernel, x, dist, cuda)
+    assert build.BODIES[f"{kernel}/{want}"] == before[f"{kernel}/{want}"] + 1
+    assert build.BODIES[f"{kernel}/{other}"] == before[f"{kernel}/{other}"]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_flash_attention_tensor_core_body_head_dims(cuda, hd, causal):
+    """bf16 at every head dim the kernel takes, S = 100 (a ragged last
+    query and key tile), GQA 8 over 2: the tensor-core body, within the
+    bf16 limit; f32 on the same inputs takes the SIMT body, within
+    2e-5."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn((2, 100, 8, hd), device=cuda)
+    k = torch.randn((2, 100, 2, hd), device=cuda)
+    v = torch.randn((2, 100, 2, hd), device=cuda)
+    for dt, atol, body in ((torch.bfloat16, 2e-2, "tc"),
+                           (torch.float32, 2e-5, "simt")):
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        before = build.BODIES[f"flash_attention/{body}"]
+        got = ops.flash_attention(qd, kd, vd, causal)
+        assert build.BODIES[f"flash_attention/{body}"] == before + 1
+        want = fa.flash_attention_ref(qd, kd, vd, causal)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=atol)

@@ -6,8 +6,10 @@ only; prehashed stacked slices included) and within one bf16 ulp of the
 result in bf16 (both dot f32 and round once). Against the JAX jnp
 fallback (``x @ perturb(w)``), on a ragged shape, within 1e-5 in f32.
 ``z_rows`` equals the gathered field bit for bit with Rademacher z. The
-CUDA kernel is held against the plain version on the card by
-``tests/test_torch_gpu.py``.
+card's bf16 tensor-core arithmetic, ``X W + c (X z)`` (int8: ``s (X q) +
+c (X z)``), written out in f32, is within one bf16 ulp of the Pallas
+kernel in bf16. The CUDA kernel is held against the plain version on the
+card by ``tests/test_torch_gpu.py``.
 """
 
 import jax.numpy as jnp
@@ -113,6 +115,42 @@ def test_plain_zo_matmul_bf16_within_one_ulp_of_pallas():
     got = tzo.zo_matmul_ref(tx, tw, 3, 77, 0.02)
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("mkn", [(16, 64, 96), (7, 33, 130)], ids=str)
+def test_tensor_core_decomposition_matches_pallas_bf16(mkn, quant):
+    """The card's bf16 body computes ``X W + c (X z)`` (int8: ``s (X q) +
+    c (X z)``) as two products of exact bf16 inputs with f32 sums. Its
+    arithmetic, written out here in f32 on the same bf16 X, int8 q and
+    power-of-two scales, is the Pallas kernel's f32 W' dot up to
+    summation order and one rounding of W': within one bf16 ulp of the
+    kernel's bf16 result, the ZO_MM_BF16 limit's class."""
+    m, k, n = mkn
+    x, w = _xw(m, k, n, seed=4)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    seed, salt, coeff = 5, 321, np.float32(0.02)
+    xf = torch.from_numpy(np.array(jx.astype(jnp.float32)))
+    z = tzo.tile_z(seed, salt, (k, n), 0, 0, "rademacher")
+    assert set(torch.unique(z).tolist()) <= {-1.0, 1.0}   # exact in bf16
+    if quant:
+        rng = np.random.default_rng(6)
+        q = rng.integers(-127, 128, (k, n), dtype=np.int8)
+        sc = (2.0 ** rng.integers(-9, -4, n)).astype(np.float32)
+        want = jzo.zo_matmul(jx, jnp.asarray(q), np.uint32(seed), salt, coeff,
+                             blocks=(8, 32, 32), interpret=True,
+                             scale=jnp.asarray(sc))
+        prod = (xf @ torch.from_numpy(q.astype(np.float32))) \
+            * torch.from_numpy(sc)
+    else:
+        jw = jnp.asarray(w, jnp.bfloat16)
+        want = jzo.zo_matmul(jx, jw, np.uint32(seed), salt, coeff,
+                             blocks=(8, 32, 32), interpret=True)
+        prod = xf @ torch.from_numpy(np.array(jw.astype(jnp.float32)))
+    got = (prod + float(coeff) * (xf @ z)).bfloat16().float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
     ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
     assert np.all(np.abs(got - want) <= ulp)
 
