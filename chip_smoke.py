@@ -21,7 +21,17 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
    ``zo_add``, ``flash_decode``, ``flash_prefill``; T0 ``zo_matmul`` and
    ``flash_attention``; Q0 ``zo_add_q`` and ``zo_matmul_q``; S0
    ``flash_verify`` (B 4, W 4, 32 heads of 64, page 16, positions 96-128,
-   f32 and bf16, two GQA layouts, NaN in the trash page).
+   f32 and bf16, two GQA layouts, NaN in the trash page). The paged
+   ``flash_decode`` / ``flash_prefill`` are checked at pages 8 and 16,
+   f32 and bf16, KV 32 and 8, on ragged serving positions, the edges of
+   a 64-key tile and a context up to 2048 (``ATTN_CHECKED``): two calls
+   bit-equal, NaN in the trash page and in each slot's unread last-page
+   tail leaving the output bit-equal, prefill's bf16 launches on its
+   tensor-core body and f32 on its SIMT body; and timed in bf16 at B 4
+   (the rows timed since the first port), at the serving admission's B 1
+   prefill and a decode at positions up to 2047 (``ATTN_TIMED``), with
+   the page gather + SDPA in one graph beside the pre-gathered
+   yardstick, as context.
 4. serving: ``repro_torch.launch.serve.run`` on full-width, 24-layer
    OPT-1.3B (bf16, random weights from a seed), paged KV with page size 16
    and chunked prefill C = 32, 4 slots, 8 greedy requests (96-token
@@ -90,7 +100,9 @@ every path above; each must have launched on one) and the final
 Launch counts are reset just before each path and read just after, by
 kernel and, for the two-body kernels, by body (``ops.BODIES``): T1-T4,
 Q1, U1 and U3 must run every ``zo_matmul*`` / ``flash_attention``
-launch on the body the dtype picks (bf16: tensor cores, f32: SIMT). Any
+launch on the body the dtype picks (bf16: tensor cores, f32: SIMT), and
+the bf16 serving paths (phase 4, Q3, S1-S4) every ``flash_prefill``
+launch on its tensor-core body. Any
 failed check exits non-zero before the final line. Imports nothing of JAX
 and nothing of the JAX package.
 """
@@ -320,6 +332,17 @@ def _paged_case(torch, b, ps, kvh, hd, n_live, pos, garbage):
     return k, v, pages, torch.tensor(pos, dtype=torch.int32, device=dev)
 
 
+def _poison_unread(k, v, pages, last):
+    """NaN wherever slot i's rows may not read: the trash page and, in
+    each slot's last live page, the positions past ``last[i]``."""
+    ps = k.shape[1]
+    k[0], v[0] = float("nan"), float("nan")
+    for i, t in enumerate(last):
+        page = int(pages[i, t // ps])
+        k[page, t % ps + 1:] = float("nan")
+        v[page, t % ps + 1:] = float("nan")
+
+
 def _attn_cost(q_rows_pos, kvh, g, hd, itemsize, q_numel):
     """Bytes and flops a paged attention call needs for this data: each
     row reads keys 0..qpos; K/V of a (slot, KV head) counted once at its
@@ -330,76 +353,178 @@ def _attn_cost(q_rows_pos, kvh, g, hd, itemsize, q_numel):
     return kv_bytes + 2 * q_numel * itemsize, flops
 
 
-def kernel_attention(torch, results):
-    import torch.nn.functional as F
+ATTN_C = 32                  # the serving path's prefill chunk
+# the paged kernels' correctness cases (phase 3): positions, n_live at
+# page 16 (doubled at page 8): the serving path's ragged slots, the edges
+# of a 64-key tile, and a long context up to OPT-1.3B's 2048 positions
+ATTN_CHECKED = {"flash_decode": (([95, 110, 127, 40], 8),
+                                 ([63, 64, 127, 128], 9),
+                                 ([2047, 1640, 1480, 1030], 128)),
+                "flash_prefill": (([64, 78, 96, 8], 8),
+                                  ([63, 64, 127, 128], 11),
+                                  ([2016, 1640, 1480, 1030], 128))}
+# the timed cases, bf16 at OPT-1.3B's width (32 heads of 64, page 16):
+# (kernel, label, positions, n_live). "B 4" keeps the shapes timed since
+# the first port, "B 1" is the serving admission's prefill (one slot's
+# chunk at a time), "long" a decode step at positions up to 2047
+ATTN_TIMED = (("flash_decode", "B 4", [95, 110, 127, 40], 8),
+              ("flash_decode", "long", [2047, 1640, 1480, 1030], 128),
+              ("flash_prefill", "B 4", [64, 78, 96, 8], 8),
+              ("flash_prefill", "B 1", [64], 8))
+
+
+def _attn_fns(name):
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
+    if name == "flash_decode":
+        return fd.flash_decode, fd.paged_attn_ref
+    return fp.flash_prefill, fp.prefill_attn_ref
+
+
+def check_paged_attention(torch):
+    """Each paged kernel against its plain version at pages 8 and 16, f32
+    and bf16, KV 32 (G 1) and 8 (G 4), on every ATTN_CHECKED case: within
+    the limit, finite, two calls bit-equal, NaN in the trash page and in
+    each slot's unread last-page tail leaving the output bit-equal, and
+    every prefill launch on the body its dtype picks. Returns the worst
+    error by kernel and dtype."""
+    from repro_torch.kernels import build
     dev = torch.device("cuda")
-    b, h, kvh, hd, ps, n_live, c = 4, 32, 32, 64, 16, 8, 32
-    dec_pos = [95, 110, 127, 40]
-    pre_pos = [64, 78, 96, 8]
-    cover = [max(p, q + c - 1) for p, q in zip(dec_pos, pre_pos)]
+    h, hd = 32, 64
     gen = torch.Generator(device=dev).manual_seed(3)
-    for name in ("flash_decode", "flash_prefill"):
-        q_shape = (b, h, hd) if name == "flash_decode" else (b, c, h, hd)
-        pos = dec_pos if name == "flash_decode" else pre_pos
-        kern = fd.flash_decode if name == "flash_decode" else fp.flash_prefill
-        ref = fd.paged_attn_ref if name == "flash_decode" \
-            else fp.prefill_attn_ref
-        errs = {}
-        for dt, tol in ((torch.float32, ATTN_F32_ATOL),
-                        (torch.bfloat16, ATTN_BF16_ATOL)):
-            k, v, pages, _ = _paged_case(torch, b, ps, kvh, hd, n_live,
-                                         cover, 1e4)
-            k, v = k.to(dt), v.to(dt)
-            pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
-            q = torch.randn(q_shape, generator=gen, device=dev).to(dt)
-            got = kern(q, k, v, pages, pos_t)
-            want = ref(q, k, v, pages, pos_t)
-            err = (got.float() - want.float()).abs().max().item()
-            check(err <= tol and torch.isfinite(got).all().item(),
-                  f"{name} {dt}: max err {err} > {tol}")
-            errs[dt] = err
-            # trash page poisoned with NaN: never read, output unchanged
-            k[0], v[0] = float("nan"), float("nan")
-            check(torch.equal(kern(q, k, v, pages, pos_t), got),
-                  f"{name} {dt}: NaN in the trash page reached the output")
-        # q, k, v, pages, pos now hold the bf16 case at the main path's
-        # shapes; times on those
-        k[0], v[0] = 0.0, 0.0
-        plain = time_ms(lambda: ref(q, k, v, pages, pos_t), iters=50)
-        # library yardstick: SDPA over the K/V gathered to logical order
-        pl = pages.long()
-        kk = k[pl].reshape(b, n_live * ps, kvh, hd).transpose(1, 2)
-        vv = v[pl].reshape(b, n_live * ps, kvh, hd).transpose(1, 2)
-        kk, vv = kk.contiguous(), vv.contiguous()
-        rows = 1 if name == "flash_decode" else c
-        qpos = pos_t.long()[:, None] + torch.arange(rows, device=dev)
-        mask = (torch.arange(n_live * ps, device=dev)[None, None, :]
-                <= qpos[:, :, None])[:, None]           # (B, 1, rows, T)
-        qq = q.reshape(b, rows, h, hd).transpose(1, 2).contiguous()
-        ms, lib, lib_name, lib_all = kernel_vs_library(
-            torch, lambda: kern(q, k, v, pages, pos_t),
-            sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask)))
-        rows_pos = [[p + r for r in range(rows)] for p in pos]
-        n_bytes, flops = _attn_cost(rows_pos, kvh, h // kvh, hd, 2,
-                                    q.numel())
-        b_ms, b_by = bound(n_bytes + 8 * b, flops, "bf16")
-        print(json.dumps({"phase": "kernel", "name": name,
-                          "shape": list(q_shape), "pos": pos,
-                          "page_size": ps, "n_live": n_live,
-                          "max_abs_err_f32": errs[torch.float32],
+    errs: dict = {}
+    for name, cases in ATTN_CHECKED.items():
+        kern, ref = _attn_fns(name)
+        c = 1 if name == "flash_decode" else ATTN_C
+        for ps in (16, 8):
+            for pos, n_live16 in cases:
+                n_live = n_live16 * 16 // ps
+                last = [p + c - 1 for p in pos]
+                b = len(pos)
+                for kvh in (32, 8):
+                    for dt, tol in ((torch.float32, ATTN_F32_ATOL),
+                                    (torch.bfloat16, ATTN_BF16_ATOL)):
+                        label = (f"{name} {dt} page {ps} KV {kvh} pos "
+                                 f"{pos}")
+                        k, v, pages, _ = _paged_case(torch, b, ps, kvh, hd,
+                                                     n_live, last, 1e4)
+                        k, v = k.to(dt), v.to(dt)
+                        pos_t = torch.tensor(pos, dtype=torch.int32,
+                                             device=dev)
+                        q_shape = (b, h, hd) if c == 1 else (b, c, h, hd)
+                        q = torch.randn(q_shape, generator=gen,
+                                        device=dev).to(dt)
+                        body = "tc" if dt == torch.bfloat16 else "simt"
+                        before = dict(build.BODIES)
+                        got = kern(q, k, v, pages, pos_t)
+                        if name == "flash_prefill":
+                            moved = {bb: build.BODIES[f"{name}/{bb}"]
+                                     - before[f"{name}/{bb}"]
+                                     for bb in ("tc", "simt")}
+                            check(moved[body] == 1 and sum(moved.values())
+                                  == 1, f"{label}: bodies {moved}, "
+                                        f"expected one {body}")
+                        want = ref(q, k, v, pages, pos_t)
+                        err = (got.float() - want.float()).abs().max().item()
+                        check(err <= tol and torch.isfinite(got).all().item(),
+                              f"{label}: max err {err} > {tol}")
+                        check(torch.equal(kern(q, k, v, pages, pos_t), got),
+                              f"{label}: two calls differ")
+                        _poison_unread(k, v, pages, last)
+                        check(torch.equal(kern(q, k, v, pages, pos_t), got),
+                              f"{label}: NaN where no row reads reached the "
+                              f"output")
+                        key = (name, str(dt).split(".")[-1])
+                        errs[key] = max(errs.get(key, 0.0), err)
+    print(json.dumps({"phase": "kernel checks", "name": "paged attention",
+                      "cases": {n: [p for p, _ in cs]
+                                for n, cs in ATTN_CHECKED.items()},
+                      "page_sizes": [16, 8], "kv_heads": [32, 8],
+                      "max_abs_err": {f"{n} {d}": e
+                                      for (n, d), e in errs.items()},
+                      "tolerance_f32": ATTN_F32_ATOL,
+                      "tolerance": ATTN_BF16_ATOL}), flush=True)
+    return errs
+
+
+def time_paged_attention(torch, name, pos, n_live, checked=True):
+    """One ATTN_TIMED case in bf16: the kernel, its plain version, every
+    SDPA backend over K/V gathered to logical order beforehand (the
+    yardstick, as for every other attention row) and, as context only,
+    every backend with the page gather and transposes inside the timed
+    graph. ``checked``:
+    the kernel's output is held to the plain version's first (off only
+    for a deliberately patched tree, ``scripts/paged_attn_ablation.py``)."""
+    import torch.nn.functional as F
+    kern, ref = _attn_fns(name)
+    dev = torch.device("cuda")
+    h = kvh = 32
+    hd, ps = 64, 16
+    b = len(pos)
+    rows = 1 if name == "flash_decode" else ATTN_C
+    k, v, pages, _ = _paged_case(torch, b, ps, kvh, hd, n_live,
+                                 [p + rows - 1 for p in pos], 0.0)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q_shape = (b, h, hd) if rows == 1 else (b, rows, h, hd)
+    q = torch.randn(q_shape, generator=gen, device=dev).to(torch.bfloat16)
+    err = (kern(q, k, v, pages, pos_t).float()
+           - ref(q, k, v, pages, pos_t).float()).abs().max().item()
+    check(err <= ATTN_BF16_ATOL or not checked,
+          f"{name} timed case {pos}: err {err}")
+    plain = time_ms(lambda: ref(q, k, v, pages, pos_t), iters=20)
+    pl = pages.long()
+    t = n_live * ps
+    qpos = pos_t.long()[:, None] + torch.arange(rows, device=dev)
+    mask = (torch.arange(t, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]               # (B, 1, rows, T)
+    qq = q.reshape(b, rows, h, hd).transpose(1, 2).contiguous()
+    kk = k[pl].reshape(b, t, kvh, hd).transpose(1, 2).contiguous()
+    vv = v[pl].reshape(b, t, kvh, hd).transpose(1, 2).contiguous()
+
+    def gathered():
+        kg = k[pl].reshape(b, t, kvh, hd).transpose(1, 2)
+        vg = v[pl].reshape(b, t, kvh, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q.reshape(b, rows, h, hd).transpose(1, 2), kg, vg,
+            attn_mask=mask)
+
+    library = sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask))
+    context = {f"gather_{n}": e for n, e in
+               sdpa_backends(torch, gathered).items()}
+    times = time_interleaved(torch, {"kernel": lambda: kern(
+        q, k, v, pages, pos_t), **library, **context})
+    ms = times.pop("kernel")
+    lib_all = {n: times[n] for n in library}
+    lib_name = min(lib_all, key=lib_all.get)
+    rows_pos = [[p + r for r in range(rows)] for p in pos]
+    n_bytes, flops = _attn_cost(rows_pos, kvh, h // kvh, hd, 2, q.numel())
+    b_ms, b_by = bound(n_bytes + 8 * b, flops, "bf16")
+    return {"shape": list(q_shape), "pos": pos, "page_size": ps,
+            "n_live": n_live, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "library_ms": lib_all[lib_name],
+            "library": lib_name, "library_ms_by_call": lib_all,
+            "gather_sdpa_ms_by_call": {n: times[n] for n in context},
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def kernel_attention(torch, results):
+    errs = check_paged_attention(torch)
+    for name, label, pos, n_live in ATTN_TIMED:
+        row = time_paged_attention(torch, name, pos, n_live)
+        print(json.dumps({"phase": "kernel", "name": name, "case": label,
+                          **row, "max_abs_err_f32": errs[(name, "float32")],
                           "tolerance_f32": ATTN_F32_ATOL,
-                          "max_abs_err": errs[torch.bfloat16],
-                          "tolerance": ATTN_BF16_ATOL, "kernel_ms": ms,
-                          "plain_ms": plain, "library_ms": lib,
-                          "library": lib_name, "library_ms_by_call": lib_all,
-                          "bound_ms": b_ms, "bound_by": b_by}), flush=True)
-        results[name] = {"max_abs_err": errs[torch.bfloat16], "ms": ms,
-                         "plain_ms": plain, "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": lib,
-                         "library": lib_name}
+                          "tolerance": ATTN_BF16_ATOL}), flush=True)
+        if label == "B 4":                  # the kernels line's row
+            results[name] = {**{k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library")}, "max_abs_err": errs[(name, "bfloat16")],
+                "cases": {}}
+        results[name]["cases"][label] = {k: row[k] for k in (
+            "ms", "library_ms", "library", "bound_ms", "plain_ms")}
 
 
 def _mm_row(bf16, m, k, n, n_bytes, lanes, t):
@@ -1087,6 +1212,7 @@ def main_path(torch, paths):
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the serving path")
+    _check_prefill_body("serve", launches)
     paths["serve"] = launches
     cfg = engine.cfg
     check(len(comps) == 8, f"{len(comps)} completions, expected 8")
@@ -1153,13 +1279,19 @@ def _profiled(torch, fn):
 def _profile_line(phase, wall_us, by_name, **extra):
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    port: dict = {}                # the port's kernels by function name
+    for name, us in by_name.items():
+        if "repro_torch::" in name:
+            fn = name.replace("(anonymous namespace)::", "")
+            fn = fn.split("<")[0].split("(")[0].split("::")[-1]
+            port[fn] = port.get(fn, 0.0) + us / 1e3
     print(json.dumps({
         "phase": phase, **extra, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3 if by_name else "not measured",
         "device_busy_share": busy_us / wall_us if by_name
         else "not measured",
-        "top_kernels_ms": {name[:60]: us / 1e3 for name, us in top}}),
-        flush=True)
+        "top_kernels_ms": {name[:60]: us / 1e3 for name, us in top},
+        "port_kernels_ms": port}), flush=True)
 
 
 def profile_path(torch, paged_argv, phase="profile"):
@@ -1291,6 +1423,7 @@ def _spec_run(torch, paths, label, argv, params=None):
     launches = _snapshot(ops)
     paths[label] = launches
     print(serve_mod.summary(args, engine, comps, dt), flush=True)
+    _check_prefill_body(label, launches)
     for name, per in SPEC_PER_CALL.items():
         fn = "decode_step" if name == "flash_decode" else "verify_window"
         check(launches[name] == per * calls.get(fn, 0) > 0,
@@ -1400,6 +1533,7 @@ def s4_sampled(torch, paths, paged_argv):
         torch.cuda.synchronize()
         if i == 0:
             paths["S4 spec sampled"] = _snapshot(ops)
+            _check_prefill_body("S4 spec sampled", paths["S4 spec sampled"])
         runs.append([c.tokens.tolist() for c in comps])
         check(len(comps) == 4 and all(
             len(c.tokens) == args.gen and 0 <= min(c.tokens) and
@@ -1467,6 +1601,13 @@ def _check_bodies(label, launches, want, bf16):
     print(json.dumps({"phase": f"{label} bodies", "launches": got,
                       "expected": exp}), flush=True)
     check(got == exp, f"{label}: launches by body {got} != expected {exp}")
+
+
+def _check_prefill_body(label, launches):
+    """A bf16 serving path runs every flash_prefill launch on the
+    tensor-core body (``csrc/flash_prefill.cu``'s rule)."""
+    _check_bodies(label, launches,
+                  {"flash_prefill": launches["flash_prefill"]}, True)
 
 
 def _check_launches(label, launches, cfg, steps):
@@ -1813,6 +1954,7 @@ def q3_int8_serving(torch, paths, paged_argv, dense_argv):
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
               f"Q3: kernel {name} was not launched serving the int8 base")
+    _check_prefill_body("Q3 serve int8", launches)
     check(len(comps) == 8, f"Q3: {len(comps)} completions, expected 8")
     check(sorted({str(c.user) for c in comps}) == ["None", "alice", "bob"],
           f"Q3 served users {sorted({str(c.user) for c in comps})}")
@@ -2328,7 +2470,8 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **{k: r[k] for k in ("library", "cublas_bf16_ms",
-                                             "bound_f32_simt_ms") if k in r},
+                                             "bound_f32_simt_ms", "cases")
+                           if k in r},
                         **({"launches_by_body": {
                             b: sum(p[f"{name}/{b}"] for p in paths.values())
                             for b in ("tc", "simt")}}

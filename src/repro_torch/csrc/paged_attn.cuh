@@ -1,7 +1,11 @@
-// One query row of attention over a paged KV pool, for one warp.
-// Shared by flash_decode.cu (one row per query head), flash_prefill.cu
-// (C * G rows: chunk offset x query head) and flash_verify.cu (W * G
-// rows: window offset x query head).
+// Paged attention building blocks.
+//
+// attend_row: one query row of attention over a paged KV pool, for one
+// warp; flash_prefill.cu's f32 body (C * G rows: chunk offset x query
+// head) and flash_verify.cu (W * G rows: window offset x query head) run
+// it. gather_kv_tile: a tile of a slot's K/V gathered by position into
+// shared memory with cp.async; flash_decode.cu and flash_prefill.cu's
+// tensor-core body stage their tiles with it.
 //
 // Layout (the JAX package's): k/v pools (NP, ps, KV, hd); a slot's page
 // table row maps logical page p to physical page table[p]; physical page
@@ -26,6 +30,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "mma_sm80.cuh"
 
 namespace repro_torch {
 
@@ -150,6 +156,57 @@ __device__ void attend_row(const T* __restrict__ q_row,
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = acc[e] / denom;
   if (active) store_from_f32<T, E>(out_row + lane * E, acc);
+}
+
+// Positions t0 .. t0 + TILE - 1 of one (slot, KV head)'s K and V into
+// shared rows ROW elements apart (kd, vd), by THREADS threads: position t
+// is row t % ps of physical page tbl[t / ps] (the slot's page-table row,
+// staged in shared memory), kb / vb point at the KV head's first element
+// of physical page 0, tok is the pool's position stride. Positions past
+// `last` are zero-filled and never read. The offsets come first, then
+// the copies: a cp.async is a barrier to the compiler, so a table read
+// between two copies would wait for each.
+template <typename T, int HD, int TILE, int ROW, int THREADS>
+__device__ __forceinline__ void gather_kv_tile(T* kd, T* vd, const T* kb,
+                                               const T* vb, const int* tbl,
+                                               int t0, int last, int ps,
+                                               int64_t tok) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // a chunk
+  constexpr int kChunks = HD / kPer;                       // a row
+  constexpr int kN = (TILE * kChunks + THREADS - 1) / THREADS;
+  int64_t off[kN];
+  int bytes[kN];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const int i = threadIdx.x + n * THREADS;
+    const int t = t0 + i / kChunks;
+    off[n] = 0;
+    bytes[n] = i < TILE * kChunks && t <= last ? 16 : 0;
+    if (bytes[n]) {
+      const int pg = t / ps;
+      off[n] = (static_cast<int64_t>(tbl[pg]) * ps + (t - pg * ps)) * tok +
+               (i % kChunks) * kPer;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const int i = threadIdx.x + n * THREADS;
+    if (i < TILE * kChunks) {
+      const int at = (i / kChunks) * ROW + (i % kChunks) * kPer;
+      sm80::cp_async16(kd + at, kb + off[n], bytes[n]);
+      sm80::cp_async16(vd + at, vb + off[n], bytes[n]);
+    }
+  }
+}
+
+// the largest dynamic shared memory a block may opt in to on this device
+// (a paged kernel's shared memory grows with its page-table row)
+inline int smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return bytes;
 }
 
 }  // namespace repro_torch

@@ -11,9 +11,9 @@ Each kernel's C function returns ``cudaGetLastError()`` right after its
 launch; :func:`launch` raises on a nonzero code and otherwise adds one to
 the kernel's entry in :data:`LAUNCHES`, the count of launches a run can
 read back to show which kernels it went through. A kernel with two
-bodies (``zo_matmul`` and its three twins, ``flash_attention``: bf16
-tensor cores or the SIMT body, as the C side's ``*_body`` rule picks)
-also counts the body in :data:`BODIES`.
+bodies (``zo_matmul`` and its three twins, ``flash_attention``,
+``flash_prefill``: bf16 tensor cores or the SIMT body, as the C side's
+``*_body`` rule picks) also counts the body in :data:`BODIES`.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ LAUNCHES: Dict[str, int] = {"zo_add": 0, "flash_decode": 0,
 #: tensor cores) and ``"<kernel>/simt"``
 BODIES: Dict[str, int] = {f"{k}/{b}": 0 for k in (
     "zo_matmul", "zo_matmul_q", "zo_matmul_users", "zo_matmul_users_q",
-    "flash_attention") for b in ("tc", "simt")}
+    "flash_attention", "flash_prefill") for b in ("tc", "simt")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,6 +85,7 @@ _SIGNATURES = {
                                 _P),
     "repro_zo_matmul_body": (_I, _I),
     "repro_flash_attention_body": (_I,),
+    "repro_flash_prefill_body": (_I,),
 }
 
 _lock = threading.Lock()

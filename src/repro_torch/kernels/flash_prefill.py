@@ -10,7 +10,10 @@ sits at position ``pos[b] + c`` and reads positions ``<= pos[b] + c``
 Layout: q (B, C, H, hd); k/v pools (n_pages, page_size, KV, hd); pages
 (B, n_live); pos (B,) chunk-start positions. :func:`prefill_attn_ref` is
 the plain version; at C = 1 it is the same math as ``paged_attn_ref``.
-:func:`flash_prefill` launches ``csrc/flash_prefill.cu``.
+:func:`flash_prefill` launches ``csrc/flash_prefill.cu``: bf16 takes its
+tensor-core body (bf16 scores exact in f32, P rounded to bf16 for
+``P @ V`` as the plain version rounds it), f32 its SIMT body; the body
+is counted in ``BODIES["flash_prefill/tc"]`` / ``.../simt``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import launch
+from repro_torch.kernels.build import body, launch
 from repro_torch.kernels.flash_decode import _DTYPES, check_paged_args
 
 
@@ -35,7 +38,8 @@ def flash_prefill(q, k_pages, v_pages, pages, pos):
            k_pages.data_ptr(), v_pages.data_ptr(), pages.data_ptr(),
            pos.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, c, h, kvh,
            hd, ps, pages.shape[1], 1.0 / math.sqrt(hd),
-           torch.cuda.current_stream(q.device).cuda_stream)
+           torch.cuda.current_stream(q.device).cuda_stream,
+           body=body("repro_flash_prefill_body", _DTYPES[q.dtype]))
     return out
 
 

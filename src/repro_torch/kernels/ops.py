@@ -6,7 +6,8 @@ tensor on a CUDA device -- never a fallback: a CUDA input the kernel
 does not take, a failed build or a failed launch raises. Launches are
 counted in :data:`LAUNCHES` (``LAUNCHES["zo_add"]`` and so on), and
 the two-body kernels' launches by body in :data:`BODIES`
-(``BODIES["zo_matmul/tc"]``: bf16 tensor cores; ``.../simt``).
+(``BODIES["zo_matmul/tc"]``: bf16 tensor cores; ``.../simt``; also
+``flash_attention`` and ``flash_prefill``).
 """
 
 from __future__ import annotations

@@ -91,47 +91,88 @@ def test_zo_add_prehashed_slice_in_place_and_unaligned(cuda):
     assert torch.equal(w2, full)
 
 
-def _case(seed, b, c, h, kvh, hd, n_live, pos, garbage):
+def _case(seed, b, c, h, kvh, hd, n_live, pos, garbage, ps=PS):
     """Queries + pools with a scrambled page table (page 0 = trash, filled
     with ``garbage``), covering positions pos .. pos + c - 1."""
     r = np.random.default_rng(seed)
     n_pages = 1 + b * n_live + 3
     q = r.normal(size=(b, c, h, hd)).astype(np.float32)
-    k = r.normal(size=(n_pages, PS, kvh, hd)).astype(np.float32)
-    v = r.normal(size=(n_pages, PS, kvh, hd)).astype(np.float32)
+    k = r.normal(size=(n_pages, ps, kvh, hd)).astype(np.float32)
+    v = r.normal(size=(n_pages, ps, kvh, hd)).astype(np.float32)
     k[0] = garbage
     v[0] = garbage
     pos = np.asarray(pos, np.int32)
     perm = r.permutation(np.arange(1, n_pages))
     pages = np.zeros((b, n_live), np.int32)
     for i in range(b):
-        live = 1 + (pos[i] + c - 1) // PS
+        live = 1 + (pos[i] + c - 1) // ps
         pages[i, :live] = perm[i * n_live:i * n_live + live]
     return [torch.from_numpy(a) for a in (q, k, v, pages, pos)]
 
 
+def _poison_unread(k, v, pages, last):
+    """NaN into every position a slot's rows cannot read: the trash page
+    and, in each slot's last live page, the positions past ``last[i]``."""
+    ps = k.shape[1]
+    k[0], v[0] = float("nan"), float("nan")
+    for i, t in enumerate(last):
+        page = int(pages[i, t // ps])
+        k[page, t % ps + 1:] = float("nan")
+        v[page, t % ps + 1:] = float("nan")
+
+
+def _positions(case, ps, c):
+    """(n_live, positions): ragged positions straddling page edges; the
+    edges of a 64-key tile (63, 64, 127, 128); a long context."""
+    if case == "ragged":
+        return 6, RAGGED_POS
+    if case == "tile_edges":
+        return (128 + c - 1) // ps + 2, (63, 64, 127, 128)
+    n_live = 64
+    return n_live, (n_live * ps - c, 5 * ps + 3, 40 * ps - 1, 0)
+
+
+@pytest.mark.parametrize("case", ["ragged", "tile_edges", "long"])
+@pytest.mark.parametrize("ps", [8, 16])
 @pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
                                         ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("kvh,g,hd", [(1, 4, 64), (2, 2, 128), (4, 1, 64),
                                       (2, 8, 32), (1, 2, 256), (2, 2, 16)])
 @pytest.mark.parametrize("c", [1, 3, 2 * PS + 3])
-def test_attention_kernels_match_plain(cuda, dtype, atol, kvh, g, hd, c):
+def test_attention_kernels_match_plain(cuda, dtype, atol, kvh, g, hd, c, ps,
+                                       case):
+    """Paged prefill (and decode at C = 1) against the plain versions at
+    page sizes 8 and 16, across 64-key tile edges and over a long context;
+    NaN in the trash page and in the unread tail of each slot's last live
+    page leaves the output bit-equal, two calls give the same bits, and
+    prefill runs bf16 on its tensor-core body, f32 on its SIMT body."""
     dt = getattr(torch, dtype)
+    n_live, pos = _positions(case, ps, c)
     q, k, v, pages, pos = [t.to(cuda) for t in _case(
-        5, 4, c, kvh * g, kvh, hd, 6, RAGGED_POS, garbage=1e3)]
+        5, 4, c, kvh * g, kvh, hd, n_live, pos, garbage=1e3, ps=ps)]
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    body = "tc" if dtype == "bfloat16" else "simt"
+    before = dict(build.BODIES)
     got = ops.paged_prefill_attn(q, k, v, pages, pos)
+    assert build.BODIES[f"flash_prefill/{body}"] == \
+        before[f"flash_prefill/{body}"] + 1
+    assert sum(build.BODIES[f"flash_prefill/{b}"] for b in ("tc", "simt")) \
+        == sum(before[f"flash_prefill/{b}"] for b in ("tc", "simt")) + 1
     want = fp.prefill_attn_ref(q, k, v, pages, pos)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    assert torch.equal(fp.flash_prefill(q, k, v, pages, pos), got)
+    dq = q[:, 0].contiguous()
     if c == 1:
-        dq = q[:, 0].contiguous()
         got_d = ops.paged_decode_attn(dq, k, v, pages, pos)
         want_d = fd.paged_attn_ref(dq, k, v, pages, pos)
         torch.testing.assert_close(got_d.float(), want_d.float(), rtol=0,
                                    atol=atol)
-    # NaN in the trash page is never read
-    k[0], v[0] = float("nan"), float("nan")
+        assert torch.equal(fd.flash_decode(dq, k, v, pages, pos), got_d)
+    # NaN where no row reads is never read
+    _poison_unread(k, v, pages, [int(p) + c - 1 for p in pos.tolist()])
     assert torch.equal(fp.flash_prefill(q, k, v, pages, pos), got)
+    if c == 1:
+        assert torch.equal(fd.flash_decode(dq, k, v, pages, pos), got_d)
 
 
 def test_attention_launchers_reject_what_they_do_not_take(cuda):
