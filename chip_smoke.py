@@ -24,19 +24,24 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
    ``zo_add``, ``flash_decode``, ``flash_prefill``; T0 ``zo_matmul`` and
    ``flash_attention``; Q0 ``zo_add_q`` and ``zo_matmul_q``; S0
    ``flash_verify`` (B 4, W 4, 32 heads of 64, page 16, positions 96-128,
-   f32 and bf16, three GQA layouts, NaN in the trash page, two calls
+   f32 and bf16, three GQA layouts and every family's heads
+   (``REAL_HEADS``), NaN in the trash page, two calls
    bit-equal, bf16 on the tensor-core body and f32 on the SIMT body;
    timed as ``VERIFY_TIMED``). The paged
    ``flash_decode`` / ``flash_prefill`` are checked at pages 8 and 16,
    f32 and bf16, KV 32 and 8, on ragged serving positions, the edges of
-   a 64-key tile and a context up to 2048 (``ATTN_CHECKED``): two calls
+   a 64-key tile and a context up to 2048 (``ATTN_CHECKED``), and at
+   page 16 at every ``REAL_HEADS`` layout: two calls
    bit-equal, NaN in the trash page and in each slot's unread last-page
    tail leaving the output bit-equal, prefill's bf16 launches on its
    tensor-core body and f32 on its SIMT body; and timed in bf16 at B 4
    (the rows timed since the first port), at the serving admission's B 1
    prefill and a decode at positions up to 2047 (``ATTN_TIMED``), with
    the page gather + SDPA in one graph beside the pre-gathered
-   yardstick, as context.
+   yardstick, as context. ``flash_attention`` is also checked at B 8 x
+   128 at every ``REAL_HEADS`` layout and at whisper-base's encoder (B 8
+   x 1500), ``zo_matmul`` at jamba's ``x_proj`` (N 288) and whisper's
+   width (512), against their plain versions at the same limits.
 4. serving: ``repro_torch.launch.serve.run`` on full-width, 24-layer
    OPT-1.3B (bf16, random weights from a seed), paged KV with page size 16
    and chunked prefill C = 32, 4 slots, 8 greedy requests (96-token
@@ -98,6 +103,42 @@ U2. the same with ``--quant int8``: q and scales frozen and shared by the
    slots.
 U3. the user-axis fused loss over one shared base (bf16, then a frozen int8
    base), U = 4: every lane's loss equal to the scalar fused loss.
+F1-F5, the other model families at full width (bf16, random weights
+from seed 0), each phase printing its seconds, peak memory, launches by
+kernel and body and a profiled step or decode window's device busy
+share; every fused-vs-materialized check runs the fused loss at +eps
+with flash attention (every projection through ``zo_matmul``'s
+tensor-core body) against the loss at ``ctx.materialize`` (plain
+attention) within 2e-2:
+F1. granite-moe-1b-a400m (24 layers, 32 experts top 8): the train CLI (4
+   steps, B 8 x 128), fused vs materialized, two MoE dispatches of one
+   input bit-equal, phase 4's requests (paged, chunked) and with
+   ``--spec-k 3`` (reported: MoE windows share expert capacity).
+F2. rwkv6-7b (32 layers): the train CLI (2 steps), fused vs
+   materialized, serving in the dense layout (``paged=True`` has nothing
+   to page): decode logits against the forward over the same tokens,
+   in bf16 within 0.5 (``RWKV_BF16_ATOL``, which decodes that zero
+   ``x_prev`` or the WKV state must exceed) and in f32 within 0.15;
+   ``spec_k`` and ``prefill_chunk`` raise.
+F3. jamba-v0.1-52b cut to one super-block (8 of 32 sublayers: 1
+   attention, 7 mamba, 4 MoE of 16 experts) through the Trainer and
+   ServeEngine APIs: 2 steps, fused vs materialized (with the routing
+   flips between the two forwards, again with capacity for every token
+   and, below, with dense FFNs), paged serving with chunked prefill (one
+   replayed user beside the base), ``spec_k`` 3 with its tokens held to
+   plain under the near-tie rule save where a routing difference is
+   witnessed at or before the part (``_routing_witness``), then the
+   config in f32 and with dense FFNs, held to the near-tie rule.
+F4. whisper-base (6 + 6 layers, 1500 frames): the train CLI with the
+   ``enc_embeds`` stub (4 steps), fused vs materialized (the encoder's
+   bidirectional attention on ``flash_attention``), paged serving of
+   token-only requests (cross state left at zeros) held to the
+   dense-layout engine under the near-tie rule.
+F5. gemma-2b, qwen3-4b, chatglm3-6b, glm4-9b, pixtral-12b at 2 layers:
+   fused vs materialized; a 64-token prompt in chunks of 32 and 8 decode
+   steps over pages of 16 against the dense forward within 0.15, every
+   attention on ``flash_prefill`` / ``flash_decode`` at the config's head
+   dim (256 for gemma, 128 for the rest).
 Then one ``{"kernels": [...]}`` line (each kernel with its launches on
 every path above; each must have launched on one) and the final
 ``{"ok": true, ...}``.
@@ -577,67 +618,92 @@ def _attn_rows(name):
             "flash_verify": SPEC_K + 1}[name]
 
 
-def check_paged_attention(torch):
-    """Each paged kernel against its plain version at pages 8 and 16, f32
-    and bf16, KV 32 (G 1) and 8 (G 4), on every ATTN_CHECKED case: within
-    the limit, finite, two calls bit-equal, NaN in the trash page and in
-    each slot's unread last-page tail leaving the output bit-equal, and
-    every prefill launch on the body its dtype picks. Returns the worst
-    error by kernel and dtype."""
+# the (heads, KV heads, head dim) of every config a family phase serves
+# or trains beyond OPT-1.3B's 32 x 64: gemma-2b (MQA at 256), qwen3-4b,
+# pixtral-12b and jamba (G 4 at 128), chatglm3-6b and glm4-9b (G 16 at
+# 128), granite-moe (G 2 at 64), whisper-base (8 heads of 64)
+REAL_HEADS = {"gemma-2b": (8, 1, 256), "qwen3-4b pixtral jamba": (32, 8, 128),
+              "chatglm3 glm4": (32, 2, 128), "granite-moe": (16, 8, 64),
+              "whisper-base": (8, 8, 64)}
+
+
+def _check_paged_case(torch, name, ps, pos, n_live16, h, kvh, hd, dt, tol,
+                      gen):
+    """One paged-kernel case against its plain version: within ``tol``,
+    finite, two calls bit-equal, NaN in the trash page and in each slot's
+    unread last-page tail leaving the output bit-equal, every prefill
+    launch on the body its dtype picks. Returns the max error."""
     from repro_torch.kernels import build
     dev = torch.device("cuda")
-    h, hd = 32, 64
+    kern, ref = _attn_fns(name)
+    c = 1 if name == "flash_decode" else ATTN_C
+    n_live = n_live16 * 16 // ps
+    last = [p + c - 1 for p in pos]
+    b = len(pos)
+    label = f"{name} {dt} page {ps} H {h} KV {kvh} hd {hd} pos {pos}"
+    k, v, pages, _ = _paged_case(torch, b, ps, kvh, hd, n_live, last, 1e4)
+    k, v = k.to(dt), v.to(dt)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    q_shape = (b, h, hd) if c == 1 else (b, c, h, hd)
+    q = torch.randn(q_shape, generator=gen, device=dev).to(dt)
+    body = "tc" if dt == torch.bfloat16 else "simt"
+    before = dict(build.BODIES)
+    got = kern(q, k, v, pages, pos_t)
+    if name == "flash_prefill":
+        moved = {bb: build.BODIES[f"{name}/{bb}"] - before[f"{name}/{bb}"]
+                 for bb in ("tc", "simt")}
+        check(moved[body] == 1 and sum(moved.values()) == 1,
+              f"{label}: bodies {moved}, expected one {body}")
+    want = ref(q, k, v, pages, pos_t)
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= tol and torch.isfinite(got).all().item(),
+          f"{label}: max err {err} > {tol}")
+    check(torch.equal(kern(q, k, v, pages, pos_t), got),
+          f"{label}: two calls differ")
+    _poison_unread(k, v, pages, last)
+    check(torch.equal(kern(q, k, v, pages, pos_t), got),
+          f"{label}: NaN where no row reads reached the output")
+    return err
+
+
+def check_paged_attention(torch):
+    """Each paged kernel against its plain version (``_check_paged_case``)
+    at pages 8 and 16, f32 and bf16, 32 heads of 64 over KV 32 (G 1) and
+    8 (G 4), on every ATTN_CHECKED case; then at page 16 on the first two
+    cases at each REAL_HEADS layout. Returns the worst error by kernel
+    and dtype."""
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
+    dtypes = ((torch.float32, ATTN_F32_ATOL), (torch.bfloat16, ATTN_BF16_ATOL))
     errs: dict = {}
+    real: dict = {}
     for name, cases in ATTN_CHECKED.items():
-        kern, ref = _attn_fns(name)
-        c = 1 if name == "flash_decode" else ATTN_C
         for ps in (16, 8):
             for pos, n_live16 in cases:
-                n_live = n_live16 * 16 // ps
-                last = [p + c - 1 for p in pos]
-                b = len(pos)
                 for kvh in (32, 8):
-                    for dt, tol in ((torch.float32, ATTN_F32_ATOL),
-                                    (torch.bfloat16, ATTN_BF16_ATOL)):
-                        label = (f"{name} {dt} page {ps} KV {kvh} pos "
-                                 f"{pos}")
-                        k, v, pages, _ = _paged_case(torch, b, ps, kvh, hd,
-                                                     n_live, last, 1e4)
-                        k, v = k.to(dt), v.to(dt)
-                        pos_t = torch.tensor(pos, dtype=torch.int32,
-                                             device=dev)
-                        q_shape = (b, h, hd) if c == 1 else (b, c, h, hd)
-                        q = torch.randn(q_shape, generator=gen,
-                                        device=dev).to(dt)
-                        body = "tc" if dt == torch.bfloat16 else "simt"
-                        before = dict(build.BODIES)
-                        got = kern(q, k, v, pages, pos_t)
-                        if name == "flash_prefill":
-                            moved = {bb: build.BODIES[f"{name}/{bb}"]
-                                     - before[f"{name}/{bb}"]
-                                     for bb in ("tc", "simt")}
-                            check(moved[body] == 1 and sum(moved.values())
-                                  == 1, f"{label}: bodies {moved}, "
-                                        f"expected one {body}")
-                        want = ref(q, k, v, pages, pos_t)
-                        err = (got.float() - want.float()).abs().max().item()
-                        check(err <= tol and torch.isfinite(got).all().item(),
-                              f"{label}: max err {err} > {tol}")
-                        check(torch.equal(kern(q, k, v, pages, pos_t), got),
-                              f"{label}: two calls differ")
-                        _poison_unread(k, v, pages, last)
-                        check(torch.equal(kern(q, k, v, pages, pos_t), got),
-                              f"{label}: NaN where no row reads reached the "
-                              f"output")
+                    for dt, tol in dtypes:
+                        err = _check_paged_case(torch, name, ps, pos,
+                                                n_live16, 32, kvh, 64, dt,
+                                                tol, gen)
                         key = (name, str(dt).split(".")[-1])
                         errs[key] = max(errs.get(key, 0.0), err)
+        for arch, (h, kvh, hd) in REAL_HEADS.items():
+            for pos, n_live16 in cases[:2]:
+                for dt, tol in dtypes:
+                    err = _check_paged_case(torch, name, 16, pos, n_live16,
+                                            h, kvh, hd, dt, tol, gen)
+                    key = (name, str(dt).split(".")[-1])
+                    errs[key] = max(errs.get(key, 0.0), err)
+                    rk = f"{name} {arch} {key[1]}"
+                    real[rk] = max(real.get(rk, 0.0), err)
     print(json.dumps({"phase": "kernel checks", "name": "paged attention",
                       "cases": {n: [p for p, _ in cs]
                                 for n, cs in ATTN_CHECKED.items()},
                       "page_sizes": [16, 8], "kv_heads": [32, 8],
+                      "real_heads": REAL_HEADS,
                       "max_abs_err": {f"{n} {d}": e
                                       for (n, d), e in errs.items()},
+                      "max_abs_err_real_heads": real,
                       "tolerance_f32": ATTN_F32_ATOL,
                       "tolerance": ATTN_BF16_ATOL}), flush=True)
     return errs
@@ -817,6 +883,40 @@ def kernel_zo_matmul(torch, results):
         rows.append(row)
         del x, w
         torch.cuda.empty_cache()
+    # the families' narrow projections, checked and not timed: jamba's
+    # x_proj (di 8192 -> dt_rank + 2 * d_state = 288) at B 8 x 128 and
+    # whisper-base's encoder wq (512 -> 512) at B 8 x 1500
+    for label, m, k, n, path, layer in (
+            ("jamba x_proj", 1024, 8192, 288, "blocks/sub_1/mamba/x_proj/w",
+             1),
+            ("whisper enc wq", 12000, 512, 512, "enc_blocks/attn/wq/w", 2)):
+        x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * 0.02).bfloat16()
+        kw = dict(seed=rng.fold_leading(rng.leaf_base(seed,
+                                                      rng.leaf_salt(path)),
+                                        layer),
+                  salt=0, prime_offset=1, prehashed=True)
+        errs, abs_err = {}, 0.0
+        for dist in ("rademacher", "gaussian"):
+            got = zp.zo_matmul_cuda(x, w, coeff=coeff, dist=dist, **kw)
+            want = zp.zo_matmul_ref(x, w, coeff=coeff, dist=dist, **kw)
+            diff = (got.float() - want.float()).abs().max()
+            err = (diff / want.float().abs().max()).item()
+            check(err <= ZO_MM_BF16_RTOL and torch.isfinite(got).all().item(),
+                  f"zo_matmul {label} {dist}: max|d|/max|Y| {err} > "
+                  f"{ZO_MM_BF16_RTOL}")
+            errs[dist] = err
+            abs_err = max(abs_err, diff.item())
+        row = {"phase": "kernel checks", "name": "zo_matmul", "case": label,
+               "shape": [m, k, n], "dtype": "bfloat16",
+               "rel_err_rademacher": errs["rademacher"],
+               "rel_err_gaussian": errs["gaussian"],
+               "tolerance": ZO_MM_BF16_RTOL, "max_abs_err": abs_err}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del x, w, got, want
+    torch.cuda.empty_cache()
     results["zo_matmul"] = _mm_result(rows, rows[:2])
 
 
@@ -878,9 +978,38 @@ def kernel_flash_attention(torch, results):
                "bound_f32_simt_ms": bound(n_bytes, flops, "f32")[0]}
         print(json.dumps(row), flush=True)
         rows.append(row)
+    # the families' training shapes (B 8 x 128, causal) at REAL_HEADS,
+    # and whisper-base's encoder (B 8 x 1500, bidirectional): checked,
+    # not timed
+    real = {}
+    for arch, (h, kvh, hd) in REAL_HEADS.items():
+        for dt, tol in ((torch.float32, ATTN_F32_ATOL),
+                        (torch.bfloat16, ATTN_BF16_ATOL)):
+            s, causal = ((1500, False) if arch == "whisper-base"
+                         and dt == torch.bfloat16 else (128, True))
+            q = torch.randn((8, s, h, hd), generator=gen, device=dev).to(dt)
+            k = torch.randn((8, s, kvh, hd), generator=gen,
+                            device=dev).to(dt)
+            v = torch.randn((8, s, kvh, hd), generator=gen,
+                            device=dev).to(dt)
+            got = fa.flash_attention_cuda(q, k, v, causal)
+            err = (got.float() - fa.flash_attention_ref(q, k, v, causal)
+                   .float()).abs().max().item()
+            label = f"flash_attention {arch} S {s} {dt}"
+            check(err <= tol and torch.isfinite(got).all().item(),
+                  f"{label}: max err {err} > {tol}")
+            real[f"{arch} S {s} {str(dt).split('.')[-1]}"] = err
+            del q, k, v, got
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "kernel checks", "name": "flash_attention",
+                      "real_heads": REAL_HEADS, "batch": 8,
+                      "max_abs_err": real, "tolerance_f32": ATTN_F32_ATOL,
+                      "tolerance": ATTN_BF16_ATOL}), flush=True)
     main = rows[0]                       # the OPT-1.3B training shape
     results["flash_attention"] = {
-        "max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"],
+        "max_abs_err": max([main["max_abs_err"]] + [
+            e for c, e in real.items() if c.endswith("bfloat16")]),
+        "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "library": main["library"]}
@@ -1220,28 +1349,34 @@ def _users_times(torch, zp, x, w, scale, lane_seeds, kw, u, m, k, n,
 
 
 def kernel_flash_verify(torch, results):
-    """S0: the verify window at serving shapes (B 4, W = k + 1 = 4, 32
-    heads of 64, page 16, ragged positions 96-128) in f32 and bf16, three
-    GQA layouts (W * G = 4 rows, 16 rows, and 64 rows over blockIdx.z),
-    NaN in the trash page, two calls bit-equal, bf16 on the tensor-core
-    body and f32 on the SIMT body; times in bf16 at OPT-1.3B's shape
-    (``VERIFY_TIMED``, through ``time_paged_attention``)."""
+    """S0: the verify window at serving shapes (B 4, W = k + 1 = 4, page
+    16, ragged positions 96-128) in f32 and bf16: 32 heads of 64 in three
+    GQA layouts (W * G = 4 rows, 16 rows, and 64 rows over blockIdx.z)
+    and every REAL_HEADS layout, NaN in the trash page, two calls
+    bit-equal, bf16 on the tensor-core body and f32 on the SIMT body;
+    times in bf16 at OPT-1.3B's shape (``VERIFY_TIMED``, through
+    ``time_paged_attention``)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_verify as fv
     dev = torch.device("cuda")
-    b, w, h, hd, ps, n_live = 4, SPEC_K + 1, 32, 64, 16, 8
+    b, w, ps, n_live = 4, SPEC_K + 1, 16, 8
     pos = VERIFY_TIMED[2]
     cover = [p + w - 1 for p in pos]
     gen = torch.Generator(device=dev).manual_seed(5)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
     errs = {}
-    for kvh, dt, tol in ((32, torch.float32, ATTN_F32_ATOL),
-                         (8, torch.float32, ATTN_F32_ATOL),
-                         (2, torch.float32, ATTN_F32_ATOL),
-                         (8, torch.bfloat16, ATTN_BF16_ATOL),
-                         (2, torch.bfloat16, ATTN_BF16_ATOL),
-                         (32, torch.bfloat16, ATTN_BF16_ATOL)):
-        label = f"flash_verify KV {kvh} {dt}"
+    layouts = [((32, kvh, 64), dt, tol) for kvh, dt, tol in (
+        (32, torch.float32, ATTN_F32_ATOL),
+        (8, torch.float32, ATTN_F32_ATOL),
+        (2, torch.float32, ATTN_F32_ATOL),
+        (8, torch.bfloat16, ATTN_BF16_ATOL),
+        (2, torch.bfloat16, ATTN_BF16_ATOL),
+        (32, torch.bfloat16, ATTN_BF16_ATOL))]
+    layouts += [(heads, dt, tol) for heads in REAL_HEADS.values()
+                for dt, tol in ((torch.float32, ATTN_F32_ATOL),
+                                (torch.bfloat16, ATTN_BF16_ATOL))]
+    for (h, kvh, hd), dt, tol in layouts:
+        label = f"flash_verify H {h} KV {kvh} hd {hd} {dt}"
         k, v, pages, _ = _paged_case(torch, b, ps, kvh, hd, n_live, cover,
                                      1e4)
         k, v = k.to(dt), v.to(dt)
@@ -1262,14 +1397,13 @@ def kernel_flash_verify(torch, results):
         k[0], v[0] = float("nan"), float("nan")
         check(torch.equal(fv.flash_verify(q, k, v, pages, pos_t), got),
               f"{label}: NaN in the trash page reached the output")
-        errs[(kvh, str(dt))] = err
+        errs[(f"{h}/{kvh}/{hd}", str(dt))] = err
     name, case, pos, n_live = VERIFY_TIMED
     row = time_paged_attention(torch, name, pos, n_live)
     err = max(e for (_, dt), e in errs.items() if "bfloat16" in dt)
     print(json.dumps({"phase": "kernel", "name": name, "case": case, **row,
-                      "max_abs_err_by_kv_dtype": {f"{kv} {dt}": e for
-                                                  (kv, dt), e in
-                                                  errs.items()},
+                      "max_abs_err_by_heads_dtype": {
+                          f"{hs} {dt}": e for (hs, dt), e in errs.items()},
                       "tolerance_f32": ATTN_F32_ATOL,
                       "max_abs_err": err, "tolerance": ATTN_BF16_ATOL}),
           flush=True)
@@ -1421,7 +1555,8 @@ def main_path(torch, paths):
 
 def _profiled(torch, fn):
     """Run ``fn`` under ``torch.profiler``: (wall us, device us by kernel
-    name). Kernels on one stream do not overlap, so their durations add."""
+    name, device events). Kernels on one stream do not overlap, so their
+    durations add."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1432,14 +1567,16 @@ def _profiled(torch, fn):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
+    n_events = 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
+            n_events += 1
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us())
-    return wall_us, by_name
+    return wall_us, by_name, n_events
 
 
-def _profile_line(phase, wall_us, by_name, **extra):
+def _profile_line(phase, wall_us, by_name, n_events, **extra):
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     port: dict = {}                # the port's kernels by function name
@@ -1452,7 +1589,7 @@ def _profile_line(phase, wall_us, by_name, **extra):
         "phase": phase, **extra, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3 if by_name else "not measured",
         "device_busy_share": busy_us / wall_us if by_name
-        else "not measured",
+        else "not measured", "device_kernels": n_events,
         "top_kernels_ms": {name[:60]: us / 1e3 for name, us in top},
         "port_kernels_ms": port}), flush=True)
 
@@ -1466,8 +1603,8 @@ def profile_path(torch, paged_argv, phase="profile"):
     engine = serve_mod.build_engine(serve_mod.build_parser().parse_args(argv))
     for user in engine.store.users():          # replay outside the window
         engine.store.materialize(user)
-    wall_us, by_name = _profiled(torch, engine.run)
-    _profile_line(phase, wall_us, by_name, requests=4, gen=16,
+    wall_us, by_name, n_events = _profiled(torch, engine.run)
+    _profile_line(phase, wall_us, by_name, n_events, requests=4, gen=16,
                   decode_steps=engine.stats.decode_steps)
 
 
@@ -1561,19 +1698,29 @@ def _hold_to_plain(torch, label, argv, params, spec, plain):
         check([c.tokens.tolist() for c in rerun]
               == [c.tokens.tolist() for c in plain],
               f"{label}: the plain engine's rerun gave other tokens")
-        for rid, (j, want, got) in first_diff.items():
-            row = rows[(rid, j)]
-            gaps[rid] = abs(row[want] - row[got]).item()
-            check(gaps[rid] <= LOGITS_BF16_ATOL,
-                  f"{label} rid {rid}: token {j} is {got}, plain {want}, "
-                  f"plain logits {gaps[rid]} apart > {LOGITS_BF16_ATOL}")
+        gaps = _near_tie_gaps(label, first_diff, rows)
     return len(spec) - len(first_diff), gaps
 
 
-def _spec_run(torch, paths, label, argv, params=None):
+def _near_tie_gaps(label, first_diff, rows):
+    """``_hold_to_plain``'s rule on recorded plain rows: at each request's
+    first differing token j, the plain logits of the two tokens lie within
+    LOGITS_BF16_ATOL. ``first_diff``: {rid: (j, plain token, other)}."""
+    gaps = {}
+    for rid, (j, want, got) in first_diff.items():
+        row = rows[(rid, j)]
+        gaps[rid] = abs(row[want] - row[got]).item()
+        check(gaps[rid] <= LOGITS_BF16_ATOL,
+              f"{label} rid {rid}: token {j} is {got}, plain {want}, "
+              f"plain logits {gaps[rid]} apart > {LOGITS_BF16_ATOL}")
+    return gaps
+
+
+def _spec_run(torch, paths, label, argv, params=None,
+              per_call=SPEC_PER_CALL):
     """Serve ``argv`` with ``--spec-k`` through ``_serve``: launch counts
-    against the calls, tokens in range; returns (args, engine,
-    completions, seconds)."""
+    against the calls (``per_call``: launches a call, by kernel), tokens
+    in range; returns (args, engine, completions, seconds)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
     from repro_torch.serve import engine as engine_mod
@@ -1587,7 +1734,7 @@ def _spec_run(torch, paths, label, argv, params=None):
     paths[label] = launches
     print(serve_mod.summary(args, engine, comps, dt), flush=True)
     _check_paged_bodies(label, launches)
-    for name, per in SPEC_PER_CALL.items():
+    for name, per in per_call.items():
         fn = "decode_step" if name == "flash_decode" else "verify_window"
         check(launches[name] == per * calls.get(fn, 0) > 0,
               f"{label}: {launches[name]} {name} launches for "
@@ -1785,10 +1932,10 @@ def _check_launches(label, launches, cfg, steps):
 
 
 def _batches(cfg, bsz, seq):
-    """The CLI's batch stream for ``cfg`` (seed 0)."""
-    from repro_torch.data.synthetic import lm_batches, sst2_batches
-    gen = sst2_batches if cfg.n_classes else lm_batches
-    return gen(bsz, seq, cfg.vocab, seed=0)
+    """The CLI's batch stream for ``cfg`` (seed 0), frontend stubs
+    included."""
+    from repro_torch.launch.train import batch_stream
+    return batch_stream(cfg, bsz, seq, 0)
 
 
 def _first_batch(torch, cfg, bsz, seq):
@@ -1868,9 +2015,10 @@ def train_main_path(torch, paths):
     return tr, state, batch
 
 
-def profile_train(torch, tr, state, batch, label="T4 profile"):
-    """T4 (and Q2's): one fused OPT-1.3B step under the profiler; T4's
-    launches against one T1 step's, read off the code."""
+def profile_train(torch, tr, state, batch, label="T4 profile", count=True):
+    """T4 (and Q2's, F1-F4's): one fused step under the profiler; with
+    ``count`` (T4), its launches against one T1 step's, read off the
+    code."""
     from repro_torch.core import rng
     from repro_torch.kernels import ops
 
@@ -1878,9 +2026,9 @@ def profile_train(torch, tr, state, batch, label="T4 profile"):
         tr.strategy.step(tr.model.loss, state, batch, rng.fold_seed(777, 0),
                          tr.tcfg.mezo)
     ops.reset_launches()
-    wall_us, by_name = _profiled(torch, one)
-    _profile_line(label, wall_us, by_name, steps=1)
-    if tr.tcfg.quant == "none":
+    wall_us, by_name, n_events = _profiled(torch, one)
+    _profile_line(label, wall_us, by_name, n_events, steps=1)
+    if count and tr.tcfg.quant == "none":
         _check_launches(f"{label} launches", _snapshot(ops), tr.mcfg, 1)
 
 
@@ -2451,8 +2599,8 @@ def u4_profile(torch, engine):
     one()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    wall_us, by_name = _profiled(torch, one)
-    _profile_line("U4 profile", wall_us, by_name, dispatches=1,
+    wall_us, by_name, n_events = _profiled(torch, one)
+    _profile_line("U4 profile", wall_us, by_name, n_events, dispatches=1,
                   lanes=2 * FLEET_SLOTS, dispatch_s_unprofiled=warm_s)
 
 
@@ -2514,6 +2662,800 @@ def u3_shared_base(torch, paths, base):
     check({k: launches[k] for k in want} == want,
           f"{label}: launches {launches} != {want}")
     _check_bodies(label, launches, want, cfg.dtype == "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# F1-F5: the other model families at full width
+
+FAMILY_FUSED_ATOL = OPT_FUSED_ATOL   # bf16 fused vs materialized loss
+JAMBA_LAYERS = 8        # F3's cut: one super-block, 8 of 32 sublayers
+DENSE_LAYERS = 2        # F5's cut: 2 layers of each dense config
+# rwkv6-7b's bf16 decode against its bf16 forward (F2), set between the
+# sound readings on an H100 (decode 0.234; two sound forwards 0.18-0.23
+# apart) and F2's controls (x_prev zeroed 1.02, WKV state zeroed 9.06),
+# which must exceed it
+RWKV_BF16_ATOL = 0.5
+F5_ARCHS = ("gemma-2b", "qwen3-4b", "chatglm3-6b", "glm4-9b", "pixtral-12b")
+F5_PROMPT, F5_CHUNK, F5_DECODE = 64, 32, 8
+
+
+def _phase_line(torch, label, seconds, launches, **extra):
+    """A phase's line: seconds, peak memory since the last reset, launch
+    counts by kernel and body."""
+    print(json.dumps({"phase": label, "seconds": seconds,
+                      "peak_memory_gib":
+                          torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": {k: v for k, v in launches.items() if v},
+                      **extra}), flush=True)
+
+
+def _check_tc(label, launches, names):
+    """Every launch of each named two-body kernel on its bf16 tensor-core
+    body, and at least one."""
+    for name in names:
+        check(launches[f"{name}/tc"] > 0 and launches[f"{name}/simt"] == 0,
+              f"{label}: {name} launches by body tc "
+              f"{launches[f'{name}/tc']}, simt {launches[f'{name}/simt']}")
+
+
+@contextlib.contextmanager
+def _routing(torch, calls):
+    """Record every ``moe_apply`` call's routing into ``calls``: the
+    router's top-(k + 1) experts by probability (B, S, k + 1), their
+    logits, and the assignments dropped past capacity."""
+    from repro_torch.models import moe
+    orig = moe.moe_apply
+
+    def recording(cfg, p, x):
+        k = cfg.topk
+        lg = x.reshape(-1, x.shape[-1]).to(torch.float32) @ p["router"]
+        idx = torch.topk(torch.softmax(lg, dim=-1), k + 1, dim=-1).indices
+        # moe_apply's dispatch: an assignment is kept while its rank among
+        # its expert's assignments (token-major order) is under capacity
+        flat = idx[:, :k].reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        starts = torch.searchsorted(flat[order], torch.arange(
+            cfg.n_experts, device=flat.device))
+        rank = torch.empty_like(order)
+        rank[order] = (torch.arange(flat.numel(), device=flat.device)
+                       - starts[flat[order]])
+        dropped = (rank >= moe.capacity(lg.shape[0], cfg)).reshape(-1, k)
+        calls.append({"idx": idx.reshape(*x.shape[:2], -1).cpu(),
+                      "logit": lg.gather(-1, idx).reshape(
+                          *x.shape[:2], -1).cpu(),
+                      "drops": dropped.sum(-1).reshape(x.shape[:2]).cpu(),
+                      "dropped": int(dropped.sum())})
+        return orig(cfg, p, x)
+    moe.moe_apply = recording
+    try:
+        yield calls
+    finally:
+        moe.moe_apply = orig
+
+
+def _route(call, k, *at):
+    """(sorted top-k experts, logit margin between the k-th and the
+    (k + 1)-th, assignments dropped past capacity) of one recorded
+    token."""
+    idx, lg = call["idx"][at], call["logit"][at]
+    return (sorted(idx[:k].tolist()), (lg[k - 1] - lg[k]).item(),
+            int(call["drops"][at]))
+
+
+def _flips(torch, a, b, k):
+    """Tokens whose top-k expert set differs between two recorded
+    passes over the same tokens, by MoE layer."""
+    return [int((a_["idx"][..., :k].sort(-1).values
+                 != b_["idx"][..., :k].sort(-1).values).any(-1).sum())
+            for a_, b_ in zip(a, b)]
+
+
+def _fused_vs_materialized(torch, label, cfg, params, batch, paths,
+                           routing=False):
+    """The fused perturbed loss (flash attention, every projection through
+    ``zo_matmul``) at +eps against the loss at ``ctx.materialize`` (every
+    leaf through ``zo_add``, plain attention), on ``batch``."""
+    import dataclasses
+    from repro_torch.core import PerturbCtx, rng
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    fused_model = build_model(dataclasses.replace(cfg, attn_impl="flash"))
+    plain_model = build_model(dataclasses.replace(cfg, attn_impl="chunked"))
+    ctx = PerturbCtx(seed=rng.fold_seed(rng.fold_seed(0, 0), 0), coeff=1e-3)
+    fused_calls, mat_calls = [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad(), (_routing(torch, fused_calls) if routing
+                           else contextlib.nullcontext()):
+        fused = float(fused_model.loss(params, batch, perturb=ctx))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _snapshot(ops)
+    paths[f"{label} fused"] = launches
+    with torch.no_grad(), (_routing(torch, mat_calls) if routing
+                           else contextlib.nullcontext()):
+        mat = ctx.materialize(params)
+        ref = float(plain_model.loss(mat, batch))
+    del mat
+    torch.cuda.empty_cache()
+    err = abs(fused - ref)
+    extra = {} if not routing else {
+        "capacity_factor": cfg.capacity_factor,
+        "tokens": batch["tokens"].numel(),
+        "routing_flips_by_moe_layer": _flips(torch, fused_calls, mat_calls,
+                                             cfg.topk),
+        "dropped_fused": [c["dropped"] for c in fused_calls],
+        "dropped_materialized": [c["dropped"] for c in mat_calls]}
+    print(json.dumps({"phase": f"{label} fused vs materialized",
+                      "arch": cfg.name, "fused_loss": fused,
+                      "materialized_loss": ref, "abs_err": err,
+                      "tolerance": FAMILY_FUSED_ATOL,
+                      "fused_forward_s": dt, **extra,
+                      "launches": {k: v for k, v in launches.items() if v}}),
+          flush=True)
+    check(math.isfinite(fused) and err <= FAMILY_FUSED_ATOL,
+          f"{label}: fused loss {fused} vs materialized {ref}: {err}")
+    _check_tc(label, launches, ["zo_matmul"] + (
+        ["flash_attention"] if cfg.family != "ssm" else []))
+    check(launches["zo_add"] > 0, f"{label}: no zo_add launch")
+    return launches
+
+
+def _cli_train(torch, paths, label, arch, steps, profile=True):
+    """The train CLI at full width and depth, ``mezo-fused``, B 8 x 128:
+    losses, step s, tokens/s, peak memory, launches by body, and (with
+    ``profile``) one profiled step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    argv = ["--arch", arch, "--optimizer", "mezo-fused", "--steps",
+            str(steps), "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--log-every", "1", "--seed", "0", "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tr = train_mod.run(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _snapshot(ops)
+    paths[f"{label} train"] = launches
+    check(len(tr.losses) == steps and all(math.isfinite(x)
+                                          for x in tr.losses),
+          f"{label} losses {tr.losses}")
+    _check_tc(f"{label} train", launches, ["zo_matmul"])
+    batch = _first_batch(torch, tr.mcfg, TRAIN_B, TRAIN_S)
+    state = tr.strategy.init_state(tr.params, tr.tcfg.mezo)
+    step_s, state = _timed_steps(torch, tr.strategy, tr.model.loss, state,
+                                 batch, tr.tcfg.mezo, 1)
+    _phase_line(torch, f"{label} train", dt, launches, arch=arch,
+                losses=tr.losses, step_s=step_s,
+                tokens_per_s=TRAIN_B * TRAIN_S / step_s)
+    if profile:
+        profile_train(torch, tr, state, batch,
+                      label=f"{label} profile step", count=False)
+    return tr, batch
+
+
+def _profile_decode_window(torch, label, engine_mod, cfg, store, prompts,
+                           steps=8, **kw):
+    """Device busy share of ``steps`` engine steps of pure decode: a
+    fresh engine admits one request a slot first (unprofiled)."""
+    engine = engine_mod.ServeEngine(cfg, store, n_slots=len(prompts),
+                                    max_len=128, seed=0, device="cuda", **kw)
+    for p in prompts:
+        engine.submit(engine_mod.Request(prompt=p, max_new=32))
+    engine.step()
+    wall_us, by_name, n_events = _profiled(torch, lambda: [engine.step()
+                                                 for _ in range(steps)])
+    _profile_line(label, wall_us, by_name, n_events, decode_steps=steps,
+                  slots=len(prompts))
+
+
+def _family_argv(paged_argv, arch):
+    argv = list(paged_argv)
+    argv[argv.index("--arch") + 1] = arch
+    return argv
+
+
+def _serve_family(torch, paths, label, argv, hook=None):
+    """Phase 4's request mix for another arch through the serve CLI:
+    tokens in range, first-step logits finite, launches by body."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import engine as engine_mod
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    args, engine, comps, dt, first = _serve(torch, serve_mod, engine_mod,
+                                            argv, hook=hook)
+    torch.cuda.synchronize()
+    launches = _snapshot(ops)
+    paths[label] = launches
+    print(serve_mod.summary(args, engine, comps, dt), flush=True)
+    for comp in comps:
+        t = comp.tokens
+        check(t.shape == (args.gen,) and int(t.min()) >= 0
+              and int(t.max()) < engine.cfg.vocab,
+              f"{label} rid {comp.rid}: bad tokens {t.tolist()}")
+        check(torch.isfinite(first[comp.rid]).all().item(),
+              f"{label} rid {comp.rid}: non-finite first-step logits")
+    st = engine.stats
+    _phase_line(torch, label, dt, launches, arch=engine.cfg.name,
+                paged=engine.paged, decode_tok_s=st.decode_tps,
+                ttft_avg_s=st.ttft_s / max(len(comps), 1),
+                decode_steps=st.decode_steps)
+    return args, engine, comps, first
+
+
+def f1_moe(torch, paths, paged_argv):
+    """F1: granite-moe-1b-a400m at full width and depth."""
+    from repro_torch.models import moe
+    from repro_torch.models.runtime import _index, nest
+    arch = "granite-moe-1b-a400m"
+    tr, batch = _cli_train(torch, paths, "F1", arch, TRAIN_STEPS)
+    cfg = tr.mcfg
+    _fused_vs_materialized(torch, "F1", cfg, tr.params, batch, paths)
+    # MoE dispatch twice on layer 0's experts and the batch's embeddings
+    p0 = _index(nest(tr.params, "blocks"), 0)["moe"]
+    x = tr.params["embed/tok"][batch["tokens"].long()]
+    with torch.no_grad():
+        a, aux_a = moe.moe_apply(cfg, p0, x)
+        b, aux_b = moe.moe_apply(cfg, p0, x)
+    torch.cuda.synchronize()
+    same = torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    print(json.dumps({"phase": "F1 dispatch", "tokens": x.shape[0] *
+                      x.shape[1], "experts": cfg.n_experts,
+                      "topk": cfg.topk,
+                      "capacity": moe.capacity(x.shape[0] * x.shape[1],
+                                               cfg),
+                      "bit_equal": same}), flush=True)
+    check(same, "F1: two MoE dispatches of one input differ")
+    del tr, batch, p0, x, a, b
+    torch.cuda.empty_cache()
+    argv = _family_argv(paged_argv, arch)
+    _serve_family(torch, paths, "F1 serve", argv)
+    _spec_run(torch, paths, "F1 spec", argv + ["--spec-k", str(SPEC_K)],
+              per_call={"flash_decode": cfg.n_layers,
+                        "flash_verify": cfg.n_layers})
+
+
+def _decode_vs_forward(torch, model, params, comps, first, rows):
+    """Max |decode logits - forward logits| over every picked token of
+    ``comps`` (base requests): the forward runs over prompt + generated
+    tokens; ``rows`` / ``first`` are the engine's recorded rows."""
+    worst = 0.0
+    for c in comps:
+        rows[(c.rid, 0)] = first[c.rid]
+        toks = torch.as_tensor(list(c.prompt) + c.tokens[:-1].tolist(),
+                               dtype=torch.long, device="cuda")[None]
+        with torch.no_grad():
+            ref, _ = model.forward(params, {"tokens": toks})
+        plen = len(c.prompt)
+        for j in range(len(c.tokens)):
+            d = rows[(c.rid, j)] - ref[0, plen - 1 + j].float().cpu()
+            worst = max(worst, d.abs().max().item())
+    return worst
+
+
+def _zeroing(rows, names):
+    """A ``_serve`` hook: ``_record_rows``, and before every decode step
+    the cache leaves named in ``names`` set to zero (a control: a decode
+    that loses that part of its state)."""
+    import dataclasses
+    record = _record_rows(rows)
+
+    def zero(d):
+        for name, v in d.items():
+            if isinstance(v, dict):
+                zero(v)
+            elif name in names:
+                v.zero_()
+
+    def hook(engine):
+        record(engine)
+        fn = engine.model.decode_step
+
+        def call(params, cache, *a, **kw):
+            zero(cache)
+            return fn(params, cache, *a, **kw)
+        engine.model = dataclasses.replace(engine.model, decode_step=call)
+    return hook
+
+
+def _forward_noise(torch, model, params, comps, cut=16):
+    """Two sound full-sequence passes apart: max |logits| difference, over
+    the generated positions they share, between the forward over prompt
+    + generated tokens and the forward over all but the last ``cut``."""
+    worst = 0.0
+    for c in comps:
+        toks = torch.as_tensor(list(c.prompt) + c.tokens[:-1].tolist(),
+                               dtype=torch.long, device="cuda")[None]
+        n, plen = toks.shape[1] - cut, len(c.prompt)
+        with torch.no_grad():
+            full, _ = model.forward(params, {"tokens": toks})
+            short, _ = model.forward(params, {"tokens": toks[:, :n]})
+        d = (full[0, plen - 1:n].float() - short[0, plen - 1:].float())
+        worst = max(worst, d.abs().max().item())
+    return worst
+
+
+def f2_rwkv(torch, paths):
+    """F2: rwkv6-7b at full width and depth; serving in the dense layout
+    against the port's own forward over the same tokens: bf16 through the
+    serve CLI, held to RWKV_BF16_ATOL, which two controls (decodes that
+    zero the token shift's ``x_prev`` or the WKV state at each step) must
+    exceed; then the same weights in f32 through the API, held to
+    LOGITS_BF16_ATOL. In bf16 on an H100 two sound full-sequence passes
+    of different lengths already differ by about 0.2 (the bf16 GEMMs'
+    roundings over 32 layers; printed as ``forward_vs_forward``)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import AdapterStore, ServeEngine
+    from repro_torch.serve import engine as engine_mod
+    arch = "rwkv6-7b"
+    tr, batch = _cli_train(torch, paths, "F2", arch, 2, profile=False)
+    _fused_vs_materialized(torch, "F2", tr.mcfg, tr.params, batch, paths)
+    del tr, batch
+    torch.cuda.empty_cache()
+    argv = ["--arch", arch, "--device", "cuda", "--slots", "4",
+            "--requests", "2", "--prompt-len", "96", "--gen", "32",
+            "--seed", "0", "--paged"]
+    rows = {}
+    _, engine, comps, first = _serve_family(torch, paths, "F2 serve", argv,
+                                            hook=_record_rows(rows))
+    check(not engine.paged, "F2: rwkv6 served a paged layout")
+    params = engine.store.materialize(None)
+    bf16_err = _decode_vs_forward(torch, engine.model, params, comps, first,
+                                  rows)
+    noise = _forward_noise(torch, engine.model, params, comps)
+    controls = {}
+    for what, names in (("x_prev zeroed", ("x_prev",)),
+                        ("wkv state zeroed", ("state",))):
+        rows_c = {}
+        _, _, comps_c, _, first_c = _serve(
+            torch, serve_mod, engine_mod, argv, params=params,
+            hook=_zeroing(rows_c, names))
+        controls[what] = _decode_vs_forward(torch, engine.model, params,
+                                            comps_c, first_c, rows_c)
+    print(json.dumps({"phase": "F2 bf16 decode vs forward",
+                      "max_abs_err": bf16_err, "forward_vs_forward": noise,
+                      "controls_max_abs_err": controls,
+                      "tolerance": RWKV_BF16_ATOL}), flush=True)
+    check(bf16_err <= RWKV_BF16_ATOL,
+          f"F2: bf16 decode logits {bf16_err} from the forward's")
+    for what, err in controls.items():
+        check(err > RWKV_BF16_ATOL,
+              f"F2: the control with {what} sits within {RWKV_BF16_ATOL} "
+              f"({err}): the limit cannot tell it from a sound decode")
+    _profile_decode_window(torch, "F2 profile decode", engine_mod,
+                           engine.cfg, engine.store,
+                           [c.prompt for c in comps], paged=True)
+    del engine
+    gc.collect()
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = AdapterStore(p32, device="cuda")
+    rows = {}
+    engine, comps, dt, first = _api_serve(
+        torch, engine_mod, cfg, store, (None,), hook=_record_rows(rows),
+        paged=True)
+    check(not engine.paged, "F2: rwkv6 served a paged layout")
+    worst = _decode_vs_forward(torch, engine.model, p32, comps, first, rows)
+    print(json.dumps({"phase": "F2 decode vs forward",
+                      "max_abs_err_f32": worst, "max_abs_err_bf16": bf16_err,
+                      "f32_seconds": dt, "tolerance": LOGITS_BF16_ATOL}),
+          flush=True)
+    check(worst <= LOGITS_BF16_ATOL,
+          f"F2: f32 decode logits {worst} from the forward's")
+    for kw, what in (({"spec_k": SPEC_K}, "speculative decoding"),
+                     ({"prefill_chunk": 32}, "chunked prefill")):
+        try:
+            ServeEngine(cfg, store, n_slots=2, max_len=128, paged=True,
+                        device="cuda", **kw)
+        except ValueError as e:
+            check("no pageable state" in str(e) and what in str(e),
+                  f"F2: {kw} raised {e}")
+        else:
+            fail(f"F2: {kw} did not raise")
+    print(json.dumps({"phase": "F2 paged-only options raise",
+                      "spec_k": True, "prefill_chunk": True}), flush=True)
+    del engine, store, p32
+    gc.collect()
+
+
+def _api_serve(torch, engine_mod, cfg, store, users, hook=None, **kw):
+    """Phase 4's mix through the ServeEngine API (a config the CLIs have
+    no flag for): 6 requests round-robin over ``users`` and 2 for the
+    base, 96 + 32 tokens, 4 slots; (engine, completions, seconds,
+    first-step logits by rid)."""
+    import numpy as np
+
+    def run():
+        engine = engine_mod.ServeEngine(cfg, store, n_slots=4, max_len=128,
+                                        seed=0, device="cuda", **kw)
+        if hook is not None:
+            hook(engine)
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab, (8, 96), dtype=np.int32)
+        for i in range(8):
+            engine.submit(engine_mod.Request(
+                prompt=prompts[i], max_new=32,
+                user=users[i % len(users)] if i < 6 else None))
+        t0 = time.perf_counter()
+        comps = engine.run()
+        torch.cuda.synchronize()
+        return engine, comps, time.perf_counter() - t0
+    (engine, comps, dt), first = _recorded(torch, engine_mod, run)
+    return engine, comps, dt, first
+
+
+def f3_hybrid(torch, paths):
+    """F3: jamba-v0.1-52b at full width, one super-block deep, through
+    the Trainer and ServeEngine APIs."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import MezoConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.serve import AdapterStore
+    from repro_torch.serve import engine as engine_mod
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=JAMBA_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, TrainerConfig(optimizer="mezo-fused",
+                                    mezo=MezoConfig(eps=1e-3, lr=1e-4),
+                                    n_steps=2, log_every=1, seed=0,
+                                    device="cuda"),
+                 _batches(cfg, TRAIN_B, TRAIN_S))
+    params = tr.init_params()
+    batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    _fused_vs_materialized(torch, "F3", cfg, params, batch, paths,
+                           routing=True)
+    # the trace of that gap: the same weights and batch with capacity for
+    # every token (no drops); the dense-FFN variant follows below
+    _fused_vs_materialized(
+        torch, "F3 capacity for every token", dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.topk), params, batch,
+        paths, routing=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tr.train(params)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _snapshot(ops)
+    paths["F3 train"] = launches
+    check(len(tr.losses) == 2 and all(math.isfinite(x) for x in tr.losses),
+          f"F3 losses {tr.losses}")
+    _check_tc("F3 train", launches, ["zo_matmul"])
+    state = tr.strategy.init_state(params, tr.tcfg.mezo)
+    step_s, state = _timed_steps(torch, tr.strategy, tr.model.loss, state,
+                                 batch, tr.tcfg.mezo, 1)
+    _phase_line(torch, "F3 train", dt, launches, arch=cfg.name,
+                n_layers=cfg.n_layers, losses=tr.losses, step_s=step_s,
+                tokens_per_s=TRAIN_B * TRAIN_S / step_s)
+    profile_train(torch, tr, state, batch, label="F3 profile step",
+                  count=False)
+    del tr, state, batch, params
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    # one replayed user beside the base: each is a 27 GB copy of the cut
+    store = AdapterStore(params, device="cuda")
+    store.import_checkpoint("alice", str(WORK / "alice"))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rows = {}
+    engine, plain, dt, first = _api_serve(
+        torch, engine_mod, cfg, store, ("alice",),
+        hook=_record_rows(rows), paged=True, page_size=16, prefill_chunk=32)
+    launches = _snapshot(ops)
+    paths["F3 serve"] = launches
+    for c in plain:
+        rows[(c.rid, 0)] = first[c.rid]
+        check(c.tokens.shape == (32,) and 0 <= int(c.tokens.min())
+              and int(c.tokens.max()) < cfg.vocab
+              and torch.isfinite(first[c.rid]).all().item(),
+              f"F3 rid {c.rid}: bad tokens or logits")
+    _check_paged_bodies("F3 serve", launches)
+    check(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
+          "F3: the paged kernels did not launch")
+    st = engine.stats
+    _phase_line(torch, "F3 serve", dt, launches, decode_tok_s=st.decode_tps,
+                ttft_avg_s=st.ttft_s / len(plain),
+                decode_steps=st.decode_steps)
+    _profile_decode_window(torch, "F3 profile decode", engine_mod, cfg,
+                           store, [c.prompt for c in plain[:4]], paged=True,
+                           page_size=16)
+    # speculative at the config itself: launches, acceptance, and the
+    # tokens against the plain run's: in bf16 a verify window and a
+    # decode step can route a token to other experts (top-k over router
+    # logits a rounding apart), after which the tokens part by more than
+    # a near-tie; such a part must come with a witnessed routing
+    # difference
+    calls = {}
+    ops.reset_launches()
+    engine, spec, dt, _ = _api_serve(
+        torch, engine_mod, cfg, store, ("alice",),
+        hook=_count_calls(calls), paged=True, page_size=16,
+        prefill_chunk=32, spec_k=SPEC_K)
+    launches = _snapshot(ops)
+    paths["F3 spec"] = launches
+    n_attn = cfg.n_layers // cfg.block_len         # one attention a block
+    for name, fn in (("flash_decode", "decode_step"),
+                     ("flash_verify", "verify_window")):
+        check(launches[name] == n_attn * calls.get(fn, 0) > 0,
+              f"F3 spec: {launches[name]} {name} launches for "
+              f"{calls.get(fn, 0)} {fn} calls")
+    _check_paged_bodies("F3 spec", launches)
+    first_diff = _first_diffs(spec, plain)
+    st = engine.stats
+    _phase_line(torch, "F3 spec", dt, launches, spec_k=SPEC_K,
+                accept_rate=st.spec_accept_rate, rounds=st.decode_steps,
+                decode_tok_s=st.decode_tps, calls=calls,
+                identical_requests=len(spec) - len(first_diff),
+                plain_logit_gaps={rid: abs(rows[(rid, j)][w]
+                                           - rows[(rid, j)][g]).item()
+                                  for rid, (j, w, g) in first_diff.items()})
+    del engine
+    # the near-tie rule, save where the witness finds the two runs' MoE
+    # routing parted at or before the token (a top-k flip or a drop)
+    witness = _routing_witness(torch, engine_mod, cfg, store, first_diff,
+                               plain, spec)
+    for rid, (j, want, got) in first_diff.items():
+        gap = abs(rows[(rid, j)][want] - rows[(rid, j)][got]).item()
+        check(gap <= LOGITS_BF16_ATOL
+              or witness[rid]["first_difference"] is not None,
+              f"F3 spec rid {rid}: token {j} is {got}, plain {want}, plain "
+              f"logits {gap} apart and no routing difference before it")
+    del store, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # held to plain decode under the near-tie rule where no routing flip
+    # is in the comparison: the config in f32 with capacity for every
+    # token (the base drafting for itself: a user's copy does not fit
+    # beside a 52 GB base), and in bf16 with dense FFNs for a user
+    f32 = dataclasses.replace(cfg, dtype="float32",
+                              capacity_factor=cfg.n_experts / cfg.topk)
+    for label, c, users in (("F3 spec tokens f32", f32, (None,)),
+                            ("F3 spec tokens dense-ffn",
+                             dataclasses.replace(cfg, n_experts=0),
+                             ("alice",))):
+        model = build_model(c)
+        store = AdapterStore(
+            model.init(torch.Generator(device="cuda").manual_seed(0),
+                       "cuda"), device="cuda")
+        if "alice" in users:
+            store.import_checkpoint("alice", str(WORK / "alice"))
+        rows = {}
+        _, plain, _, first = _api_serve(
+            torch, engine_mod, c, store, users, hook=_record_rows(rows),
+            paged=True, page_size=16, prefill_chunk=32)
+        for p in plain:
+            rows[(p.rid, 0)] = first[p.rid]
+        engine, spec, _, _ = _api_serve(
+            torch, engine_mod, c, store, users, paged=True, page_size=16,
+            prefill_chunk=32, spec_k=SPEC_K)
+        first_diff = _first_diffs(spec, plain)
+        gaps = _near_tie_gaps(label, first_diff, rows)
+        if not c.n_experts:             # F3's fused gap with MoE off
+            _fused_vs_materialized(torch, "F3 dense-ffn", c,
+                                   store.materialize(None),
+                                   _first_batch(torch, c, TRAIN_B, TRAIN_S),
+                                   paths)
+        print(json.dumps({"phase": label, "dtype": c.dtype,
+                          "n_experts": c.n_experts, "users": users,
+                          "requests": len(spec),
+                          "identical_requests": len(spec) - len(first_diff),
+                          "accept_rate": engine.stats.spec_accept_rate,
+                          "near_tie_gaps": gaps,
+                          "tolerance": LOGITS_BF16_ATOL}), flush=True)
+        del engine, store, model, plain, spec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _route_rows(calls, table, which):
+    """An ``_api_serve`` hook: for every ``which`` call of the engine's
+    model (``decode_step`` or ``verify_window``), each written row's
+    routing in every MoE layer, as ``_route`` gives it, into
+    table[(rid, index of the token the row's logits pick)]. A verify
+    row past the accepted prefix is written again next round, so the
+    last write is the row whose token was kept."""
+    import dataclasses
+
+    import numpy as np
+
+    def hook(engine):
+        fn = getattr(engine.model, which)
+        k = engine.cfg.topk
+
+        def call(params, cache, toks, pos, pages=None, write_mask=None):
+            calls.clear()
+            out = fn(params, cache, toks, pos, pages=pages,
+                     write_mask=write_mask)
+            live = (np.repeat(engine._active[:, None], toks.shape[1], 1)
+                    if write_mask is None else
+                    write_mask.cpu().numpy().reshape(toks.shape[0], -1))
+            for slot, w in zip(*np.nonzero(live)):
+                rid = engine._req[slot].rid
+                table[(rid, len(engine._out[slot]) + int(w))] = [
+                    _route(c, k, slot, w) for c in calls]
+            return out
+        engine.model = dataclasses.replace(engine.model, **{which: call})
+    return hook
+
+
+def _routing_witness(torch, engine_mod, cfg, store, first_diff, plain, spec):
+    """F3's second witness for the routing cause: the plain and the
+    speculative run again with every MoE layer's routing recorded by
+    token (``_route_rows``: decode steps in the plain run, verify windows
+    in the speculative one). For each request that parted at token j:
+    the first (token, layer) at or before j whose top-k experts differ
+    between the two runs or loses an assignment past capacity in one of
+    them, with the router's k-th vs (k + 1)-th logit margin in each, and
+    the margins at j, by rid. The reruns must reproduce both runs'
+    tokens."""
+    if not first_diff:
+        return {}
+    dec, ver, calls = {}, {}, []
+    with _routing(torch, calls):
+        _, plain2, _, _ = _api_serve(
+            torch, engine_mod, cfg, store, ("alice",),
+            hook=_route_rows(calls, dec, "decode_step"), paged=True,
+            page_size=16, prefill_chunk=32)
+        _, spec2, _, _ = _api_serve(
+            torch, engine_mod, cfg, store, ("alice",),
+            hook=_route_rows(calls, ver, "verify_window"), paged=True,
+            page_size=16, prefill_chunk=32, spec_k=SPEC_K)
+    check([c.tokens.tolist() for c in plain2] == [c.tokens.tolist()
+                                                  for c in plain]
+          and [c.tokens.tolist() for c in spec2] == [c.tokens.tolist()
+                                                     for c in spec],
+          "F3 routing witness: the reruns gave other tokens")
+    out = {}
+    for rid, (j, want, got) in first_diff.items():
+        flip = None
+        for t in range(1, j + 1):       # token 0 is the shared prefill's
+            for layer, (a, b) in enumerate(zip(dec[(rid, t)],
+                                               ver[(rid, t)])):
+                if a[0] != b[0] or a[2] != b[2]:
+                    flip = {"token": t, "moe_layer": layer,
+                            "decode_experts": a[0], "verify_experts": b[0],
+                            "decode_margin": a[1], "verify_margin": b[1],
+                            "decode_dropped": a[2], "verify_dropped": b[2]}
+                    break
+            if flip:
+                break
+        out[rid] = {"token": j, "plain": want, "spec": got,
+                    "first_difference": flip,
+                    "margins_at_token": {
+                        "decode": [r[1] for r in dec[(rid, j)]],
+                        "verify": [r[1] for r in ver[(rid, j)]]}}
+    print(json.dumps({"phase": "F3 spec routing witness", "topk": cfg.topk,
+                      "requests": out}), flush=True)
+    return out
+
+
+def _first_diffs(spec, plain):
+    """{rid: (first differing index, plain token, other)} of two runs'
+    completions."""
+    out = {}
+    for a, b in zip(spec, plain):
+        check(a.rid == b.rid and a.tokens.shape == b.tokens.shape,
+              f"rid {a.rid}: completions differ in shape")
+        ne = (a.tokens != b.tokens).nonzero()[0]
+        if ne.size:
+            out[a.rid] = (int(ne[0]), int(b.tokens[ne[0]]),
+                          int(a.tokens[ne[0]]))
+    return out
+
+
+def f4_encdec(torch, paths, paged_argv, dense_argv):
+    """F4: whisper-base at full width and depth: the train CLI with the
+    enc_embeds stub, then paged serving of token-only requests held to
+    the dense-layout engine."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import engine as engine_mod
+    arch = "whisper-base"
+    tr, batch = _cli_train(torch, paths, "F4", arch, TRAIN_STEPS)
+    _fused_vs_materialized(torch, "F4", tr.mcfg, tr.params, batch, paths)
+    del tr, batch
+    torch.cuda.empty_cache()
+    argv = _family_argv(paged_argv, arch)
+    _, engine, comps, _ = _serve_family(torch, paths, "F4 serve", argv)
+    cross = engine.cache["dec_blocks"]["cross"]
+    check(not cross["xk"].any().item() and not cross["xv"].any().item(),
+          "F4: serving wrote the cross-attention state")
+    _check_paged_bodies("F4 serve", paths["F4 serve"])
+    del engine, cross
+    dense = _family_argv(dense_argv, arch)
+    _, _, dense_comps, _, _ = _serve(torch, serve_mod, engine_mod, dense)
+    same, gaps = _hold_to_plain(torch, "F4", dense, None, comps, dense_comps)
+    print(json.dumps({"phase": "F4 paged vs dense tokens",
+                      "identical_requests": same, "requests": len(comps),
+                      "near_tie_gaps": gaps,
+                      "tolerance": LOGITS_BF16_ATOL}), flush=True)
+
+
+def f5_dense(torch, paths):
+    """F5: the five other dense configs at full width, 2 layers each: the
+    fused loss against the materialized one; a chunked prefill and
+    decode steps over a page pool against the dense forward; every
+    attention on its kernel at the config's head dim."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    for arch in F5_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=DENSE_LAYERS)
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+        label = f"F5 {arch}"
+        fused = _fused_vs_materialized(torch, label, cfg, params, batch,
+                                       paths)
+        check(fused["flash_attention"] == DENSE_LAYERS,
+              f"{label}: {fused['flash_attention']} flash_attention "
+              f"launches for {DENSE_LAYERS} layers")
+        # paged: a 64-token prompt in chunks of 32, then 8 decode steps
+        b, ps = 2, 16
+        n_live = -(-(F5_PROMPT + F5_DECODE) // ps)
+        pages = torch.arange(1, 1 + b * n_live, dtype=torch.int32,
+                             device="cuda").reshape(b, n_live)
+        toks = batch["tokens"][:b, :F5_PROMPT + F5_DECODE].long()
+        cache = model.init_paged_cache(b, 1 + b * n_live, ps, device="cuda")
+        ops.reset_launches()
+        got = []
+        with torch.no_grad():
+            for c in range(0, F5_PROMPT, F5_CHUNK):
+                lg, cache = model.prefill_chunk(
+                    params, cache, toks[:, c:c + F5_CHUNK],
+                    torch.full((b,), c, dtype=torch.int32, device="cuda"),
+                    pages=pages)
+                got.append(lg)
+            for t in range(F5_PROMPT, F5_PROMPT + F5_DECODE):
+                lg, cache = model.decode_step(params, cache,
+                                              toks[:, t:t + 1], t,
+                                              pages=pages)
+                got.append(lg)
+            torch.cuda.synchronize()
+            launches = _snapshot(ops)
+            ref, _ = model.forward(params, {"tokens": toks})
+        worst = (torch.cat(got, dim=1).float() - ref.float()).abs().max()
+        worst = worst.item()
+        chunks = F5_PROMPT // F5_CHUNK
+        want = {"flash_prefill": DENSE_LAYERS * chunks,
+                "flash_decode": DENSE_LAYERS * F5_DECODE}
+        paths[label] = {k: fused[k] + launches[k] for k in launches}
+        check(all(launches[k] == n for k, n in want.items()),
+              f"{label}: paged launches {launches} != {want}")
+        _check_paged_bodies(label, launches)
+        wall_us, by_name, n_events = _profiled(
+            torch, lambda: model.decode_step(
+                params, cache, toks[:, -1:], F5_PROMPT + F5_DECODE - 1,
+                pages=pages))
+        _profile_line(f"{label} profile decode", wall_us, by_name,
+                      n_events, decode_steps=1)
+        _phase_line(torch, label, time.perf_counter() - t0,
+                    paths[label], head_dim=cfg.resolved_head_dim,
+                    heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                    paged_vs_dense_max_abs_err=worst,
+                    tolerance=LOGITS_BF16_ATOL)
+        check(worst <= LOGITS_BF16_ATOL,
+              f"{label}: paged logits {worst} from the dense forward's")
+        del params, batch, cache, model, ref, got
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -2602,6 +3544,20 @@ def main():
     for base in ("bf16", "int8"):
         torch.cuda.empty_cache()
         u3_shared_base(torch, paths, base)
+
+    # F1-F5: the other model families at full width
+    import gc
+    for phase in (lambda: f1_moe(torch, paths, paged_argv),
+                  lambda: f2_rwkv(torch, paths),
+                  lambda: f3_hybrid(torch, paths),
+                  lambda: f4_encdec(torch, paths, paged_argv, dense_argv),
+                  lambda: f5_dense(torch, paths)):
+        gc.collect()                    # engines a hook closes over
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase()
+        print(json.dumps({"phase": "family done",
+                          "seconds": time.perf_counter() - t0}), flush=True)
 
     # 6. the kernels line, then the result
     from repro_torch.kernels import ops

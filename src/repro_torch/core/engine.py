@@ -129,11 +129,14 @@ def _direction_coeffs(kk: int, lr, direction_mask) -> torch.Tensor:
 
 def _apply_direction_updates(params, seed, gs, coeffs, cfg: MezoConfig,
                              inplace: bool = False):
-    """theta += sum_k coeffs[k] * gs[k] * z_k, z_k regenerated per k."""
+    """theta += sum_k coeffs[k] * gs[k] * z_k, z_k regenerated per k.
+    Without ``inplace`` only the first direction copies: the rest update
+    that fresh copy in place (the same bits, one copy of peak memory)."""
     for k in range(gs.shape[0]):
         params = add_scaled_z(params, zrng.fold_seed(seed, k),
                               coeffs[k] * gs[k], dist=cfg.dist,
                               inplace=inplace)
+        inplace = True
     return params
 
 
@@ -334,6 +337,7 @@ def _sgd_update(params, opt, seed, gs, direction_mask, cfg: MezoConfig,
     if cfg.weight_decay:
         params = _decay(params, lr * torch.tensor(cfg.weight_decay,
                                                   dtype=_F32), inplace)
+        inplace = True               # the decayed dict is already a copy
     return _apply_direction_updates(params, seed, gs, coeffs, cfg,
                                     inplace), opt
 
@@ -414,12 +418,14 @@ def _momentum_update(params, opt, seed, gs, direction_mask,
     if cfg.weight_decay:
         params = _decay(params, lr * torch.tensor(cfg.weight_decay,
                                                   dtype=_F32), inplace)
+        inplace = True               # the decayed dict is already a copy
     for j in range(m):
         s_j = int(seeds_h[j])
         for k in range(kk):
             params = add_scaled_z(params, zrng.fold_seed(s_j, k),
                                   weights[j] * cf_h[j, k] * gs_h[j, k],
                                   dist=cfg.dist, inplace=inplace)
+            inplace = True           # later sweeps update that copy
     return params, {"seeds": seeds_h, "gs": gs_h, "coeffs": cf_h}
 
 

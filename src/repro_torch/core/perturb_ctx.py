@@ -299,11 +299,14 @@ class PerturbCtx:
 
     def materialize(self, subtree: Dict[str, Any],
                     name: str = "") -> Dict[str, torch.Tensor]:
-        """Perturb every leaf of a flat ``/``-keyed param subtree into a
-        transient copy (scoped at the root: the parity oracle the fused
-        forward is held against)."""
+        """Perturb every leaf of a param subtree -- a flat ``/``-keyed
+        dict or a nested one (a block's sub-dict, as the MoE block takes
+        it) -- into a transient copy of the same layout. Scoped at the
+        root it is the parity oracle the fused forward is held
+        against."""
         ctx = self.scope(name) if name else self
-        return {path: ctx.perturb(path, leaf)
+        return {path: ctx.materialize(leaf, path) if isinstance(leaf, dict)
+                else ctx.perturb(path, leaf)
                 for path, leaf in subtree.items()}
 
 

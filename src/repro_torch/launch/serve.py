@@ -1,7 +1,6 @@
 """Serving launcher: thin CLI over the personalized serving subsystem.
 
-Port of the JAX package's ``launch/serve.py`` (the same flags but
-``--family``, whose other families the port does not run yet, plus
+Port of the JAX package's ``launch/serve.py`` (the same flags, plus
 ``--device``). It builds an engine, loads per-user ZO adapters from
 replay logs, serves a synthetic request mix and prints the summary line:
 
@@ -9,7 +8,9 @@ replay logs, serves a synthetic request mix and prints the summary line:
       --paged --page-size 16 --prefill-chunk 32 --spec-k 3 \\
       --adapter alice=/path/to/ckpt_alice --adapter bob=/path/to/ckpt_bob
 
-Runs on the CUDA device unless ``--device cpu`` is given.
+``--family F`` serves F's representative arch (``FAMILY_ARCHS``), e.g.
+``--family hybrid --reduced --device cpu``. Runs on the CUDA device
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -28,9 +29,23 @@ from repro_torch.models.transformer import resolve_device
 from repro_torch.serve import AdapterStore, Request, ServeEngine
 
 
+# one representative arch per decode-capable family (the JAX CLI's)
+FAMILY_ARCHS = {
+    "dense": "gemma-2b",
+    "moe": "granite-moe-1b-a400m",
+    "hybrid": "jamba-v0.1-52b",
+    "ssm": "rwkv6-7b",
+    "encdec": "whisper-base",
+}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="opt-1.3b", choices=ALL_ARCHS)
+    ap.add_argument("--family", default=None, choices=sorted(FAMILY_ARCHS),
+                    help="serve this family's representative arch "
+                         "(overrides --arch): " + ", ".join(
+                             f"{f}={a}" for f, a in FAMILY_ARCHS.items()))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--ckpt-dir", default=None,
@@ -85,6 +100,8 @@ def build_engine(args, params=None) -> ServeEngine:
     random base (e.g. an int8 base from ``optim.quant.quantize_tree``,
     which the CLI itself never makes: it has no ``--quant``)."""
     device = resolve_device(args.device)
+    if args.family:
+        args.arch = FAMILY_ARCHS[args.family]
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -33,15 +33,31 @@ from repro_torch.data.synthetic import lm_batches, sst2_batches
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 
-def _with_patch_stub(batches, bsz: int, cfg, seed: int):
-    """The vlm frontend stub (the JAX CLI's): each batch gains standard
-    normal ``patch_embeds`` (B, num_patches, d_model) from one numpy
-    stream seeded ``seed + 7``. The encdec stub lands with whisper."""
+def _with_frontend_stub(batches, bsz: int, cfg, seed: int):
+    """The modality frontend stubs (the JAX CLI's): each batch gains
+    standard normal ``enc_embeds`` (B, enc_len, d_model) for an encdec
+    config, then ``patch_embeds`` (B, num_patches, d_model) for a vlm
+    one, from one numpy stream seeded ``seed + 7``."""
     rng = np.random.default_rng(seed + 7)
     for b in batches:
-        b["patch_embeds"] = rng.standard_normal(
-            (bsz, cfg.num_patches, cfg.d_model), dtype=np.float32)
+        if cfg.family == "encdec":
+            b["enc_embeds"] = rng.standard_normal(
+                (bsz, cfg.enc_len, cfg.d_model), dtype=np.float32)
+        if cfg.num_patches:
+            b["patch_embeds"] = rng.standard_normal(
+                (bsz, cfg.num_patches, cfg.d_model), dtype=np.float32)
         yield b
+
+
+def batch_stream(cfg, bsz: int, seq: int, seed: int):
+    """The CLI's batches for ``cfg``: synthetic SST-2 for a classifier,
+    else LM batches with the frontend stubs the config takes."""
+    if cfg.n_classes:
+        return sst2_batches(bsz, seq, cfg.vocab, seed=seed)
+    batches = lm_batches(bsz, seq, cfg.vocab, seed=seed)
+    if cfg.family == "encdec" or cfg.num_patches:
+        batches = _with_frontend_stub(batches, bsz, cfg, seed)
+    return batches
 
 
 def make_trainer(args) -> Trainer:
@@ -50,14 +66,7 @@ def make_trainer(args) -> Trainer:
         cfg = cfg.reduced()
     if args.seq and cfg.family != "encoder":
         cfg = dataclasses.replace(cfg, max_seq=max(cfg.max_seq, args.seq))
-    if cfg.n_classes:
-        batches = sst2_batches(args.batch, args.seq or 64, cfg.vocab,
-                               seed=args.seed)
-    else:
-        batches = lm_batches(args.batch, args.seq or 64, cfg.vocab,
-                             seed=args.seed)
-        if cfg.num_patches:
-            batches = _with_patch_stub(batches, args.batch, cfg, args.seed)
+    batches = batch_stream(cfg, args.batch, args.seq or 64, args.seed)
     tcfg = TrainerConfig(
         optimizer=args.optimizer,
         estimator=args.estimator, update=args.update,

@@ -13,14 +13,20 @@ The runtime owns the residual pattern: ``apply`` receives the *normed*
 input and returns only the branch output. ``state_spec`` declares
 per-layer state without the layer axis; the runtime stacks each leaf to
 ``(n_layers, B, ...)``. State is updated in place (the returned dict
-holds the same tensors), which saves a cache copy per layer and step.
-Parameter init lives in ``models/transformer.py`` for the port.
+holds the same tensors), which saves a cache copy per layer and step; a
+recurrent block (mamba, rwkv) computes its new state and writes it back
+with :func:`commit_state`, which keeps the old state of the slots that
+``rc.write_mask`` masks. ``mutable_state=False`` marks state that decode
+reads and never writes (cross-attention K/V). Parameter init lives in
+``models/transformer.py`` for the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +35,7 @@ class RunCtx:
     positions: Any = None      # (B, S) int positions (full / prefill)
     pos: Any = None            # (B,) per-slot position
     kv_mask: Any = None        # (B, T) key-validity mask (full mode)
+    enc_out: Any = None        # (B, T_enc, D) encoder output (cross-attn)
     pages: Any = None          # (B, n_live) int32 physical page ids
     write_mask: Any = None     # (B,) bool: slots allowed to write state
 
@@ -40,6 +47,7 @@ class BlockType:
     state_spec: Optional[Callable] = None
     prefill: Optional[Callable] = None   # (cfg, p, state, x, rc, **opts)
     decode_step: Optional[Callable] = None
+    mutable_state: bool = True
     # per-token state that lives in a shared page pool: (cfg, dtype) ->
     # {name: (per-position shape, dtype)}; the runtime builds (n_layers,
     # n_pages, page_size, *shape) pool leaves read/written via rc.pages
@@ -50,13 +58,33 @@ class BlockType:
     # speculative-verify window: (cfg, p, state, x(B, W, D), rc, **opts)
     # -> (y, new_state), scoring W candidate tokens at positions
     # rc.pos .. rc.pos + W - 1 in one call (causal within the window);
-    # rc.write_mask is (B, W). Stateful blocks without it (recurrent
-    # state) are not ported yet.
+    # rc.write_mask is (B, W). Recurrent blocks have none: the runtime
+    # scans their decode_step over the window and keeps one state
+    # snapshot an offset
     verify: Optional[Callable] = None
 
     @property
     def stateful(self) -> bool:
         return self.state_spec is not None
+
+
+def commit_state(state: Dict[str, Any], new: Dict[str, Any],
+                 write_mask=None) -> Dict[str, Any]:
+    """Write a recurrent block's new state into its cache layer in place;
+    a slot that ``write_mask`` (B,) masks keeps its old state (the JAX
+    engine's masked merge). Returns ``state``."""
+    if write_mask is not None and write_mask.dim() != 1:
+        raise ValueError("recurrent state advances whole windows: "
+                         f"write_mask must be (B,), got "
+                         f"{tuple(write_mask.shape)}")
+    for name, t in new.items():
+        old = state[name]
+        t = t.to(old.dtype)
+        if write_mask is not None:
+            m = write_mask.reshape(-1, *([1] * (old.dim() - 1)))
+            t = torch.where(m, t, old)
+        old.copy_(t)
+    return state
 
 
 _BLOCKS: Dict[str, BlockType] = {}

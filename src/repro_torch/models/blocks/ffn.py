@@ -1,18 +1,40 @@
-"""FFN blocks: the dense MLP (stateless -- the runtime calls ``apply`` in
-every mode). The MoE block waits for the slice that ports the other
-model families."""
+"""FFN blocks: dense MLP and top-k MoE (stateless -- the runtime calls
+``apply`` in every mode).
+
+Port of the JAX package's ``models/blocks/ffn.py``. The MoE block is the
+one place the fused ZO path takes a *scoped* transient copy: expert
+weights are 3/4-D stacked leaves consumed inside sort-based dispatch,
+so there is no 2-D use site for ``zo_matmul`` to fuse into. With a ctx
+the block perturbs its expert sub-dict into a transient
+(``ctx.materialize``: the ``zo_add`` kernel on the card, one launch a
+leaf; the int8 kernels for a quantized one); without one it dequantizes
+an int8 base -- per block and layer slice, never the whole model."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MoE
 from repro_torch.models.blocks.base import BlockType, register_block
+from repro_torch.optim.quant import dequantize_tree
+
+
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _mlp_apply(cfg, p, x, rc, ctx=None):
-    return L.mlp_apply(cfg, p, x, ctx), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    return L.mlp_apply(cfg, p, x, ctx), _zero(x)
+
+
+def _moe_apply(cfg, p, x, rc, ctx=None):
+    """``ctx.materialize`` (perturb + dequant) of the expert sub-dict
+    with a ctx, a plain dequant without one; the salts are the leaves'
+    full paths (``blocks/moe/w_in``, ``blocks/moe/shared/w_in/w``)."""
+    p = dequantize_tree(p) if ctx is None else ctx.materialize(p)
+    return MoE.moe_apply(cfg, p, x)
 
 
 MLP = register_block(BlockType(name="mlp", apply=_mlp_apply))
+MOE = register_block(BlockType(name="moe", apply=_moe_apply))

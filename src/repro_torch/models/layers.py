@@ -250,6 +250,18 @@ def attn_apply(cfg, p, x, *, positions=None, kv_mask=None, causal=None,
     return dense(p["wo"], out.reshape(b, s, -1), _sub(ctx, "wo"))
 
 
+def cross_attn_apply(cfg, p, x, enc_kv, ctx=None):
+    """Decoder cross-attention (whisper): K/V from the encoder output (the
+    K/V projections perturb where the K/V are computed --
+    ``blocks/cross_attention``)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = dense(p["wq"], x, _sub(ctx, "wq")).reshape(b, s, cfg.n_heads, hd)
+    k, v = enc_kv
+    out = attention(q, k, v, causal=False, chunk=0)
+    return dense(p["wo"], out.reshape(b, s, -1), _sub(ctx, "wo"))
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 

@@ -19,16 +19,30 @@ lanes each with its own seed and coefficient) the lanes ride flattened
 in the batch, the user-stacked parameters' per-user parts are sliced at
 ``[:, layer]`` (``core.batching.user_leaf_axes`` says which), and
 ``loss`` returns the (n,) per-lane losses, each computed at the scalar
-path's shapes. The StateCache mirrors the JAX one: ``{scope: {mixer path: {leaf: (L, ...)}}}``
-with layers on axis 0 and, for dense leaves, batch on axis 1; paged pool
-leaves are ``(L, n_pages, page_size, KV, hd)``. Blocks update their
-layer's slice in place, so the returned cache is the cache passed in.
+path's shapes. The user-axis forward of the families whose blocks would
+share state across lanes (MoE capacity, recurrent scans, the encoder)
+raises ``NotImplementedError``: it lands with slice 6b of the port.
+
+An encoder-decoder plan carries a second, stateless stack
+(``ModelPlan.encoder``) that ``forward`` runs over ``batch["enc_embeds"]``
+before the decoder; its normed output reaches the cross-attention
+blocks through ``RunCtx.enc_out``.
+
+The StateCache mirrors the JAX one: ``{scope: {mixer path: {leaf: (L,
+...)}}}`` with layers on axis 0 and, for dense leaves, batch on axis 1;
+paged pool leaves are ``(L, n_pages, page_size, KV, hd)``, and recurrent
+state (mamba, rwkv) stays dense next to them. Blocks update their
+layer's slice in place, so the returned cache is the cache passed in --
+except in a verify window, where recurrent state is not touched: the
+returned cache then holds, in place of each recurrent leaf, its (L, W,
+B, ...) snapshots, one a window offset, for the engine to commit the
+accepted offset from (:func:`commit_window`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -68,7 +82,8 @@ class StackPlan:
 @dataclasses.dataclass(frozen=True)
 class ModelPlan:
     cfg: ModelConfig
-    stack: StackPlan
+    stack: StackPlan                     # the decoded / backbone stack
+    encoder: Optional[StackPlan] = None  # enc-dec only (stateless)
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +101,11 @@ def _set(d, path: str, val):
     for part in parts[:-1]:
         d = d.setdefault(part, {})
     d[parts[-1]] = val
+
+
+def _copy_tree(d):
+    return {k: _copy_tree(v) if isinstance(v, dict) else v
+            for k, v in d.items()}
 
 
 def nest(params: Dict[str, torch.Tensor], prefix: str) -> dict:
@@ -165,35 +185,70 @@ def _stack_apply(cfg, stack: StackPlan, params, x, rc: RunCtx, ctx=None):
     return x, aux
 
 
+def _window_scan(bt, cfg, p, state, z, rc, opts):
+    """Verify walk of a recurrent block (mamba, rwkv): ``decode_step``
+    once a window offset on a copy of the layer's state, the cache left
+    as it was. Returns (y (B, W, D), {leaf: (W, B, ...)}): offset i's
+    entry is the state after window tokens 0..i, so the engine can commit
+    exactly the accepted prefix."""
+    carry = {k: v.clone() for k, v in state.items()}
+    rc1 = dataclasses.replace(rc, write_mask=None)
+    ys, snaps = [], {k: [] for k in carry}
+    for i in range(z.shape[1]):
+        y, carry = bt.decode_step(cfg, p, carry, z[:, i:i + 1], rc1, **opts)
+        ys.append(y)
+        for k, v in carry.items():
+            snaps[k].append(v.clone())
+    return (torch.cat(ys, dim=1),
+            {k: torch.stack(v) for k, v in snaps.items()})
+
+
 def _stack_seq(cfg, stack: StackPlan, params, state, x, rc: RunCtx,
                mode: str):
     """Stateful stack walk: mode 'decode' (one token), 'prefill' (a whole
     prompt into a dense cache), 'chunk' (a prompt chunk straight into
-    the page pool) or 'verify' (a speculative window over the page
-    pool)."""
+    the page pool; recurrent state advances through the block's
+    prefill) or 'verify' (a speculative window over the page pool;
+    recurrent state is scanned a window offset at a time and left as it
+    was). Returns (x, snapshots): in verify mode ``{mixer path: {leaf:
+    (L, W, B, ...)}}`` of every recurrent block, else empty."""
     blocks = nest(params, stack.scope)
+    snaps: dict = {}
     for li in range(stack.n_layers):
         bp, ls = _index(blocks, li), _index(state, li)
         for sl in stack.sublayers:
             bt = get_block(sl.block)
             z = L.norm_apply(cfg, _get(bp, sl.ln), x)
             opts = dict(sl.opts)
+            p = _get(bp, sl.mixer)
             if not bt.stateful:
-                y, _ = bt.apply(cfg, _get(bp, sl.mixer), z, rc, **opts)
+                y, _ = bt.apply(cfg, p, z, rc, **opts)
+            elif mode == "verify" and bt.verify is None and bt.mutable_state:
+                y, ns = _window_scan(bt, cfg, p, _get(ls, sl.mixer), z, rc,
+                                     opts)
+                for k, v in ns.items():
+                    snaps.setdefault(sl.mixer, {}).setdefault(k, []).append(v)
             else:
                 fn = {"decode": bt.decode_step, "prefill": bt.prefill,
-                      "chunk": bt.prefill_paged, "verify": bt.verify}[mode]
-                if fn is None and mode == "verify":
-                    # the reference scans decode_step over the window and
-                    # keeps one recurrent-state snapshot an offset
-                    raise NotImplementedError(
-                        f"block {bt.name!r} has no {mode} entry: verify "
-                        f"windows over recurrent state land with slice 6 "
-                        f"of the port (the other families)")
-                y, _ = fn(cfg, _get(bp, sl.mixer), _get(ls, sl.mixer), z,
-                          rc, **opts)
+                      "chunk": bt.prefill_paged or bt.prefill,
+                      "verify": bt.verify or bt.decode_step}[mode]
+                y, _ = fn(cfg, p, _get(ls, sl.mixer), z, rc, **opts)
             x = x + y
-    return x
+    return x, {m: {k: torch.stack(v) for k, v in leaves.items()}
+               for m, leaves in snaps.items()}
+
+
+def check_user_axis(plan: ModelPlan):
+    """The user-axis forward runs the lanes flattened in the batch, where
+    MoE capacity, recurrent scans and an encoder would be shared across
+    users: only the dense and encoder families take it for now."""
+    blocks = {sl.block for sl in plan.stack.sublayers}
+    if plan.encoder is not None or not blocks <= {"attention", "mlp"}:
+        raise NotImplementedError(
+            f"the user-axis (multi-tenant) forward of the "
+            f"{plan.cfg.family!r} family ({plan.cfg.name}) lands with "
+            f"slice 6b of the port: MoE capacity and recurrent state must "
+            f"stay per lane")
 
 
 # ---------------------------------------------------------------------------
@@ -205,12 +260,15 @@ def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
     switches on the fused perturbed forward; a user-axis one takes
     ``tokens`` (n, B, S) and returns logits (n * B, ...). A batch's
     ``patch_embeds`` (B, P, d), the vlm frontend stub, is prepended to
-    the token embeddings and cut off again before the LM head."""
+    the token embeddings and cut off again before the LM head; an
+    enc-dec plan runs its encoder over ``enc_embeds`` (B, T_enc, d), the
+    audio frontend stub."""
     cfg = plan.cfg
     tokens = batch["tokens"]
     kv_mask = batch.get("attn_mask")
     patches = batch.get("patch_embeds")
     if perturb is not None and perturb.batched:
+        check_user_axis(plan)
         tokens = tokens.reshape(-1, tokens.shape[-1])
         if kv_mask is not None:
             kv_mask = kv_mask.reshape(-1, kv_mask.shape[-1])
@@ -222,8 +280,15 @@ def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
     if patches is not None:            # vlm: prepend the stub patches
         x = torch.cat([patches.to(x.dtype), x], dim=1)
         n_prefix = patches.shape[1]
+    enc_out = None
+    if plan.encoder is not None:       # enc-dec: the stub frontend's frames
+        e = batch["enc_embeds"].to(L.dtype_of(cfg))
+        erc = RunCtx(positions=torch.arange(e.shape[1], device=e.device)[None])
+        e, _ = _stack_apply(cfg, plan.encoder, params, e, erc, perturb)
+        enc_out = L.norm_apply(cfg, nest(params, "ln_enc"), e,
+                               _sub(perturb, "ln_enc"))
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    rc = RunCtx(positions=positions, kv_mask=kv_mask)
+    rc = RunCtx(positions=positions, kv_mask=kv_mask, enc_out=enc_out)
     x, aux = _stack_apply(cfg, plan.stack, params, x, rc, perturb)
     x = L.norm_apply(cfg, nest(params, "ln_f"), x, _sub(perturb, "ln_f"))
     if cfg.n_classes:                  # CLS pooling + head (roberta/SST-2)
@@ -340,8 +405,8 @@ def decode_step(plan: ModelPlan, params, cache, tokens, pos, pages=None,
                       positions=_embed_positions(cfg, pos.long()[:, None],
                                                  write_mask))
     rc = RunCtx(pos=pos, pages=pages, write_mask=write_mask)
-    x = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x, rc,
-                   "decode")
+    x, _ = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x,
+                      rc, "decode")
     x = L.norm_apply(cfg, nest(params, "ln_f"), x)
     return _logits(plan, params, x), cache
 
@@ -360,9 +425,14 @@ def _paged_window(plan: ModelPlan, params, cache, tokens, pos, pages,
                                                  write_mask))
     rc = RunCtx(pos=pos, positions=positions, pages=pages,
                 write_mask=write_mask)
-    x = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x, rc,
-                   mode)
+    scope = plan.stack.scope
+    x, snaps = _stack_seq(cfg, plan.stack, params, cache[scope], x, rc, mode)
     x = L.norm_apply(cfg, nest(params, "ln_f"), x)
+    if snaps:
+        sub = _copy_tree(cache[scope])
+        for m, leaves in snaps.items():
+            _set(sub, m, {**_get(sub, m), **leaves})
+        cache = {scope: sub}
     return _logits(plan, params, x), cache
 
 
@@ -373,7 +443,8 @@ def verify_window(plan: ModelPlan, params, cache, tokens, pos, pages=None,
     window's K/V is written through the page table, so the pool
     afterwards holds this model's K/V at every window position;
     ``write_mask`` (B, W) sends offsets past a slot's window to the trash
-    page."""
+    page. Recurrent state is left as it was: the returned cache holds its
+    per-offset snapshots (L, W, B, ...) instead (:func:`commit_window`)."""
     return _paged_window(plan, params, cache, tokens, pos, pages,
                          write_mask, "verify")
 
@@ -388,6 +459,41 @@ def prefill_chunk(plan: ModelPlan, params, cache, tokens, pos, pages=None,
                          write_mask, "chunk")
 
 
+def commit_window(plan: ModelPlan, cache, vcache, acc, mask) -> None:
+    """Fold a verify window's result into ``cache`` in place: each
+    recurrent leaf of a slot in ``mask`` (B,) bool takes its snapshot at
+    window offset ``acc[slot]`` (the state after consuming offsets 0 ..
+    acc); pool and read-only leaves are ``vcache``'s own (already
+    written, or never)."""
+    for old, new in zip(recurrent_leaves(plan, cache),
+                        recurrent_leaves(plan, vcache)):
+        slots = torch.arange(old.shape[1], device=old.device)
+        sel = new[:, acc, slots]                        # (L, B, ...)
+        m = mask.reshape(1, -1, *([1] * (old.dim() - 2)))
+        old.copy_(torch.where(m, sel, old))
+
+
+def is_pool(name: str) -> bool:
+    """A cache leaf shared by every slot through the page table
+    (``k_pages``); every other leaf is dense, batch on axis 1."""
+    return name.endswith("_pages")
+
+
+def recurrent_leaves(plan: ModelPlan, cache):
+    """The dense state leaves of a cache's mutable blocks (mamba / rwkv
+    state), in plan order: what a speculative draft must leave as it
+    found it, what a verify window returns snapshots of, and what a
+    chunked admission starts from zero."""
+    sub = cache[plan.stack.scope]
+    out = []
+    for sl in plan.stack.sublayers:
+        bt = get_block(sl.block)
+        if bt.stateful and bt.mutable_state:
+            out += [t for name, t in _get(sub, sl.mixer).items()
+                    if not is_pool(name)]
+    return out
+
+
 def prefill(plan: ModelPlan, params, cache, tokens):
     """Whole-prompt prefill: one pass over the (B, P) prompt writes cache
     positions [0, P) and returns next-token logits (B, 1, V)."""
@@ -395,13 +501,14 @@ def prefill(plan: ModelPlan, params, cache, tokens):
     x = L.embed_apply(cfg, nest(params, "embed"), tokens)
     rc = RunCtx(positions=torch.arange(tokens.shape[1],
                                        device=tokens.device)[None])
-    x = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x, rc,
-                   "prefill")
+    x, _ = _stack_seq(cfg, plan.stack, params, cache[plan.stack.scope], x,
+                      rc, "prefill")
     x = L.norm_apply(cfg, nest(params, "ln_f"), x[:, -1:])
     return _logits(plan, params, x), cache
 
 
 __all__ = ["AUX_LOSS_WEIGHT", "ModelPlan", "StackPlan", "Sublayer",
-           "decode_step", "forward", "init_cache", "init_paged_cache",
-           "loss", "nest", "plan_pages", "prefill", "prefill_chunk",
+           "check_user_axis", "commit_window", "decode_step", "forward",
+           "init_cache", "init_paged_cache", "is_pool", "loss", "nest",
+           "plan_pages", "prefill", "prefill_chunk", "recurrent_leaves",
            "softmax_xent", "verify_window"]

@@ -1,0 +1,98 @@
+"""RWKV-6 "Finch" layer: linear attention with data-dependent decay.
+
+Port of the JAX package's ``models/rwkv6.py``. Time-mix state per head
+is an (hd x hd) outer-product accumulator in f32 with a per-channel,
+input-dependent decay w_t (a low-rank MLP on the shifted input, kept in
+f32); channel-mix is the squared-ReLU RWKV FFN. The full-sequence form
+scans over time in a Python loop (a few small launches a step on the
+card); decode is the same cell applied once.
+
+As in the reference, the token-shift interpolation factors (``mu``) are
+static learned vectors and the decay LoRA is kept faithful. Every weight
+use takes the ctx: projections through ``L.dense`` (``zo_matmul`` on the
+card), the other leaves through ``ctx.perturb`` (``zo_add``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.perturb_ctx import sub as _sub
+from repro_torch.models import layers as L
+from repro_torch.optim.quant import deq as _deq
+
+_F32 = torch.float32
+
+
+def _leaf(p, name, ctx):
+    """p[name] + coeff*z under a PerturbCtx; the bare (dequantized) leaf
+    without one."""
+    return _deq(p[name]) if ctx is None else ctx.perturb(name, p[name])
+
+
+def heads(cfg):
+    hd = cfg.rwkv_head_dim
+    assert cfg.d_model % hd == 0
+    return cfg.d_model // hd, hd
+
+
+def lora_rank(cfg) -> int:
+    return 64 if cfg.d_model >= 512 else 16
+
+
+def _shift(x, last=None):
+    """Token shift: x_{t-1} (zeros / ``last`` at t=0). x: (B, S, D)."""
+    if last is None:
+        last = torch.zeros_like(x[:, :1])
+    return torch.cat([last.to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _timemix_inputs(cfg, p, x, x_prev, ctx=None):
+    xx = x_prev - x
+    mu = _leaf(p, "mu", ctx).to(x.dtype)
+    xr, xk, xv, xw, xg = (x + xx * mu[i] for i in range(5))
+    h, hd = heads(cfg)
+    b, s, _ = x.shape
+    r = L.dense(p["wr"], xr, _sub(ctx, "wr")).reshape(b, s, h, hd)
+    k = L.dense(p["wk"], xk, _sub(ctx, "wk")).reshape(b, s, h, hd)
+    v = L.dense(p["wv"], xv, _sub(ctx, "wv")).reshape(b, s, h, hd)
+    g = F.silu(L.dense(p["wg"], xg, _sub(ctx, "wg")))
+    # data-dependent per-channel decay in (0, 1), in f32
+    wlog = (_leaf(p, "w0", ctx)
+            + torch.tanh(xw.to(_F32) @ _leaf(p, "w_lora_a", ctx))
+            @ _leaf(p, "w_lora_b", ctx))
+    w = torch.exp(-torch.exp(wlog)).reshape(b, s, h, hd)
+    return r, k, v, g, w
+
+
+def timemix_apply(cfg, p, x, state=None, x_prev=None, ctx=None):
+    """x: (B, S, D); state: (B, H, hd, hd) f32 keyed [k-dim, v-dim] or
+    None. Returns y, (state, x_last)."""
+    b, s, d = x.shape
+    h, hd = heads(cfg)
+    xp = _shift(x, x_prev)
+    r, k, v, g, w = _timemix_inputs(cfg, p, x, xp, ctx)
+    if state is None:
+        state = torch.zeros((b, h, hd, hd), dtype=_F32, device=x.device)
+    bonus = _leaf(p, "bonus", ctx)[None, :, :, None]     # (1, H, hd, 1)
+    r, k, v = (t.to(_F32) for t in (r, k, v))
+    ys = []
+    for t in range(s):                                  # the WKV cell
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]   # (B, H, hd, hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                               state + bonus * kv))
+        state = w[:, t, :, :, None] * state + kv
+    y = torch.stack(ys, dim=1).reshape(b, s, d)
+    y = L.rmsnorm(y.to(x.dtype), _leaf(p, "ln_x", ctx)) * g
+    return L.dense(p["wo"], y, _sub(ctx, "wo")), (state, x[:, -1:])
+
+
+def channelmix_apply(cfg, p, x, x_prev=None, ctx=None):
+    xp = _shift(x, x_prev)
+    xx = xp - x
+    mu = _leaf(p, "mu", ctx).to(x.dtype)
+    xk, xr = x + xx * mu[0], x + xx * mu[1]
+    r = torch.sigmoid(L.dense(p["wr"], xr, _sub(ctx, "wr")))
+    k = torch.square(torch.relu(L.dense(p["wk"], xk, _sub(ctx, "wk"))))
+    return r * L.dense(p["wv"], k, _sub(ctx, "wv")), x[:, -1:]

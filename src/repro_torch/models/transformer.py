@@ -1,10 +1,14 @@
 """Family assembly over the block-registry runtime.
 
-Port of the JAX package's ``models/transformer.py`` for the decoder-only
-dense family (OPT-1.3B, the paper's model, and the other dense configs)
-and the encoder-only classifier (RoBERTa-large, the paper's other
-model: the same [attn, ffn] plan, bidirectional, a CLS head, no decode).
-``build_model(cfg)`` returns a :class:`Model` bundle of functions:
+Port of the JAX package's ``models/transformer.py`` for every family:
+the decoder-only dense LM (OPT-1.3B, the paper's model, and the other
+dense configs) and its MoE variant, the encoder-only classifier
+(RoBERTa-large, the paper's other model: the same [attn, ffn] plan,
+bidirectional, a CLS head, no decode), the mamba/attention hybrid
+(jamba: super-blocks of ``block_len`` sublayers nested ``sub_i``), RWKV-6
+(``ssm``) and the encoder-decoder (whisper: ``enc_blocks`` /
+``dec_blocks``). ``build_model(cfg)`` returns a :class:`Model` bundle
+of functions:
 
   init(generator, device)                     -> params (flat, ``/`` keys)
   forward(params, batch, perturb=None)        -> (logits, aux)
@@ -17,8 +21,12 @@ model: the same [attn, ffn] plan, bidirectional, a CLS head, no decode).
   verify_window(params, cache, toks, pos, pages=, write_mask=)
 
 ``init`` builds the same tree, shapes, dtypes and init scales as the JAX
-``_lm_init``; it cannot reproduce ``jax.random``'s numbers, so parity
-tests carry the JAX parameters across instead (``checkpoint/store.py``).
+family inits (``_lm_init``, ``_hybrid_init``, ``_rwkv_init``,
+``_encdec_init``); it cannot reproduce ``jax.random``'s numbers, so
+parity tests carry the JAX parameters across instead
+(``checkpoint/store.py``). A family without pageable state (rwkv6) has
+no ``init_paged_cache``, ``prefill_chunk`` or ``verify_window``: its
+engine serves the dense layout.
 """
 
 from __future__ import annotations
@@ -31,11 +39,14 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import rwkv6 as R
 from repro_torch.models import runtime as RT
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.runtime import ModelPlan, StackPlan, Sublayer
 
-__all__ = ["Model", "build_model", "param_shapes", "resolve_device"]
+__all__ = ["Model", "build_model", "build_plan", "param_shapes",
+           "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -64,65 +75,239 @@ class Model:
 
 
 def _lm_plan(cfg: ModelConfig) -> ModelPlan:
-    """Decoder-only LM and the encoder-only classifier: [attn, ffn] per
-    layer (the encoder's attention is bidirectional through
-    ``cfg.causal``)."""
+    """Decoder-only LM (dense / moe / vlm backbone) and the encoder-only
+    classifier: [attn, ffn] per layer (the encoder's attention is
+    bidirectional through ``cfg.causal``)."""
     ffn = "moe" if cfg.n_experts else "mlp"
     return ModelPlan(cfg, StackPlan("blocks", cfg.n_layers, (
         Sublayer("ln_attn", "attn", "attention"),
         Sublayer("ln_ffn", ffn, ffn))))
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """``path -> (shape, dtype, init)`` of the JAX ``_lm_init`` tree for a
-    dense decoder; ``init`` is ``("normal", std)``, ``"ones"`` or
-    ``"zeros"``."""
-    d, hd, nl = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
-    dt = L.dtype_of(cfg)
-    f32 = torch.float32
-    bias = cfg.norm == "layernorm"
-    out_std = 0.02 / max(nl, 1) ** 0.5
-    spec: Dict[str, tuple] = {"embed/tok": ((cfg.vocab, d), dt,
-                                            ("normal", 0.02))}
-    if cfg.pos == "learned":
-        spec["embed/pos"] = ((cfg.max_seq, d), dt, ("normal", 0.02))
+def _hybrid_ffn(cfg, i: int) -> str:
+    return "moe" if cfg.n_experts and i % 2 == 1 else "mlp"
 
-    def norm(prefix, stacked):
-        lead = (nl,) if stacked else ()
-        spec[f"{prefix}/scale"] = (lead + (d,), f32, "ones")
-        if cfg.norm == "layernorm":
-            spec[f"{prefix}/bias"] = (lead + (d,), f32, "zeros")
 
-    def proj(prefix, d_in, d_out, std):
-        spec[f"{prefix}/w"] = ((nl, d_in, d_out), dt, ("normal", std))
+def _hybrid_plan(cfg: ModelConfig) -> ModelPlan:
+    """Hybrid (jamba): super-blocks of ``block_len`` sublayers -- mamba
+    everywhere except ``attn_index``, an FFN (MoE on odd sublayers when
+    configured) after each mixer."""
+    subs = []
+    for i in range(cfg.block_len):
+        if i == cfg.attn_index:
+            subs.append(Sublayer(f"sub_{i}/ln", f"sub_{i}/attn", "attention"))
+        else:
+            subs.append(Sublayer(f"sub_{i}/ln", f"sub_{i}/mamba", "mamba"))
+        ffn = _hybrid_ffn(cfg, i)
+        subs.append(Sublayer(f"sub_{i}/ln_ffn", f"sub_{i}/{ffn}", ffn))
+    return ModelPlan(cfg, StackPlan("blocks", cfg.n_layers // cfg.block_len,
+                                    tuple(subs)))
+
+
+def _rwkv_plan(cfg: ModelConfig) -> ModelPlan:
+    return ModelPlan(cfg, StackPlan("blocks", cfg.n_layers, (
+        Sublayer("ln1", "tm", "rwkv_timemix"),
+        Sublayer("ln2", "cm", "rwkv_channelmix"))))
+
+
+def _encdec_plan(cfg: ModelConfig) -> ModelPlan:
+    """Encoder-decoder (whisper): the stub frontend's ``enc_embeds`` in
+    the batch feed the encoder; decoder = [self-attn, cross-attn, mlp]
+    per layer."""
+    enc = StackPlan("enc_blocks", cfg.enc_layers, (
+        Sublayer("ln_attn", "attn", "attention", (("causal", False),)),
+        Sublayer("ln_ffn", "mlp", "mlp")))
+    dec = StackPlan("dec_blocks", cfg.dec_layers, (
+        Sublayer("ln_self", "self", "attention", (("causal", True),)),
+        Sublayer("ln_cross", "cross", "cross_attention"),
+        Sublayer("ln_ffn", "mlp", "mlp")))
+    return ModelPlan(cfg, dec, encoder=enc)
+
+
+_PLANS = {"dense": _lm_plan, "moe": _lm_plan, "encoder": _lm_plan,
+          "hybrid": _hybrid_plan, "ssm": _rwkv_plan, "encdec": _encdec_plan}
+
+
+def build_plan(cfg: ModelConfig) -> ModelPlan:
+    if cfg.family not in _PLANS:
+        raise ValueError(f"unknown family {cfg.family}")
+    return _PLANS[cfg.family](cfg)
+
+
+class _Spec:
+    """Collects ``path -> (shape, dtype, init)`` of one parameter tree;
+    every helper takes the stack's leading layer dims ``lead``."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg, self.out = cfg, {}
+        self.dt = L.dtype_of(cfg)
+        self.out_std = 0.02 / max(cfg.n_layers, 1) ** 0.5
+
+    def leaf(self, path, shape, dtype, how):
+        self.out[path] = (tuple(shape), dtype, how)
+
+    def norm(self, prefix, lead=()):
+        d = self.cfg.d_model
+        self.leaf(f"{prefix}/scale", lead + (d,), torch.float32, "ones")
+        if self.cfg.norm == "layernorm":
+            self.leaf(f"{prefix}/bias", lead + (d,), torch.float32, "zeros")
+
+    def proj(self, prefix, d_in, d_out, lead=(), std=0.02, bias=False,
+             dtype=None):
+        dt = dtype or self.dt
+        self.leaf(f"{prefix}/w", lead + (d_in, d_out), dt, ("normal", std))
         if bias:
-            spec[f"{prefix}/b"] = ((nl, d_out), dt, "zeros")
+            self.leaf(f"{prefix}/b", lead + (d_out,), dt, "zeros")
 
-    norm("blocks/ln_attn", True)
-    proj("blocks/attn/wq", d, cfg.n_heads * hd, 0.02)
-    proj("blocks/attn/wk", d, cfg.n_kv_heads * hd, 0.02)
-    proj("blocks/attn/wv", d, cfg.n_kv_heads * hd, 0.02)
-    proj("blocks/attn/wo", cfg.n_heads * hd, d, out_std)
-    if cfg.qk_norm:
-        spec["blocks/attn/q_norm"] = ((nl, hd), f32, "ones")
-        spec["blocks/attn/k_norm"] = ((nl, hd), f32, "ones")
-    norm("blocks/ln_ffn", True)
-    if cfg.act in ("swiglu", "geglu"):
-        spec["blocks/mlp/w_in/w"] = ((nl, d, cfg.d_ff, 2), dt,
-                                     ("normal", 0.02))
+    def attn(self, prefix, lead):
+        cfg, d = self.cfg, self.cfg.d_model
+        hd, bias = cfg.resolved_head_dim, cfg.norm == "layernorm"
+        self.proj(f"{prefix}/wq", d, cfg.n_heads * hd, lead, bias=bias)
+        self.proj(f"{prefix}/wk", d, cfg.n_kv_heads * hd, lead, bias=bias)
+        self.proj(f"{prefix}/wv", d, cfg.n_kv_heads * hd, lead, bias=bias)
+        self.proj(f"{prefix}/wo", cfg.n_heads * hd, d, lead,
+                  std=self.out_std, bias=bias)
+        if cfg.qk_norm:
+            self.leaf(f"{prefix}/q_norm", lead + (hd,), torch.float32,
+                      "ones")
+            self.leaf(f"{prefix}/k_norm", lead + (hd,), torch.float32,
+                      "ones")
+
+    def mlp(self, prefix, lead, d_ff=None):
+        cfg, d = self.cfg, self.cfg.d_model
+        f, bias = d_ff or cfg.d_ff, cfg.norm == "layernorm"
+        if cfg.act in ("swiglu", "geglu"):
+            self.leaf(f"{prefix}/w_in/w", lead + (d, f, 2), self.dt,
+                      ("normal", 0.02))
+        else:
+            self.proj(f"{prefix}/w_in", d, f, lead, bias=bias)
+        self.proj(f"{prefix}/w_out", f, d, lead, std=self.out_std,
+                  bias=bias)
+
+    def moe(self, prefix, lead):
+        cfg, d = self.cfg, self.cfg.d_model
+        e, f = cfg.n_experts, cfg.expert_dff or cfg.d_ff
+        gated = cfg.act in ("swiglu", "geglu")
+        self.leaf(f"{prefix}/router", lead + (d, e), torch.float32,
+                  ("normal", 0.02))
+        self.leaf(f"{prefix}/w_in", lead + ((e, d, f, 2) if gated
+                                            else (e, d, f)),
+                  self.dt, ("normal", 0.02))
+        self.leaf(f"{prefix}/w_out", lead + (e, f, d), self.dt,
+                  ("normal", self.out_std))
+        if cfg.n_shared_experts:
+            self.mlp(f"{prefix}/shared", lead, cfg.n_shared_experts * f)
+
+    def mamba(self, prefix, lead):
+        cfg = self.cfg
+        d, di, dtr = M.dims(cfg)
+        n, f32 = cfg.mamba_d_state, torch.float32
+        self.proj(f"{prefix}/in_proj", d, 2 * di, lead)
+        self.leaf(f"{prefix}/conv_w", lead + (cfg.mamba_d_conv, di), self.dt,
+                  ("normal", 0.1))
+        self.leaf(f"{prefix}/conv_b", lead + (di,), self.dt, "zeros")
+        self.proj(f"{prefix}/x_proj", di, dtr + 2 * n, lead)
+        self.proj(f"{prefix}/dt_proj", dtr, di, lead, bias=True)
+        self.leaf(f"{prefix}/A_log", lead + (di, n), f32, "a_log")
+        self.leaf(f"{prefix}/D", lead + (di,), f32, "ones")
+        self.proj(f"{prefix}/out_proj", di, d, lead, std=self.out_std)
+
+    def timemix(self, prefix, lead):
+        d, f32 = self.cfg.d_model, torch.float32
+        h, hd = R.heads(self.cfg)
+        lora = R.lora_rank(self.cfg)
+        self.leaf(f"{prefix}/mu", lead + (5, d), f32, ("normal", 0.02))
+        for name in ("wr", "wk", "wv", "wg"):
+            self.proj(f"{prefix}/{name}", d, d, lead)
+        self.leaf(f"{prefix}/w0", lead + (d,), f32, ("full", -6.0))
+        self.leaf(f"{prefix}/w_lora_a", lead + (d, lora), f32,
+                  ("normal", 0.02))
+        self.leaf(f"{prefix}/w_lora_b", lead + (lora, d), f32, "zeros")
+        self.leaf(f"{prefix}/bonus", lead + (h, hd), f32, ("normal", 0.02))
+        self.leaf(f"{prefix}/ln_x", lead + (d,), f32, "ones")
+        self.proj(f"{prefix}/wo", d, d, lead, std=self.out_std)
+
+    def channelmix(self, prefix, lead):
+        d, f = self.cfg.d_model, self.cfg.d_ff
+        self.leaf(f"{prefix}/mu", lead + (2, d), torch.float32,
+                  ("normal", 0.02))
+        self.proj(f"{prefix}/wr", d, d, lead)
+        self.proj(f"{prefix}/wk", d, f, lead)
+        self.proj(f"{prefix}/wv", f, d, lead, std=self.out_std)
+
+    def embed(self):
+        cfg = self.cfg
+        self.leaf("embed/tok", (cfg.vocab, cfg.d_model), self.dt,
+                  ("normal", 0.02))
+        if cfg.pos == "learned":
+            self.leaf("embed/pos", (cfg.max_seq, cfg.d_model), self.dt,
+                      ("normal", 0.02))
+
+    def lm_head(self):
+        self.proj("lm_head", self.cfg.d_model, self.cfg.vocab)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """``path -> (shape, dtype, init)`` of the JAX family init's tree;
+    ``init`` is ``("normal", std)``, ``("full", value)``, ``"ones"``,
+    ``"zeros"`` or ``"a_log"`` (mamba's S4D-real ``log(1..n)`` rows)."""
+    sp = _Spec(cfg)
+    sp.embed()
+    if cfg.family in ("dense", "moe", "encoder"):
+        lead = (cfg.n_layers,)
+        sp.norm("blocks/ln_attn", lead)
+        sp.attn("blocks/attn", lead)
+        sp.norm("blocks/ln_ffn", lead)
+        if cfg.n_experts:
+            sp.moe("blocks/moe", lead)
+        else:
+            sp.mlp("blocks/mlp", lead)
+        sp.norm("ln_f")
+        if not cfg.tie_embeddings:
+            sp.lm_head()
+        if cfg.n_classes:
+            sp.proj("cls_head", cfg.d_model, cfg.n_classes,
+                    dtype=torch.float32, bias=True)
+    elif cfg.family == "hybrid":
+        lead = (cfg.n_layers // cfg.block_len,)
+        for i in range(cfg.block_len):
+            sp.norm(f"blocks/sub_{i}/ln", lead)
+            if i == cfg.attn_index:
+                sp.attn(f"blocks/sub_{i}/attn", lead)
+            else:
+                sp.mamba(f"blocks/sub_{i}/mamba", lead)
+            sp.norm(f"blocks/sub_{i}/ln_ffn", lead)
+            ffn = _hybrid_ffn(cfg, i)
+            getattr(sp, ffn)(f"blocks/sub_{i}/{ffn}", lead)
+        sp.norm("ln_f")
+        sp.lm_head()
+    elif cfg.family == "ssm":
+        lead = (cfg.n_layers,)
+        sp.norm("blocks/ln1", lead)
+        sp.timemix("blocks/tm", lead)
+        sp.norm("blocks/ln2", lead)
+        sp.channelmix("blocks/cm", lead)
+        sp.norm("ln_f")
+        sp.lm_head()
+    elif cfg.family == "encdec":
+        enc, dec = (cfg.enc_layers,), (cfg.dec_layers,)
+        sp.norm("enc_blocks/ln_attn", enc)
+        sp.attn("enc_blocks/attn", enc)
+        sp.norm("enc_blocks/ln_ffn", enc)
+        sp.mlp("enc_blocks/mlp", enc)
+        for part in ("self", "cross"):
+            sp.norm(f"dec_blocks/ln_{part}", dec)
+            sp.attn(f"dec_blocks/{part}", dec)
+        sp.norm("dec_blocks/ln_ffn", dec)
+        sp.mlp("dec_blocks/mlp", dec)
+        sp.norm("ln_enc")
+        sp.norm("ln_f")
     else:
-        proj("blocks/mlp/w_in", d, cfg.d_ff, 0.02)
-    proj("blocks/mlp/w_out", cfg.d_ff, d, out_std)
-    norm("ln_f", False)
-    if not cfg.tie_embeddings:
-        spec["lm_head/w"] = ((d, cfg.vocab), dt, ("normal", 0.02))
-    if cfg.n_classes:
-        spec["cls_head/w"] = ((d, cfg.n_classes), f32, ("normal", 0.02))
-        spec["cls_head/b"] = ((cfg.n_classes,), f32, "zeros")
-    return spec
+        raise ValueError(f"unknown family {cfg.family}")
+    return sp.out
 
 
-def _lm_init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+def _init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random parameters of the JAX tree layout, drawn in path order from
     ``generator`` (on its own device) and placed on ``device``."""
     device = resolve_device(device)
@@ -132,20 +317,18 @@ def _lm_init(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
             t = torch.ones(shape, dtype=dt, device=device)
         elif how == "zeros":
             t = torch.zeros(shape, dtype=dt, device=device)
+        elif how == "a_log":
+            n = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                             device=device)
+            t = torch.log(n).expand(shape).to(dt).contiguous()
+        elif how[0] == "full":
+            t = torch.full(shape, how[1], dtype=dt, device=device)
         else:
             t = torch.randn(shape, generator=generator,
                             device=generator.device) * how[1]
             t = t.to(dtype=dt, device=device)
         params[path] = t
     return params
-
-
-def _check_supported(cfg: ModelConfig):
-    if cfg.family not in ("dense", "encoder") or cfg.n_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port runs dense decoders and the encoder classifier; the "
-            f"other families land with a later slice")
 
 
 def _no_decode(*_args, **_kwargs):
@@ -156,16 +339,15 @@ def _no_decode(*_args, **_kwargs):
 @functools.lru_cache(maxsize=None)
 def build_model(cfg: ModelConfig) -> Model:
     """Memoized on the (frozen, hashable) config."""
-    _check_supported(cfg)
-    plan = _lm_plan(cfg)
+    plan = build_plan(cfg)
     dtype = L.dtype_of(cfg)
     if cfg.family == "encoder":
-        return Model(cfg=cfg, plan=plan, init=partial(_lm_init, cfg),
+        return Model(cfg=cfg, plan=plan, init=partial(_init, cfg),
                      forward=partial(RT.forward, plan),
                      loss=partial(RT.loss, plan), init_cache=_no_decode)
     return Model(
         cfg=cfg, plan=plan,
-        init=partial(_lm_init, cfg),
+        init=partial(_init, cfg),
         forward=partial(RT.forward, plan),
         loss=partial(RT.loss, plan),
         init_cache=lambda bsz, max_len=None, device="cuda": RT.init_cache(

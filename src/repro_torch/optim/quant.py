@@ -259,8 +259,9 @@ def take_rows(table, ids: torch.Tensor) -> torch.Tensor:
 
 
 def dequantize_tree(params: Params) -> Params:
-    """Full-precision view of a flat parameter dict."""
-    return {path: deq(leaf) for path, leaf in params.items()}
+    """Full-precision view of a parameter dict, flat or nested."""
+    return {path: dequantize_tree(leaf) if isinstance(leaf, dict)
+            else deq(leaf) for path, leaf in params.items()}
 
 
 def with_delta(params: Params) -> Params:

@@ -191,10 +191,13 @@ class AdapterStore:
     def _replay_records(self, records):
         """Replay a log through the update rule from a fresh state --
         identical arithmetic to the live steps. Returns ``(params, opt)``.
-        A frozen (delta-less) quantized base gains zero deltas first."""
+        A frozen (delta-less) quantized base gains zero deltas first. The
+        first update copies the base; the later ones update that copy in
+        place, so a replay peaks at one copy beside the base."""
         params, opt = self.base, self.rule.init_fn(self.cfg)
         if tree_is_quantized(params):
             params = with_delta(params)
+        fresh = False
         for rec in records:
             if rec.get("staleness") is not None:
                 raise NotImplementedError(
@@ -205,7 +208,9 @@ class AdapterStore:
             params, opt = self.rule.update_fn(
                 params, opt, np.uint32(rec["seed"]),
                 np.asarray(rec["gs"], np.float32),
-                None if mask is None else np.asarray(mask, np.float32), c)
+                None if mask is None else np.asarray(mask, np.float32), c,
+                inplace=fresh)
+            fresh = True
         return params, opt
 
     def _replay(self, records) -> Params:

@@ -31,6 +31,15 @@ bounded shapes, but they keep the port's logits computed on the same
 chunks as the JAX package's. Greedy output is bit-identical to
 whole-prompt admission.
 
+Families without pageable state (rwkv6: O(1) recurrent state a slot)
+serve ``paged=True`` in the dense layout, and raise for ``spec_k`` and
+``prefill_chunk`` as the JAX engine does. The hybrid's dense recurrent
+state (mamba conv / ssm) sits next to the page pool, one lane a slot:
+whole-prompt admission installs a fresh lane, chunked admission zeroes
+the slot's lane and advances only it (the reference advances the lane
+from whatever the slot's last request, or decode steps over the idle
+slot, left there), and masked decode keeps a masked slot's lane.
+
 Speculative decoding (``spec_k``, paged only): the engine's own frozen
 base weights (``store.materialize(None)``, the int8 base when quantized)
 draft, so speculation adds no weight bytes. Each round the base drafts
@@ -44,9 +53,14 @@ prefix matching the target's greedy choices is committed with the
 target's correction or bonus token: greedy output equals the plain
 engine's. Rejected positions need no rollback: reads stop at each
 row's position and the next round overwrites them before they are
-read. Sampled slots run speculative rejection sampling against the
-greedy draft (:func:`~repro_torch.serve.sampling.spec_accept`), which
-keeps the target's top-k distribution. A slot drafts at most
+read. Recurrent state cannot be overwritten so: the draft's advance of
+it is undone (the lanes are saved before the draft and restored after),
+and the verify window leaves it as it was and returns one snapshot a
+window offset, of which each verified slot commits its accepted one
+(``runtime.commit_window``). Sampled slots run speculative rejection
+sampling against the greedy draft
+(:func:`~repro_torch.serve.sampling.spec_accept`), which keeps the
+target's top-k distribution. A slot drafts at most
 ``remaining`` tokens, so its writes stay inside its reservation.
 
 All state lives on the engine's ``device`` (``"cuda"`` unless the caller
@@ -64,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import build_model
+from repro_torch.models import runtime as RT
 from repro_torch.models.transformer import resolve_device
 from repro_torch.serve import sampling
 from repro_torch.serve.adapters import AdapterStore
@@ -167,6 +182,11 @@ class ServeEngine:
                 f"family {cfg.family!r} has no pageable state; speculative "
                 f"decoding needs a paged KV cache to share between draft "
                 f"and verifier")
+        if prefill_chunk is not None and not self.paged:
+            raise ValueError(
+                f"family {cfg.family!r} has no pageable state; chunked "
+                f"prefill needs a paged KV cache to write prompt chunks "
+                f"into")
         self.spec_k = int(spec_k or 0)
         self.prefill_chunk = int(prefill_chunk or 0)
         self.page_size = page_size
@@ -263,20 +283,30 @@ class ServeEngine:
         """Scatter a B=1 prefilled dense cache into slot ``slot``: pool
         leaves (``X_pages``) page their dense twin ``X`` into the slot's
         physical pages; dense leaves install the row prefix."""
-        sub, fsub = self.cache[self.model.plan.stack.scope], \
-            fresh[self.model.plan.stack.scope]
-        for mixer, leaves in sub.items():
-            for name, c in leaves.items():
-                if name.endswith("_pages"):
-                    row = fsub[mixer][name[:-len("_pages")]]  # (L,1,S,...)
+        def put(sub, fsub):
+            for name, c in sub.items():
+                if isinstance(c, dict):
+                    put(c, fsub[name])
+                elif RT.is_pool(name):
+                    row = fsub[name[:-len("_pages")]]        # (L,1,S,...)
                     phys = self._dev(self._slot_alloc[slot], torch.long)
                     npg, ps = phys.shape[0], c.shape[2]
                     src = row[:, 0, :npg * ps].reshape(
                         (row.shape[0], npg, ps) + tuple(row.shape[3:]))
                     c[:, phys] = src.to(c.dtype)
                 else:
-                    row = fsub[mixer][name]
+                    row = fsub[name]
                     c[:, slot, :row.shape[2]] = row[:, 0].to(c.dtype)
+        put(self.cache, fresh)
+
+    def _lane(self, slot: int):
+        """The cache with every dense leaf narrowed to slot ``slot``'s
+        lane (views: writes land in the cache); pool leaves whole."""
+        def narrow(d):
+            return {k: narrow(v) if isinstance(v, dict) else
+                    v if RT.is_pool(k) else v[:, slot:slot + 1]
+                    for k, v in d.items()}
+        return narrow(self.cache)
 
     def _admit(self):
         """Prefill queued requests into free slots (mid-flight). Paged
@@ -348,6 +378,9 @@ class ServeEngine:
                     self._prefill_slot = slot
                     self._prefill_off = 0
                     self.stats.admitted += 1
+                    for leaf in RT.recurrent_leaves(self.model.plan,
+                                                    self.cache):
+                        leaf[:, slot].zero_()
         if self._prefill_slot is None:
             return
         slot = self._prefill_slot
@@ -364,13 +397,14 @@ class ServeEngine:
         t0 = time.perf_counter()
         done = 0
         logits = None
+        lane = self._lane(slot)
         while budget > 0 and self._prefill_off < plen:
             c = min(plen - self._prefill_off, budget)
             if c < self.prefill_chunk:   # pow2 tail pieces
                 c = 1 << (c.bit_length() - 1)
             end = self._prefill_off + c
-            logits, self.cache = self.model.prefill_chunk(
-                params, self.cache,
+            logits, _ = self.model.prefill_chunk(
+                params, lane,
                 self._dev(prompt[None, self._prefill_off:end], torch.long),
                 self._dev([self._prefill_off]), pages=pages)
             self._prefill_off = end
@@ -488,6 +522,8 @@ class ServeEngine:
         # later steps scatter into the trash page and freeze the token.
         # Steps past max(d) would write and propose nothing: not run.
         base = self.store.materialize(None)
+        saved = [t.clone() for t in RT.recurrent_leaves(self.model.plan,
+                                                        self.cache)]
         tok = self._dev(self._last, torch.long)
         steps = []
         for i in range(int(d.max())):
@@ -497,6 +533,10 @@ class ServeEngine:
                 write_mask=live)
             tok = torch.where(live, torch.argmax(lg[:, -1, :], dim=-1), tok)
             steps.append(tok)
+        for t, s0 in zip(RT.recurrent_leaves(self.model.plan, self.cache),
+                         saved):
+            t.copy_(s0)                 # the draft moves no recurrent state
+        del saved
         drafts = torch.stack(steps).cpu().numpy()   # (max d, n_slots)
         drafts = np.concatenate(
             [drafts, np.repeat(drafts[-1:], k - len(drafts), axis=0)])
@@ -511,14 +551,16 @@ class ServeEngine:
         for u in dict.fromkeys(slot_user.values()):     # first-seen order
             mask = np.array([slot_user.get(i, ()) == u
                              for i in range(self.n_slots)])
-            lg, self.cache = self.model.verify_window(
+            lg, vcache = self.model.verify_window(
                 self.store.materialize(u), self.cache, win_dev, pos,
                 pages=pages,
                 write_mask=self._dev(mask[:, None] & wlive, torch.bool))
             # the pool already holds the target's K/V for every window
             # position of these slots (masked offsets wrote the trash
-            # page): nothing to commit on the device
+            # page); recurrent leaves commit each slot's accepted offset
             lg = lg.float().cpu().numpy()               # (n_slots, k+1, V)
+            acc = np.zeros(self.n_slots, np.int64)
+            committed = {}
             for slot in np.flatnonzero(mask):
                 req = self._req[slot]
                 ds, rem = int(d[slot]), int(self._remaining[slot])
@@ -541,6 +583,13 @@ class ServeEngine:
                 self.stats.spec_drafted += ds
                 self.stats.spec_accepted += accepted
                 n_committed += len(toks)
+                committed[slot] = toks
+                acc[slot] = len(toks) - 1   # state after offsets 0 .. acc
+            RT.commit_window(self.model.plan, self.cache, vcache,
+                             self._dev(acc, torch.long),
+                             self._dev(mask, torch.bool))
+            del vcache
+            for slot, toks in committed.items():
                 self._commit(slot, toks)
         self.stats.decode_s += time.perf_counter() - t0
         self.stats.decode_tokens += n_committed

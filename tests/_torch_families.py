@@ -1,0 +1,227 @@
+"""Shared set-up of the port's family parity tests (``test_torch_moe``,
+``test_torch_rwkv``, ``test_torch_hybrid``, ``test_torch_encdec``,
+``test_torch_dense_configs``).
+
+Every case is a ``reduced()`` f32 config, built by both packages, with
+the JAX package's initial parameters (``PRNGKey(0)``) carried across
+through ``store.params_from_numpy``; inputs come from numpy seeds. The
+reference is the JAX package run live, never the golden pins.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.checkpoint import replay_log as j_replay_log
+from repro.configs import get_config as j_get_config
+from repro.core import MezoConfig as JMezoConfig
+from repro.core.perturb import _path_str
+from repro.core.perturb_ctx import PerturbCtx as JPerturbCtx
+from repro.data.synthetic import lm_batches as j_lm_batches
+from repro.launch import train as j_train_cli
+from repro.models import build_model as j_build_model
+from repro.optim import quant as jq
+from repro.serve import AdapterStore as JAdapterStore
+from repro.serve import Request as JRequest
+from repro.serve import ServeEngine as JServeEngine
+from repro_torch.checkpoint import ReplayLog, replay_into, store
+from repro_torch.configs import get_config
+from repro_torch.core import MezoConfig, PerturbCtx
+from repro_torch.launch import train as train_cli
+from repro_torch.models import build_model
+from repro_torch.models.transformer import param_shapes
+from repro_torch.serve import AdapterStore, Request, ServeEngine
+
+CPU = "cpu"
+ATOL = 1e-5          # logits (scaled by max|logit|), aux and losses
+GS_ATOL = 1e-3       # the CLI's logged gs (a loss gap of 1e-6 at eps 1e-3)
+SEED, EPS = 9, np.float32(1e-3)
+# serving: staggered prompts, more requests than slots (mid-flight
+# admission into recycled slots and pages), a user beside the base
+PLENS, GEN = (5, 9, 7, 12), 6
+USERS = (None, "u", None, "u")
+MODES = {"dense": {}, "paged": {"paged": True, "page_size": 4},
+         "chunked": {"paged": True, "page_size": 4, "prefill_chunk": 3},
+         "spec": {"paged": True, "page_size": 4, "spec_k": 3}}
+
+
+def flat(tree):
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {_path_str(p): np.array(v) for p, v in leaves}
+
+
+def configs(arch, **over):
+    """(JAX cfg, port cfg): ``reduced(**over)`` of both packages'."""
+    return (j_get_config(arch).reduced(**over),
+            get_config(arch).reduced(**over))
+
+
+@functools.lru_cache(maxsize=None)
+def case(arch, quant=False, **over):
+    """(JAX model, JAX params, port model, port params) of reduced
+    ``arch`` from the JAX init; ``quant``: the JAX package's int8 base
+    of it, with zero deltas (a tree that trains)."""
+    jcfg, cfg = configs(arch, **over)
+    jmodel = j_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    dtypes = None
+    if quant:
+        jparams = jq.quantize_tree(jparams, with_delta=True)
+        dtypes = {p: spec[1] for p, spec in param_shapes(cfg).items()}
+    return (jmodel, jparams, build_model(cfg),
+            store.params_from_numpy(flat(jparams), CPU, dtypes))
+
+
+def batch(cfg, bsz=2, seq=8, seed=1):
+    """One numpy LM batch, with the frontend stubs the config takes."""
+    b = dict(next(j_lm_batches(bsz, seq, cfg.vocab, seed=seed)))
+    rng = np.random.default_rng(seed + 2)
+    if cfg.family == "encdec":
+        b["enc_embeds"] = rng.standard_normal(
+            (bsz, cfg.enc_len, cfg.d_model), dtype=np.float32)
+    if cfg.num_patches:
+        b["patch_embeds"] = rng.standard_normal(
+            (bsz, cfg.num_patches, cfg.d_model), dtype=np.float32)
+    return b
+
+
+def to_jax(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def to_torch(b):
+    return {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
+
+
+def assert_forward_matches(arch, **over):
+    """Forward logits within ATOL of max|logit| and aux within ATOL."""
+    jmodel, jparams, model, params = case(arch, **over)
+    b = batch(model.cfg)
+    want, want_aux = jmodel.forward(jparams, to_jax(b))
+    got, got_aux = model.forward(params, to_torch(b))
+    want = np.asarray(want, np.float32)
+    assert tuple(got.shape) == want.shape
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL * scale)
+    assert abs(float(got_aux) - float(want_aux)) <= ATOL
+    return got
+
+
+def fused_losses(arch, coeff, quant=False, **over):
+    """(port, JAX) fused perturbed loss at ``coeff``."""
+    jmodel, jparams, model, params = case(arch, quant, **over)
+    b = batch(model.cfg)
+    ctx = JPerturbCtx(seed=np.uint32(SEED), coeff=coeff)
+    want = float(jax.jit(lambda p, x: jmodel.loss(p, x, perturb=ctx))(
+        jparams, to_jax(b)))
+    got = float(model.loss(params, to_torch(b),
+                           perturb=PerturbCtx(seed=SEED, coeff=coeff)))
+    return got, want
+
+
+def cli_runs(arch, root, steps=3, extra=()):
+    """Both train CLIs from the JAX init, ``mezo-fused``, each with a
+    replay log: a dict of losses, logs, initial and final params."""
+    argv = ["--arch", arch, "--reduced", "--optimizer", "mezo-fused",
+            "--steps", str(steps), "--batch", "2", "--seq", "8", "--lr",
+            "1e-3", "--log-every", "1", *extra]
+    jtr = j_train_cli.make_trainer(j_train_cli.build_argparser().parse_args(
+        argv + ["--ckpt-dir", str(root / "jax")]))
+    jinit = jtr.init_params()
+    init = flat(jinit)
+    jfinal = flat(jtr.train(jax.tree.map(jnp.copy, jinit)))
+    ttr = train_cli.run(argv + ["--device", CPU, "--ckpt-dir",
+                                str(root / "torch")],
+                        params=store.params_from_numpy(init, CPU))
+    return dict(init=init, jax_init=jinit, jax_losses=jtr.losses,
+                jax_final=jfinal, torch_losses=ttr.losses,
+                torch_final={k: v.numpy() for k, v in ttr.params.items()},
+                jax_log=str(root / "jax" / "replay.jsonl"),
+                torch_log=str(root / "torch" / "replay.jsonl"))
+
+
+def assert_cli_matches(run, steps=3):
+    """Losses within ATOL and gs within GS_ATOL of the JAX CLI's, the same
+    seeds; each package's replay log replays in the other onto the
+    initial parameters to the other's final ones at atol 0."""
+    assert len(run["torch_losses"]) == steps
+    np.testing.assert_allclose(run["torch_losses"], run["jax_losses"],
+                               rtol=0, atol=ATOL)
+    jrec = j_replay_log.ReplayLog.read(run["jax_log"])
+    trec = ReplayLog.read(run["torch_log"])
+    assert [(r["step"], r["seed"]) for r in trec] == \
+        [(r["step"], r["seed"]) for r in jrec]
+    np.testing.assert_allclose([r["gs"] for r in trec],
+                               [r["gs"] for r in jrec], rtol=0, atol=GS_ATOL)
+    cfg = dict(lr=1e-3, eps=1e-3)
+    got, _ = replay_into(store.params_from_numpy(run["init"], CPU), jrec,
+                         MezoConfig(**cfg))
+    for k, v in run["jax_final"].items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    want, _ = j_replay_log.replay_into(
+        jax.tree.map(jnp.asarray, run["jax_init"]), trec, JMezoConfig(**cfg))
+    for k, v in flat(want).items():
+        np.testing.assert_array_equal(run["torch_final"][k], v, err_msg=k)
+
+
+def _records(n, seed, k=2, lr=5e-2):
+    rng = np.random.default_rng(seed)
+    return [{"step": i, "seed": int(rng.integers(2**31)),
+             "gs": rng.normal(size=k).astype(np.float32).tolist(),
+             "lr": lr, "eps": 1e-2} for i in range(n)]
+
+
+def serve(arch, jax_side, mode, over=None, hook=None):
+    """Greedy tokens of one request per prompt through the JAX engine
+    (``jax_side``) or the port's in ``mode`` (``MODES``), with a replayed
+    user beside the base; ``hook(engine)`` runs before serving. MoE
+    configs take ample capacity, so routing does not depend on what
+    shares a dispatch (as the JAX package's engine tests do)."""
+    over = dict(over or {})
+    jcfg, cfg = configs(arch)
+    if cfg.n_experts:
+        over.setdefault("capacity_factor", 8.0)
+    jcfg, cfg = (dataclasses.replace(jcfg, **over),
+                 dataclasses.replace(cfg, **over))
+    _, jparams, _, params = case(arch)
+    if jax_side:
+        st, eng_cls, req_cls, extra = (JAdapterStore(jparams), JServeEngine,
+                                       JRequest, {})
+    else:
+        st, eng_cls, req_cls, extra = (AdapterStore(params, device=CPU),
+                                       ServeEngine, Request, {"device": CPU})
+    st.put("u", _records(4, seed=1))
+    eng = eng_cls(jcfg if jax_side else cfg, st, n_slots=2,
+                  max_len=max(PLENS) + GEN, seed=0, **MODES[mode], **extra)
+    if hook is not None:
+        hook(eng)
+    rng = np.random.default_rng(10)
+    rids = [eng.submit(req_cls(prompt=rng.integers(0, cfg.vocab, p,
+                                                   dtype=np.int32),
+                               max_new=GEN, user=USERS[i]))
+            for i, p in enumerate(PLENS)]
+    comps = {c.rid: c.tokens.tolist() for c in eng.run()}
+    return [comps[r] for r in rids], eng
+
+
+def assert_serving_matches(arch, mode):
+    want, _ = serve(arch, True, mode)
+    got, eng = serve(arch, False, mode)
+    assert got == want
+    assert all(len(t) == GEN for t in got)
+    return eng
+
+
+def user_axis_loss(arch):
+    """The port's fused loss under a 2-lane user-axis ctx (raises for the
+    families whose state would be shared across lanes)."""
+    _, _, model, params = case(arch)
+    b = to_torch(batch(model.cfg))
+    lanes = {k: v[None].expand(2, *v.shape) for k, v in b.items()}
+    shared = {k: v[None] for k, v in params.items()}
+    return model.loss(shared, lanes, perturb=PerturbCtx(
+        seed=(11, 12), coeff=np.array([1e-3, -1e-3], np.float32)))

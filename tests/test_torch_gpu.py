@@ -29,7 +29,12 @@ the CPU's greedy tokens. ``zo_matmul`` (all four entry points) and
 run on the tensor cores, f32 or Gaussian z on the SIMT body, as
 ``build.BODIES`` counts; the tensor-core body holds to the same limits,
 at every head dim for attention and at OPT-1.3B's LM head for the
-matmuls, with every lane equal to a lone tensor-core launch.
+matmuls, with every lane equal to a lone tensor-core launch. The other
+families: two MoE dispatches at granite-moe's layer shapes are
+bit-equal (with and without drops), reduced kimi-k2 (MoE with its shared
+expert) runs on the card within 1e-4 of the CPU, and the four attention
+kernels hold to their limits at the real configs' heads, KV heads and
+head dims (256 MQA, 128 in groups of 4 and 16, 64).
 """
 
 import math
@@ -946,3 +951,100 @@ def test_flash_verify_tensor_core_body_head_dims(cuda, hd):
     want = fv.verify_attn_ref(q, k, v, pages, pos)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
     assert torch.equal(fv.flash_verify(q, k, v, pages, pos), got)
+
+
+# ---------------------------------------------------------------------------
+# the other model families (MoE, the real configs' head dims and groups)
+
+# (name, heads, KV heads, head dim) of the configs whose attention the
+# other families' paths run: gemma-2b (MQA, 256), qwen3-4b / pixtral-12b /
+# jamba (groups of 4, 128), chatglm3-6b / glm4-9b (groups of 16, 128),
+# whisper-base (64)
+REAL_GQA = [("gemma-2b", 8, 1, 256), ("qwen3-4b", 32, 8, 128),
+            ("glm4-9b", 32, 2, 128), ("whisper-base", 8, 8, 64)]
+
+
+def test_moe_dispatch_is_bit_equal_across_calls(cuda):
+    """granite-moe-1b-a400m's layer shapes (32 experts, top 8, bf16, B 8 x
+    128): two dispatches of one input give the same bits (no atomics in
+    dispatch or combine), and drops change nothing between calls."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_dff
+    p = {"router": torch.randn((d, e), generator=g, device=cuda) * 0.02,
+         "w_in": (torch.randn((e, d, f, 2), generator=g, device=cuda)
+                  * 0.02).bfloat16(),
+         "w_out": (torch.randn((e, f, d), generator=g, device=cuda)
+                   * 0.02).bfloat16()}
+    x = torch.randn((8, 128, d), generator=g, device=cuda).bfloat16()
+    for cf in (cfg.capacity_factor, 0.25):
+        c = dataclasses.replace(cfg, capacity_factor=cf)
+        a, aux_a = moe.moe_apply(c, p, x)
+        b, aux_b = moe.moe_apply(c, p, x)
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+def test_reduced_kimi_on_card_matches_cpu(cuda):
+    """Reduced kimi-k2-1t-a32b (MoE with its shared expert, f32): the
+    forward logits and the fused loss on the card (``zo_matmul``, the
+    experts through ``zo_add``) within 1e-4 of the CPU's plain run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import PerturbCtx
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import build_model
+    cfg = get_config("kimi-k2-1t-a32b").reduced()
+    assert cfg.n_shared_experts
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 12)))
+    batch = {"tokens": toks, "targets": toks.roll(-1, dims=1)}
+    on = {k: v.to(cuda) for k, v in params.items()}
+    ctx = PerturbCtx(seed=17, coeff=1e-3)
+    want, _ = model.forward(params, batch)
+    got, _ = model.forward(on, {k: v.to(cuda) for k, v in batch.items()})
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    before = dict(kbuild.LAUNCHES)
+    got = model.loss(on, {k: v.to(cuda) for k, v in batch.items()},
+                     perturb=ctx)
+    assert kbuild.LAUNCHES["zo_matmul"] > before["zo_matmul"]
+    assert kbuild.LAUNCHES["zo_add"] > before["zo_add"]
+    want = model.loss(params, batch, perturb=ctx)
+    assert abs(got.item() - want.item()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("arch,h,kvh,hd", REAL_GQA, ids=lambda v: str(v))
+def test_attention_kernels_at_real_heads(cuda, arch, h, kvh, hd, dtype,
+                                         atol):
+    """The four attention kernels at the heads, KV heads and head dims of
+    the real configs: ``flash_attention`` (B 2, S 128, causal),
+    ``flash_decode``, ``flash_prefill`` (a 32-token chunk) and
+    ``flash_verify`` (W 4) over pages of 16 against their plain
+    versions."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_verify as fv
+    dt = getattr(torch, dtype)
+    q = torch.randn((2, 128, h, hd), device=cuda).to(dt)
+    k = torch.randn((2, 128, kvh, hd), device=cuda).to(dt)
+    v = torch.randn((2, 128, kvh, hd), device=cuda).to(dt)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, True).float(),
+        fa.flash_attention_ref(q, k, v, True).float(), rtol=0, atol=atol)
+    for c, kernel, ref in ((1, ops.paged_decode_attn, fd.paged_attn_ref),
+                           (32, ops.paged_prefill_attn, fp.prefill_attn_ref),
+                           (4, ops.paged_verify_attn, fv.verify_attn_ref)):
+        q, k, v, pages, pos = [t.to(cuda) for t in _case(
+            9, 4, c, h, kvh, hd, 10, (95, 110, 127, 40), garbage=1e3,
+            ps=16)]
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        if c == 1:
+            q = q[:, 0].contiguous()
+        torch.testing.assert_close(
+            kernel(q, k, v, pages, pos).float(),
+            ref(q, k, v, pages, pos).float(), rtol=0, atol=atol)
