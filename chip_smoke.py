@@ -139,13 +139,39 @@ F5. gemma-2b, qwen3-4b, chatglm3-6b, glm4-9b, pixtral-12b at 2 layers:
    steps over pages of 16 against the dense forward within 0.15, every
    attention on ``flash_prefill`` / ``flash_decode`` at the config's head
    dim (256 for gemma, 128 for the rest).
+FL1, A1, ST1, P1, the async fleet, the gradient baseline, the straggler
+arm and the data pipeline (OPT-1.3B at full width and depth, bf16,
+random weights from seed 0, B 8 x 128):
+FL1. ``repro_torch.launch.fleet.run``: 24 leases applied (K 2, decay
+   0.95) over 4 flagship workers, one a x5 straggler, duplicate
+   deliveries every 3rd result, a join after 6 and a leave after 12
+   applied updates, ``--verify-replay`` from theta_0 (max |diff| 0);
+   dropped >= 1, resizes 2, staleness >= 1; the snapshot a lease held
+   from version 3 on, and theta_0, bit-unchanged; launches read off the
+   code, every ``zo_matmul`` on its tensor-core body; wall s, applied
+   leases a wall second, peak memory, the most live parameter versions,
+   and one lease evaluation under the profiler. Then 4 steps fused and
+   4 with ``--estimator vmapdir`` (W' materialized through ``zo_add``):
+   one schedule, losses within 2e-2.
+A1. the train CLI with ``--optimizer adam`` (4 steps): the loss
+   descends; step s and peak memory beside T1's MeZO peak; one Trainer
+   step with int8-compressed gradients; RoBERTa-large (f32): autograd's
+   gradient projected on a Rademacher z against the fused SPSA gs over
+   the same z and batch at eps 1e-4 (``ADAM_SPSA_*``), the reading at
+   the training eps 1e-3 beside it.
+ST1. the train CLI with ``--straggler-redundancy 1 --directions 2`` (3
+   steps): every record logs its 3-direction mask, launches read off the
+   code, a snapshot + replay restore bit-exact.
+P1. ``DataPipeline(device="cuda")``: batches bit-equal to the host's
+   and read at once on the consumer's stream; ``close()`` joins a worker
+   blocked on a full queue; ``next()`` after it raises.
 Then one ``{"kernels": [...]}`` line (each kernel with its launches on
 every path above; each must have launched on one) and the final
 ``{"ok": true, ...}``.
 
 Launch counts are reset just before each path and read just after, by
 kernel and, for the two-body kernels, by body (``ops.BODIES``): T1-T4,
-Q1, U1 and U3 must run every ``zo_matmul*`` / ``flash_attention``
+Q1, U1, U3, FL1 and ST1 must run every ``zo_matmul*`` / ``flash_attention``
 launch on the body the dtype picks (bf16: tensor cores, f32: SIMT), and
 the bf16 serving paths (phase 4, Q3, S1-S4) every ``flash_prefill`` and
 ``flash_verify`` launch on its tensor-core body. Any
@@ -2012,7 +2038,7 @@ def train_main_path(torch, paths):
                       "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
                       "peak_memory_gib": peak_gb,
                       "step_peak_memory_gib": step_peak_gb}), flush=True)
-    return tr, state, batch
+    return tr, state, batch, peak_gb
 
 
 def profile_train(torch, tr, state, batch, label="T4 profile", count=True):
@@ -3458,6 +3484,381 @@ def f5_dense(torch, paths):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# FL1, A1, ST1, P1: the async elastic fleet, the gradient baseline, the
+# straggler arm and the data pipeline (OPT-1.3B at full width, bf16)
+
+FLEET_ARGV = ["--arch", "opt-1.3b", "--device", "cuda", "--workers", "4",
+              "--stragglers", "1", "--straggler-scale", "5",
+              "--duplicate-every", "3", "--directions", "2",
+              "--staleness-decay", "0.95", "--batch", str(TRAIN_B),
+              "--seq", str(TRAIN_S), "--seed", "0"]
+FLEET_LEASES = 24           # FL1's applied leases
+FLEET_VMAPDIR_STEPS = 4     # FL1's fused-vs-materialized schedule check
+# A1: |gs - <g, z>| for RoBERTa-large (f32), the fused SPSA estimate
+# against autograd's gradient projected on the same z, stated before the
+# first run: 5 % of |<g, z>| plus 5e-3 (f32 loss noise over 2 eps), at
+# eps 1e-4, where the central difference's O(eps^2) curvature term is
+# 100x under its value at the training eps 1e-3 (reported beside it: a
+# reduced RoBERTa on the CPU reads 0.8-11 % off at 1e-3, 1e-5 at 1e-4)
+ADAM_SPSA_EPS = 1e-4
+ADAM_SPSA_RTOL, ADAM_SPSA_ATOL = 5e-2, 5e-3
+
+
+def _fleet_run(torch, argv, hold_version=None):
+    """``repro_torch.launch.fleet.run(argv)``, counting lease
+    evaluations; with ``hold_version``, the first lease issued at that
+    version or later is copied to the host at issue. Returns (sim,
+    report, replay_ok, evaluations, (lease, host copy) or None)."""
+    from repro_torch.launch import fleet as fleet_cli
+    from repro_torch.runtime import fleet as fleet_mod
+    evaluate, next_lease = (fleet_mod.FleetSim._evaluate,
+                            fleet_mod.FleetCoordinator.next_lease)
+    evals, held = [0], []
+
+    def counted(self, w, lease):
+        evals[0] += 1
+        return evaluate(self, w, lease)
+
+    def holding(self, worker, now):
+        lease = next_lease(self, worker, now)
+        if (lease is not None and not held and hold_version is not None
+                and lease.version >= hold_version):
+            held.append((lease, {k: v.cpu()
+                                 for k, v in lease.params.items()}))
+        return lease
+
+    fleet_mod.FleetSim._evaluate = counted
+    fleet_mod.FleetCoordinator.next_lease = holding
+    try:
+        sim, rep, ok = fleet_cli.run(argv)
+    finally:
+        fleet_mod.FleetSim._evaluate = evaluate
+        fleet_mod.FleetCoordinator.next_lease = next_lease
+    return sim, rep, ok, evals[0], (held[0] if held else None)
+
+
+def _fleet_launches(label, launches, cfg, evals, applies, fused):
+    """Launches the fleet CLI must make, read off the code: a lease
+    evaluation runs 2K forwards (fused: each projection one
+    ``zo_matmul``, each norm/bias leaf one ``zo_add``; vmapdir: one
+    ``zo_add`` sweep of every leaf a forward, the forward plain), an
+    apply (live, or of the log's replay) K ``zo_add`` sweeps of every
+    leaf."""
+    fwd_mm, fwd_add, n_leaves = _forward_counts(cfg)
+    k = 2
+    want = {"zo_matmul": evals * 2 * k * fwd_mm if fused else 0,
+            "zo_add": (evals * 2 * k * (fwd_add if fused else n_leaves)
+                       + applies * k * n_leaves),
+            "flash_attention": 0, "zo_matmul_q": 0, "zo_add_q": 0}
+    got = {name: launches[name] for name in want}
+    print(json.dumps({"phase": f"{label} launches", "launches": got,
+                      "expected": want, "evaluations": evals}), flush=True)
+    check(got == want, f"{label}: launches {got} != expected {want}")
+    if fused:
+        _check_tc(label, launches, ["zo_matmul"])
+
+
+def fl1_fleet(torch, paths):
+    """FL1: the fleet CLI at full width (24 leases, K 2, 4 flagship
+    workers, a x5 straggler, duplicate deliveries, a join and a leave),
+    --verify-replay from theta_0; a held lease's snapshot and theta_0
+    bit-unchanged; a profiled lease evaluation; then 4 steps fused and
+    with --estimator vmapdir: the same schedule, losses within
+    OPT_FUSED_ATOL."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.fleet import DirectionLease
+    log = WORK / "fleet.jsonl"
+    log.unlink(missing_ok=True)
+    argv = FLEET_ARGV + ["--steps", str(FLEET_LEASES), "--join-after", "6",
+                         "--leave-after", "12", "--log", str(log),
+                         "--verify-replay"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sim, rep, ok, evals, held = _fleet_run(torch, argv, hold_version=3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = _snapshot(ops)
+    paths["FL1 fleet"] = launches
+    check(ok is True, f"FL1: replay from theta_0 not bit-exact ({ok})")
+    check(rep.applied == FLEET_LEASES and rep.dropped >= 1
+          and rep.resizes == 2 and max(rep.staleness) >= 1,
+          f"FL1: applied {rep.applied}, dropped {rep.dropped}, resizes "
+          f"{rep.resizes}, max staleness {max(rep.staleness)}")
+    check(all(math.isfinite(x) for x in rep.losses),
+          f"FL1 losses {rep.losses}")
+    _fleet_launches("FL1 fleet", launches, sim.model_cfg, evals,
+                    2 * rep.applied, fused=True)      # live + replay
+    check(held is not None, "FL1: no lease was issued at version >= 3")
+    lease, copy = held
+    same = all(torch.equal(v.cpu(), copy[k])
+               for k, v in lease.params.items())
+    del copy
+    fresh = sim.model.init(torch.Generator(device="cuda").manual_seed(0),
+                           torch.device("cuda"))
+    theta0 = all(torch.equal(fresh[k], v)
+                 for k, v in sim.base_params.items())
+    del fresh
+    check(same and theta0, f"FL1: a held snapshot was written (lease at "
+          f"version {lease.version}: {same}; theta_0: {theta0})")
+    w = sim.workers[0]
+    probe = DirectionLease(step=0, seed=sim.coord.step_seed(0), k=2,
+                           version=rep.applied, params=rep.params,
+                           worker=0, issued_at=0.0)
+    wall_us, by_name, n_events = _profiled(
+        torch, lambda: sim._evaluate(w, probe))
+    _phase_line(torch, "FL1 fleet", dt, launches, applied=rep.applied,
+                evaluations=evals, reissued=rep.reissued,
+                dropped=rep.dropped, resizes=rep.resizes,
+                max_staleness=max(rep.staleness),
+                applied_per_wall_s=rep.applied / rep.wall_s,
+                fleet_wall_s=rep.wall_s, virtual_s=rep.virtual_s,
+                max_live_versions=rep.max_live_versions, peak_gib=peak,
+                loss_first=rep.losses[0], loss_last=rep.losses[-1],
+                replay_bitexact=ok, held_lease_version=lease.version,
+                held_lease_unchanged=same)
+    _profile_line("FL1 profile lease", wall_us, by_name, n_events,
+                  directions=2)
+    del sim, rep, lease, probe
+    torch.cuda.empty_cache()
+
+    # fused and materialized (vmapdir) evaluations: one schedule
+    runs = {}
+    for est in ("fused", "vmapdir"):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        sim, rep, _, evals, _ = _fleet_run(torch, FLEET_ARGV + [
+            "--steps", str(FLEET_VMAPDIR_STEPS), "--join-after", "2",
+            "--estimator", est])
+        torch.cuda.synchronize()
+        launches = _snapshot(ops)
+        if est == "vmapdir":
+            paths["FL1 vmapdir"] = launches
+        _fleet_launches(f"FL1 {est}", launches, sim.model_cfg, evals,
+                        rep.applied, fused=est == "fused")
+        runs[est] = (rep, time.perf_counter() - t0)
+        del sim
+        torch.cuda.empty_cache()
+    (fr, _), (vr, vdt) = runs["fused"], runs["vmapdir"]
+    keys = ("step", "seed", "staleness", "mask")
+    same = ([[r.get(k) for k in keys] for r in fr.records]
+            == [[r.get(k) for k in keys] for r in vr.records]
+            and (fr.reissued, fr.dropped, fr.resizes, fr.virtual_s)
+            == (vr.reissued, vr.dropped, vr.resizes, vr.virtual_s))
+    err = max(abs(a - b) for a, b in zip(fr.losses, vr.losses))
+    print(json.dumps({"phase": "FL1 vmapdir", "seconds": vdt,
+                      "same_schedule": same, "fused_losses": fr.losses,
+                      "vmapdir_losses": vr.losses, "max_abs_err": err,
+                      "tolerance": OPT_FUSED_ATOL}), flush=True)
+    check(same, "FL1: the vmapdir fleet's schedule differs from the fused")
+    check(err <= OPT_FUSED_ATOL, f"FL1 vmapdir: losses {err} apart > "
+          f"{OPT_FUSED_ATOL}")
+
+
+def a1_adam(torch, paths, t1_peak_gib):
+    """A1: the train CLI with --optimizer adam (OPT-1.3B, B 8 x 128, 4
+    steps): the loss descends; step s and peak memory beside T1's MeZO
+    peak (``t1_peak_gib``, this run's, at the same batch); one
+    Trainer step with compressed gradients; RoBERTa-large (f32):
+    autograd's gradient projected on z against the fused SPSA gs over
+    the same z and batch."""
+    from repro_torch.core import MezoConfig, add_scaled_z, engine, rng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch.optim import adam
+    from repro_torch.runtime import Trainer, TrainerConfig
+    argv = ["--arch", "opt-1.3b", "--optimizer", "adam", "--steps",
+            str(TRAIN_STEPS), "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S), "--log-every", "1", "--seed", "0", "--device",
+            "cuda"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tr = train_mod.run(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    paths["A1 adam"] = _snapshot(ops)
+    check(all(math.isfinite(x) for x in tr.losses)
+          and tr.losses[-1] < tr.losses[0], f"A1: losses {tr.losses}")
+    params, cfg, cli_losses = tr.params, tr.mcfg, tr.losses
+    del tr
+    torch.cuda.empty_cache()
+    batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    model = build_model(cfg)
+    state = adam.adam_init(params)
+    acfg = adam.AdamConfig(lr=1e-4)
+    adam.grad_train_step(model.loss, params, batch, state, acfg)  # warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(2):
+        params, state, loss = adam.grad_train_step(model.loss, params,
+                                                   batch, state, acfg)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / 2
+    del state
+    torch.cuda.empty_cache()
+    # one Trainer step with int8 gradient compression
+    tc = TrainerConfig(optimizer="adam",
+                       adam=adam.AdamConfig(lr=1e-4, compress_grads=True),
+                       n_steps=1, log_every=1, device="cuda")
+    ct = Trainer(cfg, tc, _batches(cfg, TRAIN_B, TRAIN_S),
+                 log_fn=lambda m: None)
+    before = params["blocks/mlp/w_in/w"].clone()
+    ct.train(params)
+    moved = not torch.equal(before, params["blocks/mlp/w_in/w"])
+    check(len(ct.losses) == 1 and math.isfinite(ct.losses[0]) and moved,
+          f"A1 compressed step: loss {ct.losses}, moved {moved}")
+    compressed_loss = ct.losses[0]
+    del params, ct, before
+    torch.cuda.empty_cache()
+
+    # RoBERTa-large (f32): <g, z> against the fused SPSA gs
+    rcfg = get_config("roberta-large")
+    rmodel = build_model(rcfg)
+    rparams = rmodel.init(torch.Generator(device="cuda").manual_seed(0),
+                          torch.device("cuda"))
+    rbatch = _first_batch(torch, rcfg, TRAIN_B, TRAIN_S)
+    loss, grads = adam.value_and_grad(rmodel.loss, rparams, rbatch)
+    seed = rng.fold_seed(2024, 0)
+    s0 = rng.fold_seed(seed, 0)          # direction 0's z
+    gz = 0.0
+    for k, p in rparams.items():
+        z = add_scaled_z({k: torch.zeros_like(p)}, s0, 1.0)[k]
+        gz += float((grads[k].double() * z.double()).sum())
+        del z
+    del grads
+    gs = {eps: float(engine._eval_fused(
+        rmodel.loss, rparams, rbatch, seed,
+        MezoConfig(eps=eps, n_directions=1))[1][0])
+        for eps in (ADAM_SPSA_EPS, 1e-3)}
+    gs, gs_train_eps = gs[ADAM_SPSA_EPS], gs[1e-3]
+    err = abs(gs - gz)
+    tol = ADAM_SPSA_RTOL * abs(gz) + ADAM_SPSA_ATOL
+    print(json.dumps({"phase": "A1 adam", "cli_losses": cli_losses,
+                      "run_seconds": dt, "step_s": step_s,
+                      "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+                      "peak_memory_gib": peak,
+                      "t1_mezo_peak_gib": t1_peak_gib,
+                      "peak_over_t1": peak / t1_peak_gib,
+                      "compressed_step_loss": compressed_loss,
+                      "roberta_loss": float(loss),
+                      "roberta_g_dot_z": gz, "roberta_spsa_gs": gs,
+                      "spsa_eps": ADAM_SPSA_EPS,
+                      "roberta_spsa_gs_eps_1e-3": gs_train_eps,
+                      "abs_err": err, "tolerance": tol}), flush=True)
+    check(err <= tol, f"A1 roberta: SPSA gs {gs} vs <g, z> {gz}: {err} "
+          f"> {tol}")
+
+
+def st1_stragglers(torch, paths):
+    """ST1: the train CLI with --straggler-redundancy 1 --directions 2 (3
+    steps, OPT-1.3B, B 8 x 128): every record logs its mask, launches
+    read off the code, and a snapshot + replay restore bit-exact."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager, ReplayLog
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    ckpt = WORK / "train_st1"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps = 3
+    argv = ["--arch", "opt-1.3b", "--optimizer", "mezo-fused", "--steps",
+            str(steps), "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--directions", "2", "--straggler-redundancy", "1",
+            "--ckpt-dir", str(ckpt), "--log-every", "1", "--seed", "0",
+            "--device", "cuda"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tr = train_mod.run(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _snapshot(ops)
+    paths["ST1 stragglers"] = launches
+    fwd_mm, fwd_add, n_leaves = _forward_counts(tr.mcfg)
+    k = 3                                   # K 2 + R 1
+    want = {"zo_matmul": steps * 2 * k * fwd_mm,
+            "zo_add": steps * (2 * k * fwd_add + k * n_leaves),
+            "flash_attention": 0}
+    got = {name: launches[name] for name in want}
+    check(got == want, f"ST1: launches {got} != expected {want}")
+    _check_tc("ST1", launches, ["zo_matmul"])
+    recs = ReplayLog.read(str(ckpt / "replay.jsonl"))
+    masks = [r.get("mask") for r in recs]
+    check(len(recs) == steps and all(m is not None and len(m) == k
+                                     for m in masks),
+          f"ST1: logged masks {masks}")
+    mcfg = tr._mezo_cfg()
+    mgr = CheckpointManager(str(ckpt), mezo_cfg=mcfg,
+                            update_rule=tr.strategy.update)
+    like = tr.strategy.init_state(
+        {n: torch.empty_like(v) for n, v in tr.params.items()}, mcfg)
+    restored, nxt = mgr.restore(like)
+    mgr.log.close()
+    diff = [n for n in tr.params
+            if not torch.equal(restored.params[n], tr.params[n])]
+    check(nxt == steps and not diff,
+          f"ST1: restore at {nxt}, differs in {diff[:3]}")
+    del restored, like
+    torch.cuda.empty_cache()
+    step_s, _ = _timed_steps(torch, tr.strategy, tr.model.loss,
+                             tr.strategy.init_state(tr.params, mcfg),
+                             _first_batch(torch, tr.mcfg, TRAIN_B, TRAIN_S),
+                             mcfg, 1)
+    _phase_line(torch, "ST1 stragglers", dt, launches, losses=tr.losses,
+                masks=masks, restore_bit_exact=True, step_s=step_s,
+                tokens_per_s=TRAIN_B * TRAIN_S / step_s)
+    del tr
+    torch.cuda.empty_cache()
+
+
+def p1_pipeline(torch):
+    """P1: DataPipeline to the card: every batch bit-equal to the host's
+    and usable at once on the consumer's stream; close() joins a worker
+    blocked on a full queue; next() after close() raises."""
+    from repro_torch.data import DataPipeline, lm_batches
+    vocab = 50272
+    t0 = time.perf_counter()
+    host = list(lm_batches(TRAIN_B, TRAIN_S, vocab, seed=0, n_steps=6))
+    got = list(DataPipeline(lm_batches(TRAIN_B, TRAIN_S, vocab, seed=0,
+                                       n_steps=6), device="cuda"))
+    sums = [int(b["tokens"].to(torch.int64).sum()) for b in got]
+    equal = (len(got) == len(host) and all(
+        b[k].is_cuda and torch.equal(b[k].cpu(), torch.from_numpy(h[k]))
+        for b, h in zip(got, host) for k in h)
+        and sums == [int(h["tokens"].astype("int64").sum()) for h in host])
+
+    def endless():
+        while True:
+            yield next(lm_batches(TRAIN_B, TRAIN_S, vocab, seed=1))
+
+    pipe = DataPipeline(endless(), device="cuda", prefetch=1)
+    next(pipe)
+    t1 = time.perf_counter()
+    pipe.close()
+    close_s = time.perf_counter() - t1
+    joined = not pipe._thread.is_alive()
+    try:
+        next(pipe)
+        raised = False
+    except RuntimeError as e:
+        raised = "closed" in str(e)
+    print(json.dumps({"phase": "P1 pipeline", "batches": len(got),
+                      "bit_equal": equal, "close_s": close_s,
+                      "joined": joined, "next_after_close_raises": raised,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    check(equal and joined and raised and close_s < 5.0,
+          f"P1: bit_equal {equal}, joined {joined}, raised {raised}, "
+          f"close {close_s} s")
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3513,7 +3914,7 @@ def main():
     torch.cuda.empty_cache()
 
     # T1 + T4: the training CLI, then one profiled step
-    tr, state, batch = train_main_path(torch, paths)
+    tr, state, batch, t1_peak_gib = train_main_path(torch, paths)
     profile_train(torch, tr, state, batch)
     del tr, state, batch
     torch.cuda.empty_cache()
@@ -3558,6 +3959,16 @@ def main():
         phase()
         print(json.dumps({"phase": "family done",
                           "seconds": time.perf_counter() - t0}), flush=True)
+
+    # FL1, A1, ST1, P1: the fleet, the gradient baseline, stragglers, the
+    # data pipeline
+    for phase in (lambda: fl1_fleet(torch, paths),
+                  lambda: a1_adam(torch, paths, t1_peak_gib),
+                  lambda: st1_stragglers(torch, paths),
+                  lambda: p1_pipeline(torch)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase()
 
     # 6. the kernels line, then the result
     from repro_torch.kernels import ops

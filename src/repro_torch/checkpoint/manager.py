@@ -8,7 +8,9 @@ newest snapshot, replays the log tail through the strategy's update rule
 
 What gets snapshotted is the engine's whole :class:`TrainState` (params,
 step counter, update-rule state), so the momentum window survives a
-crash. On disk it is the JAX package's format for the same pytree:
+crash, and so do an Adam run's moments (snapshot-only recovery: a
+gradient step has no replay log). On disk it is the JAX package's format
+for the same pytree:
 ``params::<leaf path>``, ``step`` and ``opt::<name>`` entries of
 ``store.save_params``, so either package restores the other's
 snapshots. A bare params dict is accepted as ``restore(like=...)`` too
@@ -22,33 +24,40 @@ import os
 import shutil
 from typing import Dict, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from repro_torch.checkpoint import store
-from repro_torch.checkpoint.replay_log import ReplayLog, replay_into
+from repro_torch.checkpoint.replay_log import (ReplayLog, apply_record,
+                                               replay_into)
 from repro_torch.core.engine import SGD, TrainState, UpdateRule
+from repro_torch.optim.adam import AdamState
 
 Params = Dict[str, torch.Tensor]
 
 
 def _flatten(state: Union[TrainState, Params]) -> Params:
-    """A TrainState as one flat ``/``-keyed dict (the JAX pytree's paths);
-    a bare params dict as it is."""
+    """A TrainState as one flat ``/``-keyed dict (the JAX pytree's paths:
+    an Adam state's moments under ``opt/0``, ``opt/1`` and its count at
+    ``opt/2``); a bare params dict as it is."""
     if not isinstance(state, TrainState):
         return state
     flat = {f"params/{k}": v for k, v in state.params.items()}
     flat["step"] = torch.tensor(state.step, dtype=torch.int64)
-    flat.update({f"opt/{k}": torch.as_tensor(v)
-                 for k, v in state.opt.items()})
+    opt = (state.opt.flat() if isinstance(state.opt, AdamState)
+           else state.opt)
+    flat.update({f"opt/{k}": torch.as_tensor(v) for k, v in opt.items()})
     return flat
 
 
 def _unflatten(flat: Params, like: TrainState) -> TrainState:
+    opt = (like.opt.flat() if isinstance(like.opt, AdamState)
+           else like.opt)
+    opt = {k: flat[f"opt/{k}"] for k in opt}
     return TrainState(
         params={k: flat[f"params/{k}"] for k in like.params},
         step=int(flat["step"]),
-        opt={k: flat[f"opt/{k}"] for k in like.opt})
+        opt=(AdamState.from_flat(opt, like.opt)
+             if isinstance(like.opt, AdamState) else opt))
 
 
 class CheckpointManager:
@@ -124,17 +133,7 @@ class CheckpointManager:
             rule = SGD
         params, opt, last = state.params, state.opt, -1
         for rec in records:
-            if rec.get("staleness") is not None:
-                raise NotImplementedError(
-                    f"replay record for step {rec.get('step')} carries "
-                    f"staleness: the stale-sgd rule lands with the fleet "
-                    f"slice")
-            c = dataclasses.replace(self.cfg, lr=rec["lr"], eps=rec["eps"])
-            mask = rec.get("mask")
-            params, opt = rule.update_fn(
-                params, opt, np.uint32(rec["seed"]),
-                np.asarray(rec["gs"], np.float32),
-                None if mask is None else np.asarray(mask, np.float32), c,
-                inplace=True)
+            params, opt = apply_record(rule, params, opt, rec, self.cfg,
+                                       inplace=True)
             last = rec["step"]
         return dataclasses.replace(state, params=params, opt=opt), last

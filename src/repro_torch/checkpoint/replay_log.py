@@ -9,7 +9,7 @@ the update at step t is   theta -= lr/K * sum_k gs_t[k] * z(seed_t, k),
 and z is regenerated from the seed. So instead of flushing terabytes of
 params every N steps, we append ~(4 + 4K) bytes per step to a log and
 snapshot full params only rarely. Recovery = load nearest snapshot +
-``repro_torch.core.mezo.replay_update`` over the tail: memory-bandwidth-bound,
+the update rule over the tail (:func:`apply_record`): memory-bandwidth-bound,
 zero forward passes. Bit-exact for the ``mezo_step_vmapdir`` path (same
 update arithmetic on pristine params); for the in-place-walk ``mezo_step``
 path, exact up to the walk's float roundoff drift (~1e-5 abs), which the
@@ -26,6 +26,7 @@ append-only, human-debuggable. fsync'd per append by default.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import warnings
@@ -136,27 +137,48 @@ class ReplayLog:
         return dedup
 
 
+def apply_record(rule, params, opt, rec: dict, cfg, inplace: bool = False):
+    """Apply one logged record through the update rule ``rule``; returns
+    ``(params, opt)``. The record's ``lr`` and ``eps`` replace the
+    config's, its ``mask`` renormalizes over the logged survivors, and a
+    record bearing ``staleness`` (an async fleet run) replays through the
+    ``stale-sgd`` coefficients, ``staleness_decay ** staleness``: with
+    sgd and stale-sgd alike, so a mixed log of synchronous and
+    asynchronous records stays coherent. A stateful rule (momentum) has
+    no stale form and refuses such a record."""
+    from repro_torch.core.engine import STALE_SGD
+    c = dataclasses.replace(cfg, lr=rec["lr"], eps=rec["eps"])
+    mask = rec.get("mask")
+    mask = None if mask is None else np.asarray(mask, np.float32)
+    seed, gs = np.uint32(rec["seed"]), np.asarray(rec["gs"], np.float32)
+    stale = rec.get("staleness")
+    if stale is None:
+        return rule.update_fn(params, opt, seed, gs, mask, c,
+                              inplace=inplace)
+    if rule.name not in ("sgd", STALE_SGD.name):
+        raise ValueError(
+            f"replay record for step {rec.get('step')} carries staleness, "
+            f"which only the sgd and stale-sgd rules replay; the run's "
+            f"rule is {rule.name!r}")
+    return STALE_SGD.update_fn(params, opt, seed, gs, mask, c,
+                               inplace=inplace, staleness=stale)
+
+
 def replay_into(params, records: List[dict], cfg) -> Tuple[object, int]:
-    """Apply logged updates in order. Returns (params, last_step).
+    """Apply logged updates in order, out of place. Returns (params,
+    last_step).
 
-    File order IS application order. A record bearing ``staleness`` (an
-    async fleet run) needs the ``stale-sgd`` rule, which lands with the
-    fleet slice: it raises here rather than replaying a different model.
+    File order IS application order: async (fleet) logs carry step ids
+    out of order -- the step field keys dedup/resume, never reordering.
+    A record bearing ``staleness`` replays through the ``stale-sgd``
+    rule (:func:`apply_record`); the fleet coordinator applies its live
+    updates through this very function, so live-vs-replay is
+    bit-identical by construction. ``params`` itself is never written:
+    each record's first direction copies, the rest update that copy.
     """
-    import dataclasses
-
-    from repro_torch.core.mezo import replay_update
+    from repro_torch.core.engine import SGD
     last = -1
     for rec in records:
-        if rec.get("staleness") is not None:
-            raise NotImplementedError(
-                f"replay record for step {rec.get('step')} carries "
-                f"staleness: the stale-sgd rule lands with the fleet slice")
-        c = dataclasses.replace(cfg, lr=rec["lr"], eps=rec["eps"])
-        mask = rec.get("mask")
-        mask = None if mask is None else np.asarray(mask, np.float32)
-        params = replay_update(params, np.uint32(rec["seed"]),
-                               np.asarray(rec["gs"], np.float32), c,
-                               direction_mask=mask)
+        params, _ = apply_record(SGD, params, {}, rec, cfg)
         last = rec["step"]
     return params, last

@@ -18,9 +18,10 @@ product of two choices:
     the ``zo_matmul`` kernel;
 
 * an :class:`UpdateRule` turns ``(seed, gs)`` into a parameter update:
-  ``sgd`` (the shared f32 seed-replay tail) or ``momentum`` (truncated
-  seed replay of a window of ``(seed, gs, coeffs)`` rows). ``stale-sgd``
-  is registered under its name and raises until the fleet slice.
+  ``sgd`` (the shared f32 seed-replay tail), ``stale-sgd`` (sgd scaled
+  by ``staleness_decay ** staleness``, the async fleet's rule) or
+  ``momentum`` (truncated seed replay of a window of ``(seed, gs,
+  coeffs)`` rows).
 
 Every coefficient is computed on float32 tensors on the host, never on
 Python floats: float64 arithmetic would fork the last ulp from the JAX
@@ -59,6 +60,7 @@ from repro_torch.core.perturb_ctx import PerturbCtx, host_to
 from repro_torch.optim.quant import is_quantized
 
 _F32 = torch.float32
+_TINY = float(torch.finfo(torch.float32).tiny)    # smallest normal f32
 Params = Dict[str, torch.Tensor]
 # (params, batch) -> scalar; the fused estimator also passes ``perturb=``
 LossFn = Callable[..., torch.Tensor]
@@ -81,7 +83,7 @@ class MezoConfig:
     momentum: float = 0.0          # ZO momentum via truncated seed replay
     momentum_window: int = 8       # directions of history to replay
     weight_decay: float = 0.0
-    staleness_decay: float = 0.8   # async fleet (fleet slice)
+    staleness_decay: float = 0.8   # stale-sgd: decay ** staleness
 
 
 @dataclasses.dataclass
@@ -125,6 +127,29 @@ def _direction_coeffs(kk: int, lr, direction_mask) -> torch.Tensor:
         return (-lr * torch.tensor(1.0 / kk, dtype=_F32)).expand(kk)
     m = torch.as_tensor(direction_mask, dtype=_F32).reshape(kk)
     return -lr * m / torch.clamp(m.sum(), min=1.0)
+
+
+def _staleness_scale(decay, staleness) -> torch.Tensor:
+    """f32 ``decay ** staleness`` as XLA computes it on the CPU: the f32
+    power of two f32 tensors, equal bit for bit wherever the result is a
+    normal number; XLA flushes a subnormal result to zero, and so does
+    this."""
+    s = torch.pow(torch.tensor(decay, dtype=_F32),
+                  torch.tensor(float(staleness), dtype=_F32))
+    return torch.where(s < _TINY, torch.zeros_like(s), s)
+
+
+def _staleness_coeffs(kk: int, lr, direction_mask, staleness, decay
+                      ) -> torch.Tensor:
+    """Per-direction coefficients of an asynchronously delivered
+    direction set: :func:`_direction_coeffs` scaled by ``decay **
+    staleness``, where ``staleness`` counts the updates applied between
+    the worker's parameter snapshot and this apply. One extra f32
+    multiply: ``x * 1.0`` is exact, so staleness 0 is bit-identical to
+    the synchronous coefficients, and the live coordinator and a replay
+    compute it from the same logged integer."""
+    return (_direction_coeffs(kk, lr, direction_mask)
+            * _staleness_scale(decay, staleness))
 
 
 def _apply_direction_updates(params, seed, gs, coeffs, cfg: MezoConfig,
@@ -328,18 +353,23 @@ def _sgd_init(cfg: MezoConfig):
     return {}
 
 
+def _sgd_apply(params, seed, gs, coeffs, lr, cfg: MezoConfig, inplace):
+    """The sgd tail shared by sgd and stale-sgd: weight decay, then the
+    K direction sweeps with ``coeffs``."""
+    if cfg.weight_decay:
+        params = _decay(params, lr * torch.tensor(cfg.weight_decay,
+                                                  dtype=_F32), inplace)
+        inplace = True               # the decayed dict is already a copy
+    return _apply_direction_updates(params, seed, gs, coeffs, cfg, inplace)
+
+
 def _sgd_update(params, opt, seed, gs, direction_mask, cfg: MezoConfig,
                 lr=None, inplace: bool = False):
     seed = zrng._u32(seed)
     gs = torch.as_tensor(gs, dtype=_F32).reshape(-1)
     lr = _f32(lr, cfg.lr)
     coeffs = _direction_coeffs(gs.shape[0], lr, direction_mask)
-    if cfg.weight_decay:
-        params = _decay(params, lr * torch.tensor(cfg.weight_decay,
-                                                  dtype=_F32), inplace)
-        inplace = True               # the decayed dict is already a copy
-    return _apply_direction_updates(params, seed, gs, coeffs, cfg,
-                                    inplace), opt
+    return _sgd_apply(params, seed, gs, coeffs, lr, cfg, inplace), opt
 
 
 def _user_coeffs(kk: int, lr: torch.Tensor) -> torch.Tensor:
@@ -468,9 +498,23 @@ def _momentum_update_users(params, opt, seeds, gs, cfg: MezoConfig, lr,
     return params, new
 
 
-def _stale_sgd_update(*args, **kwargs):
-    raise NotImplementedError("update rule 'stale-sgd' is not ported yet; "
-                              "it lands with the fleet slice")
+def _stale_sgd_update(params, opt, seed, gs, direction_mask,
+                      cfg: MezoConfig, lr=None, inplace: bool = False,
+                      staleness=None):
+    """sgd with staleness decay: the async fleet's update rule.
+
+    ``staleness`` ``None`` or 0 is :func:`_sgd_update` bit for bit (the
+    decay multiplies by exactly 1.0), so the checkpoint manager replays a
+    stale-sgd log through the standard ``update_fn(params, opt, seed, gs,
+    mask, cfg)`` call and a mixed log (synchronous and asynchronous
+    records) stays coherent."""
+    seed = zrng._u32(seed)
+    gs = torch.as_tensor(gs, dtype=_F32).reshape(-1)
+    lr = _f32(lr, cfg.lr)
+    coeffs = _staleness_coeffs(gs.shape[0], lr, direction_mask,
+                               0 if staleness is None else staleness,
+                               cfg.staleness_decay)
+    return _sgd_apply(params, seed, gs, coeffs, lr, cfg, inplace), opt
 
 
 # ---------------------------------------------------------------------------
@@ -584,7 +628,6 @@ _ESTIMATORS: Dict[str, DirectionEvaluator] = {}
 _UPDATE_RULES: Dict[str, UpdateRule] = {}
 _STRATEGY_ALIASES: Dict[str, Tuple[str, str]] = {}
 _STRATEGY_CACHE: Dict[Tuple[str, str], ZOStrategy] = {}
-_NOT_PORTED = {"stale-sgd": "the fleet slice"}
 
 
 def register_estimator(e: DirectionEvaluator) -> DirectionEvaluator:
@@ -615,11 +658,7 @@ def strategy_names():
 
 
 def update_rule(name: str) -> UpdateRule:
-    """Resolve an update rule by name; one not ported yet raises."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"update rule {name!r} is not ported yet; it lands with "
-            f"{_NOT_PORTED[name]}")
+    """Resolve an update rule by name."""
     if name not in _UPDATE_RULES:
         raise ValueError(f"unknown update rule {name!r}; registered: "
                          f"{update_rule_names()}")
@@ -627,7 +666,7 @@ def update_rule(name: str) -> UpdateRule:
 
 
 def check_rule(rule: Optional[UpdateRule]) -> UpdateRule:
-    """``None`` -> SGD; a rule not ported yet raises."""
+    """``None`` -> SGD; a rule is resolved by its name."""
     if rule is None:
         return SGD
     return update_rule(getattr(rule, "name", str(rule)))
@@ -671,8 +710,11 @@ FUSED = register_estimator(DirectionEvaluator(
 SGD = register_update_rule(UpdateRule(
     name="sgd", init_fn=_sgd_init, update_fn=_sgd_update,
     users_fn=_sgd_update_users))
+# a multi-tenant step carries no staleness, so stale-sgd's user-axis form
+# is sgd's (the reference vmaps the rule with staleness None: x * 1.0)
 STALE_SGD = register_update_rule(UpdateRule(
-    name="stale-sgd", init_fn=_sgd_init, update_fn=_stale_sgd_update))
+    name="stale-sgd", init_fn=_sgd_init, update_fn=_stale_sgd_update,
+    users_fn=_sgd_update_users))
 MOMENTUM = register_update_rule(UpdateRule(
     name="momentum", init_fn=momentum_history_init,
     update_fn=_momentum_update, users_fn=_momentum_update_users))

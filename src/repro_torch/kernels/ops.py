@@ -12,6 +12,8 @@ the two-body kernels' launches by body in :data:`BODIES`
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import flash_prefill as _fp
@@ -125,7 +127,17 @@ def zo_matmul_users(x, w, seeds, salt: int, coeffs,
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """Forward-only GQA attention, q (B, S, H, hd), k/v (B, T, KV, hd)."""
+    """Forward-only GQA attention, q (B, S, H, hd), k/v (B, T, KV, hd).
+
+    It has no backward, on either device: inputs that need a gradient
+    raise, as differentiating the reference's Pallas kernel does (its
+    ``pallas_call`` has no differentiation rule); a gradient through
+    attention needs ``attn_impl="chunked"``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward (nor has the reference's "
+            "Pallas kernel): differentiate a config with "
+            "attn_impl='chunked'")
     if _on_cpu("flash_attention", q):
         return _fa.flash_attention_ref(q, k, v, causal)
     return _fa.flash_attention_cuda(q, k, v, causal)

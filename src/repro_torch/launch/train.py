@@ -12,8 +12,9 @@ for reduced configs):
 ``--update`` compose any pairing (``--estimator fused --update
 momentum``). ``--metrics-out`` writes the per-step losses in the JAX
 CLI's format. ``--quant int8`` trains over a frozen int8 base with f32
-deltas. ``adam`` and ``--straggler-redundancy`` are accepted as flags and
-raise ``NotImplementedError`` (later slices).
+deltas. ``--optimizer adam`` trains the gradient baseline (autograd and
+Adam at ``--adam-lr``); ``--straggler-redundancy R`` schedules R extra
+directions a step and logs each step's survivor mask.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.engine import (MezoConfig, estimator_names,
                                      strategy_names, update_rule_names)
 from repro_torch.data.synthetic import lm_batches, sst2_batches
+from repro_torch.optim.adam import AdamConfig
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 
@@ -77,6 +79,7 @@ def make_trainer(args) -> Trainer:
                         momentum=args.momentum,
                         momentum_window=args.momentum_window,
                         weight_decay=args.weight_decay),
+        adam=AdamConfig(lr=args.adam_lr),
         n_steps=args.steps, seed=args.seed, ckpt_dir=args.ckpt_dir,
         snapshot_every=args.snapshot_every, log_every=args.log_every,
         straggler_redundancy=args.straggler_redundancy,
@@ -93,7 +96,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--optimizer", default="mezo",
                     choices=strategy_names() + ["adam"],
                     help="registered strategy name, or adam (gradient "
-                         "baseline, not ported yet)")
+                         "baseline)")
     ap.add_argument("--estimator", default=None,
                     choices=estimator_names(),
                     help="direction evaluator; with --update, composes any "
@@ -107,7 +110,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--eps", type=float, default=1e-3)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--adam-lr", type=float, default=1e-4,
-                    help="gradient baseline's lr (adam is not ported yet)")
+                    help="the gradient baseline's (--optimizer adam) lr")
     ap.add_argument("--directions", type=int, default=1)
     ap.add_argument("--momentum", type=float, default=0.9,
                     help="ZO momentum beta (momentum update rule only)")

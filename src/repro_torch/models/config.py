@@ -70,8 +70,8 @@ class ModelConfig:
     # attention sequence-chunk size for memory-efficient (online-softmax)
     # attention; 0 = always use plain attention
     attn_chunk: int = 1024
-    # 'chunked' (plain attention) or 'flash' (the JAX package's Pallas
-    # flash_attention kernel; not ported yet -- selecting it raises)
+    # 'chunked' (plain attention) or 'flash' (the flash_attention kernel
+    # on the card, its plain version on the CPU; forward only)
     attn_impl: str = "chunked"
 
     # parallelism hints

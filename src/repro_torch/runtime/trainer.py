@@ -1,22 +1,27 @@
-"""Fault-tolerant training loop for ZO (MeZO).
+"""Fault-tolerant training loop for ZO (MeZO) and gradient (Adam) arms.
 
 Port of the JAX package's ``runtime/trainer.py``: build the model,
 resolve the training strategy from the engine registry, auto-resume
-(TrainState snapshot + replay log), metrics, periodic checkpointing. The
-loop is deliberately dumb -- the cleverness lives in ``core/`` and
-``checkpoint/`` -- so a crash between two ``on_step`` calls loses at
-most the step in flight.
+(TrainState snapshot + replay log), per-step straggler masks, metrics,
+periodic checkpointing. The loop is deliberately dumb -- the cleverness
+lives in ``core/`` and ``checkpoint/`` -- so a crash between two
+``on_step`` calls loses at most the step in flight.
 
 Strategy resolution: ``TrainerConfig.optimizer`` names a registered
 strategy ("mezo", "mezo-parallel", "mezo-fused", "mezo-momentum",
-"mezo-fused-momentum"); ``estimator`` / ``update`` compose any pairing
+"mezo-fused-momentum") or "adam" for the gradient baseline
+(``optim/adam.py``: autograd, Adam in place, the moments snapshotted
+with the state and restored on resume; no replay log, since a gradient
+depends on the data); ``estimator`` / ``update`` compose any ZO pairing
 directly. ``quant="int8"`` quantizes the base after init with zero f32
 deltas attached (``_maybe_quantize``): the int8 values stay frozen and
-every update lands in the deltas. The quant mode is checked first, as in
-the JAX package (an unknown mode, then adam with int8, raise
-``ValueError``). Not ported yet, and raising ``NotImplementedError``:
-``optimizer="adam"`` (the gradient baseline) and
-``straggler_redundancy > 0`` (straggler masks).
+every update lands in the deltas. The checks run in the JAX package's
+order and raise its ``ValueError``s: an unknown quant mode, int8 with
+adam, adam with an estimator or update.
+
+``straggler_redundancy`` R schedules K + R directions a step and logs
+the :class:`~repro_torch.runtime.stragglers.StragglerPolicy` mask with
+each record, so replay renormalizes over the same survivors.
 
 ``device`` (default ``"cuda"``) is where parameters live and steps run;
 each step's batch moves there once. Losses stay on the device and come
@@ -37,30 +42,34 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import rng as zrng
-from repro_torch.core.engine import (MezoConfig, build_strategy,
-                                     get_strategy, strategy_names)
+from repro_torch.core.engine import (MezoConfig, TrainState,
+                                     build_strategy, get_strategy,
+                                     strategy_names)
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import resolve_device
+from repro_torch.optim.adam import AdamConfig, adam_init, grad_train_step
 from repro_torch.optim.quant import (check_quant_mode, quantize_tree,
                                      tree_is_quantized)
+from repro_torch.runtime.stragglers import StragglerPolicy
 
 Params = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    optimizer: str = "mezo"          # registered strategy name
+    optimizer: str = "mezo"          # registered strategy name | adam
     estimator: Optional[str] = None  # walk | vmapdir | fused (overrides
     update: Optional[str] = None     # sgd | momentum        .. optimizer)
     mezo: MezoConfig = MezoConfig()
+    adam: AdamConfig = AdamConfig()
     quant: str = "none"              # base-weight quantization: none | int8
     n_steps: int = 100
     seed: int = 0
     ckpt_dir: Optional[str] = None
     snapshot_every: int = 100
     log_every: int = 10
-    straggler_redundancy: int = 0    # straggler masks (fleet slice)
+    straggler_redundancy: int = 0
     device: str = "cuda"
 
 
@@ -75,23 +84,22 @@ class Trainer:
                 "baseline differentiates through the weights, but an "
                 "int8 base is frozen (updates live in the f32 delta, "
                 "written by seed replay)")
+        self.strategy = None
         if train_cfg.optimizer == "adam":
-            raise NotImplementedError(
-                "optimizer 'adam' (the gradient baseline, optim/adam.py) "
-                "is not ported yet; it lands with the fleet slice")
-        if train_cfg.straggler_redundancy:
-            raise NotImplementedError(
-                "straggler_redundancy > 0 (runtime/stragglers.py) is not "
-                "ported yet; it lands with the fleet slice")
-        if train_cfg.estimator or train_cfg.update:
+            if train_cfg.estimator or train_cfg.update:
+                raise ValueError(
+                    "TrainerConfig.estimator/.update compose ZO strategies "
+                    "and cannot be combined with optimizer='adam' (the "
+                    "gradient baseline has no estimator x update axes)")
+        elif train_cfg.estimator or train_cfg.update:
             self.strategy = build_strategy(
                 train_cfg.estimator or "walk", train_cfg.update or "sgd")
         elif train_cfg.optimizer not in strategy_names():
             raise ValueError(
                 f"unknown TrainerConfig.optimizer {train_cfg.optimizer!r}; "
-                f"registered strategies: {strategy_names()} (or compose "
-                f"any estimator x update pairing via TrainerConfig."
-                f"estimator/.update)")
+                f"registered strategies: {strategy_names() + ['adam']} (or "
+                f"compose any estimator x update pairing via "
+                f"TrainerConfig.estimator/.update)")
         else:
             self.strategy = get_strategy(train_cfg.optimizer)
 
@@ -103,10 +111,14 @@ class Trainer:
         self.log = log_fn
         self.losses: list = []
         self._pending: list = []     # device loss scalars awaiting a sync
+        self._straggler = (StragglerPolicy(
+            train_cfg.mezo.n_directions, train_cfg.straggler_redundancy)
+            if train_cfg.straggler_redundancy else None)
         self.ckpt = (CheckpointManager(
-            train_cfg.ckpt_dir, mezo_cfg=train_cfg.mezo,
+            train_cfg.ckpt_dir,
+            mezo_cfg=self._mezo_cfg() if self.strategy else None,
             snapshot_every=train_cfg.snapshot_every,
-            update_rule=self.strategy.update)
+            update_rule=self.strategy.update if self.strategy else None)
             if train_cfg.ckpt_dir else None)
 
     # -- setup ------------------------------------------------------------
@@ -124,6 +136,19 @@ class Trainer:
             return params
         return quantize_tree(params, self.tcfg.quant, with_delta=True)
 
+    def _mezo_cfg(self) -> MezoConfig:
+        """The MeZO config a step runs: K + R directions under a
+        straggler policy."""
+        c = self.tcfg.mezo
+        if self._straggler:
+            c = dataclasses.replace(c, n_directions=self._straggler.total)
+        return c
+
+    def _init_state(self, params: Params, mcfg: MezoConfig) -> TrainState:
+        if self.strategy is not None:
+            return self.strategy.init_state(params, mcfg)
+        return TrainState(params=params, step=0, opt=adam_init(params))
+
     def _sync_losses(self):
         """Host-sync the buffered device scalars (one transfer per batch
         of steps instead of one per step)."""
@@ -138,12 +163,12 @@ class Trainer:
         given). ``fail_at`` raises at that step (fault injection for
         tests). A fused or walk step updates ``params`` in place."""
         start = 0
-        mcfg = self.tcfg.mezo
+        mcfg = self._mezo_cfg()
         resume = params is None
         if params is None:
             params = self.init_params()
         params = self._maybe_quantize(params)
-        state = self.strategy.init_state(params, mcfg)
+        state = self._init_state(params, mcfg)
         if resume and self.ckpt:
             restored, start = self.ckpt.restore(state)
             if restored is not None:
@@ -156,12 +181,22 @@ class Trainer:
                 raise RuntimeError(f"injected failure at step {step}")
             batch = {k: torch.as_tensor(v).to(self.device)
                      for k, v in next(self.batches).items()}
-            seed = zrng.fold_seed(self.tcfg.seed, step)
-            state, aux = self.strategy.step(self.model.loss, state, batch,
-                                            seed, mcfg)
-            self._pending.append(aux.loss)
+            mask = aux = None
+            if self.strategy is None:
+                p, opt, loss = grad_train_step(
+                    self.model.loss, state.params, batch, state.opt,
+                    self.tcfg.adam)
+                state = TrainState(params=p, step=step + 1, opt=opt)
+                self._pending.append(loss)
+            else:
+                if self._straggler:
+                    mask = self._straggler.mask()
+                seed = zrng.fold_seed(self.tcfg.seed, step)
+                state, aux = self.strategy.step(self.model.loss, state,
+                                                batch, seed, mcfg, mask)
+                self._pending.append(aux.loss)
             if self.ckpt:
-                self.ckpt.on_step(step, state, aux)
+                self.ckpt.on_step(step, state, aux, direction_mask=mask)
             if step % self.tcfg.log_every == 0:
                 self._sync_losses()
                 dt = time.perf_counter() - t0

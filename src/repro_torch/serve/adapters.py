@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.replay_log import ReplayLog
+from repro_torch.checkpoint.replay_log import ReplayLog, apply_record
 from repro_torch.core.engine import MezoConfig, UpdateRule, check_rule
 from repro_torch.models.transformer import resolve_device
 from repro_torch.optim.quant import (int8_dequantize, int8_quantize,
@@ -91,8 +91,9 @@ class AdapterStore:
     ``mezo_cfg`` must carry the ``dist`` / ``weight_decay`` the users
     trained with (lr / eps travel inside each record; K is the logged
     ``gs`` length). ``update_rule`` is the rule the users trained with
-    (``sgd`` by default, or ``momentum``; ``stale-sgd`` raises until the
-    fleet slice). ``device`` is where the base lives and the adapters
+    (``sgd`` by default, ``stale-sgd`` or ``momentum``; a record that
+    carries ``staleness`` replays through the stale-sgd coefficients
+    under sgd and stale-sgd alike). ``device`` is where the base lives and the adapters
     materialize (``"cuda"`` unless the caller asks for the CPU).
     """
 
@@ -199,17 +200,8 @@ class AdapterStore:
             params = with_delta(params)
         fresh = False
         for rec in records:
-            if rec.get("staleness") is not None:
-                raise NotImplementedError(
-                    "replay records with staleness need the stale-sgd "
-                    "rule, which lands with the fleet slice")
-            c = dataclasses.replace(self.cfg, lr=rec["lr"], eps=rec["eps"])
-            mask = rec.get("mask")
-            params, opt = self.rule.update_fn(
-                params, opt, np.uint32(rec["seed"]),
-                np.asarray(rec["gs"], np.float32),
-                None if mask is None else np.asarray(mask, np.float32), c,
-                inplace=fresh)
+            params, opt = apply_record(self.rule, params, opt, rec,
+                                       self.cfg, inplace=fresh)
             fresh = True
         return params, opt
 

@@ -1048,3 +1048,147 @@ def test_attention_kernels_at_real_heads(cuda, arch, h, kvh, hd, dtype,
         torch.testing.assert_close(
             kernel(q, k, v, pages, pos).float(),
             ref(q, k, v, pages, pos).float(), rtol=0, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# the fleet, the stale-sgd rule, the gradient baseline, the data pipeline
+
+
+def test_fleet_on_card_matches_cpu(cuda, tmp_path):
+    """Reduced gemma-2b (f32) through the fleet on the card: the CPU's
+    schedule event for event, losses within 1e-4, every update's gs
+    within 1e-3, and the card's log replays to its live parameters at
+    atol 0 (``zo_matmul`` and ``zo_add`` launched)."""
+    from repro_torch.checkpoint.replay_log import ReplayLog, replay_into
+    from repro_torch.configs import get_config
+    from repro_torch.core import MezoConfig
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.runtime.fleet import FaultSpec, FleetSim, WorkerSpec
+    cfg = get_config("gemma-2b").reduced()
+    mz = MezoConfig(lr=1e-3, n_directions=2, staleness_decay=0.95)
+    workers = [WorkerSpec("flagship", FaultSpec(jitter=0.2,
+                                                duplicate_every=2)),
+               WorkerSpec("flagship", FaultSpec(jitter=0.2)),
+               WorkerSpec("flagship", FaultSpec(latency_scale=5.0))]
+    from repro_torch.models import build_model
+    theta0 = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    reps, sims = {}, {}
+    for dev in ("cpu", "cuda"):
+        before = dict(kbuild.LAUNCHES)
+        sims[dev] = FleetSim(cfg, workers, total_steps=10, mezo_cfg=mz,
+                             device=dev, log_path=str(tmp_path / dev),
+                             params={k: v.to(dev) for k, v in
+                                     theta0.items()},
+                             step_events=[(3, "join", WorkerSpec()),
+                                          (6, "leave", 1)])
+        reps[dev] = sims[dev].run()
+    assert kbuild.LAUNCHES["zo_matmul"] > before["zo_matmul"]
+    assert kbuild.LAUNCHES["zo_add"] > before["zo_add"]
+    c, g = reps["cpu"], reps["cuda"]
+    keys = ("step", "seed", "staleness")
+    assert ([[r[k] for k in keys] for r in c.records]
+            == [[r[k] for k in keys] for r in g.records])
+    assert (c.dropped, c.reissued, c.resizes, c.virtual_s) == (
+        g.dropped, g.reissued, g.resizes, g.virtual_s)
+    np.testing.assert_allclose(g.losses, c.losses, rtol=0, atol=1e-4)
+    np.testing.assert_allclose([r["gs"] for r in g.records],
+                               [r["gs"] for r in c.records], rtol=0,
+                               atol=1e-3)
+    replayed, _ = replay_into(sims["cuda"].base_params,
+                              ReplayLog.read(str(tmp_path / "cuda")), mz)
+    for k, v in g.params.items():
+        assert torch.equal(replayed[k], v), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stale_sgd_replay_on_card_bit_equal_cpu(cuda, dtype):
+    """A mixed log (synchronous, stale, masked records) replayed on the
+    card equals the CPU's replay bit for bit (Rademacher z: the
+    coefficients are host f32, ``zo_add`` is exact)."""
+    from repro_torch.checkpoint.replay_log import replay_into
+    from repro_torch.core import MezoConfig
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(5)
+    params = {"a/w": (torch.randn((64, 48), generator=g) * 0.02).to(dt),
+              "b": torch.randn((37,), generator=g).to(dt)}
+    recs = [dict(step=0, seed=3, gs=[0.5, -0.25], lr=1e-2, eps=1e-3),
+            dict(step=2, seed=9, gs=[1.5, 0.75], lr=1e-2, eps=1e-3,
+                 staleness=4, mask=[1.0, 0.0]),
+            dict(step=1, seed=4, gs=[-2.0, 0.125], lr=1e-2, eps=1e-3,
+                 staleness=1)]
+    mz = MezoConfig(n_directions=2, staleness_decay=0.8)
+    want, _ = replay_into(params, recs, mz)
+    got, _ = replay_into({k: v.to(cuda) for k, v in params.items()}, recs,
+                         mz)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_adam_on_card_matches_cpu(cuda):
+    """Reduced OPT-1.3B (f32): autograd's loss and gradients on the card
+    within 1e-4 of the CPU's (cuBLAS vs CPU summation order); two Adam
+    updates from the same gradients within 1e-6 of the CPU's (a gradient
+    near 0 may flip its sign between the two devices, and Adam scales it
+    to a step of lr, so the steps are compared on one gradient); flash
+    attention under a gradient raises on the card as on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.optim import adam
+    cfg = get_config("opt-1.3b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in next(lm_batches(2, 16, cfg.vocab, seed=0)).items()}
+    on = {k: v.to(cuda) for k, v in params.items()}
+    ob = {k: v.to(cuda) for k, v in batch.items()}
+    lc, gc = adam.value_and_grad(model.loss, params, batch)
+    lg, gg = adam.value_and_grad(model.loss, on, ob)
+    assert abs(lc.item() - lg.item()) <= 1e-4
+    for k in gc:
+        torch.testing.assert_close(gg[k].cpu(), gc[k], rtol=1e-3,
+                                   atol=1e-4)
+    sc, sg = adam.adam_init(params), adam.adam_init(on)
+    acfg = adam.AdamConfig(lr=1e-3, weight_decay=0.01)
+    for _ in range(2):
+        params, sc = adam.adam_update(params, gc, sc, acfg)
+        on, sg = adam.adam_update(on, {k: v.to(cuda) for k, v in gc.items()},
+                                  sg, acfg)
+    for k in params:
+        torch.testing.assert_close(on[k].cpu(), params[k], rtol=0,
+                                   atol=1e-6)
+        torch.testing.assert_close(sg.nu[k].cpu(), sc.nu[k], rtol=1e-6,
+                                   atol=0)
+    flash = build_model(dataclasses.replace(cfg, attn_impl="flash"))
+    with pytest.raises(RuntimeError, match="no backward"):
+        adam.value_and_grad(flash.loss, on, ob)
+
+
+def test_data_pipeline_to_card(cuda):
+    """Batches placed through pinned memory on the pipeline's stream equal
+    the host's, read at once on the consumer's (default and side)
+    stream; close() joins; next() after close() raises."""
+    from repro_torch.data import DataPipeline, lm_batches
+    host = list(lm_batches(8, 128, 50272, seed=2, n_steps=5))
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            pipe = DataPipeline(lm_batches(8, 128, 50272, seed=2,
+                                           n_steps=5), device=cuda)
+            sums = [b["tokens"].to(torch.int64).sum() for b in pipe]
+        torch.cuda.synchronize()
+        assert [int(s) for s in sums] == [
+            int(h["tokens"].astype(np.int64).sum()) for h in host]
+    pipe = DataPipeline(lm_batches(8, 128, 50272, seed=2, n_steps=3),
+                        device=cuda)
+    for b, h in zip(pipe, host):
+        assert b["tokens"].is_cuda
+        assert torch.equal(b["targets"].cpu(), torch.from_numpy(h["targets"]))
+    pipe = DataPipeline(lm_batches(8, 128, 50272, seed=2, n_steps=3),
+                        device=cuda, prefetch=1)
+    next(pipe)
+    pipe.close()
+    assert not pipe._thread.is_alive()
+    with pytest.raises(RuntimeError, match="closed"):
+        next(pipe)

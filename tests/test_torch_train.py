@@ -95,8 +95,8 @@ def test_registry_names_equal_jax():
     for name in engine.strategy_names():
         t, j = engine.get_strategy(name), jengine.get_strategy(name)
         assert t.name == j.name
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        engine.build_strategy("fused", "stale-sgd")
+    assert (engine.build_strategy("fused", "stale-sgd").name
+            == jengine.build_strategy("fused", "stale-sgd").name)
 
 
 def test_synthetic_batches_equal_jax():
@@ -290,9 +290,18 @@ def test_cli_resume_prints_resumed_step(tmp_path, capsys):
                                   ["--update", "stale-sgd"],
                                   ["--straggler-redundancy", "1"]])
 def test_unported_trainer_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="slice"):
-        train_cli.run(["--reduced", "--device", "cpu", "--steps", "1"]
-                      + flag)
+    """The options that raised before the fleet slice now train: one
+    step from the JAX package's parameters gives the JAX CLI's loss
+    (within 1e-4, the gradient baseline's CLI tolerance)."""
+    argv = CLI[:2] + ["--reduced", "--steps", "1", "--batch", "2",
+                      "--seq", "16"] + flag
+    jtr = j_train_cli.make_trainer(j_train_cli.build_argparser()
+                                   .parse_args(argv))
+    jinit = jtr.init_params()
+    jtr.train(jax.tree.map(jnp.copy, jinit))
+    ttr = train_cli.run(argv + ["--device", "cpu"],
+                        params=_tensors(_flat(jinit)))
+    np.testing.assert_allclose(ttr.losses, jtr.losses, rtol=0, atol=1e-4)
 
 
 def test_cuda_device_requires_a_card():

@@ -152,8 +152,11 @@ def test_replay_update_bit_exact(wd, mask):
 
 
 def test_unported_update_rules_raise():
-    with pytest.raises(NotImplementedError, match="slice"):
-        update_rule("stale-sgd")
+    """Every reference rule resolves (stale-sgd since the fleet slice);
+    an unknown name raises."""
+    assert update_rule("stale-sgd").name == "stale-sgd"
+    with pytest.raises(ValueError, match="unknown update rule"):
+        update_rule("adamw")
     assert update_rule("sgd").name == "sgd"
     assert update_rule("momentum").name == "momentum"
 
