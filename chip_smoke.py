@@ -25,7 +25,8 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
    ``flash_attention``; Q0 ``zo_add_q`` and ``zo_matmul_q``; S0
    ``flash_verify`` (B 4, W 4, 32 heads of 64, page 16, positions 96-128,
    f32 and bf16, three GQA layouts and every family's heads
-   (``REAL_HEADS``), NaN in the trash page, two calls
+   (``REAL_HEADS``, kimi-k2's 64 heads of 112 over 8 KV heads among
+   them), NaN in the trash page, two calls
    bit-equal, bf16 on the tensor-core body and f32 on the SIMT body;
    timed as ``VERIFY_TIMED``). The paged
    ``flash_decode`` / ``flash_prefill`` are checked at pages 8 and 16,
@@ -38,9 +39,11 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
    (the rows timed since the first port), at the serving admission's B 1
    prefill and a decode at positions up to 2047 (``ATTN_TIMED``), with
    the page gather + SDPA in one graph beside the pre-gathered
-   yardstick, as context. ``flash_attention`` is also checked at B 8 x
+   yardstick, as context; ``flash_decode`` also at kimi-k2's heads
+   (``KIMI_DECODE_TIMED``). ``flash_attention`` is also checked at B 8 x
    128 at every ``REAL_HEADS`` layout and at whisper-base's encoder (B 8
-   x 1500), ``zo_matmul`` at jamba's ``x_proj`` (N 288) and whisper's
+   x 1500), and timed at kimi-k2's heads (B 8 x 128, causal);
+   ``zo_matmul`` at jamba's ``x_proj`` (N 288) and whisper's
    width (512), against their plain versions at the same limits.
 4. serving: ``repro_torch.launch.serve.run`` on full-width, 24-layer
    OPT-1.3B (bf16, random weights from a seed), paged KV with page size 16
@@ -139,6 +142,23 @@ F5. gemma-2b, qwen3-4b, chatglm3-6b, glm4-9b, pixtral-12b at 2 layers:
    steps over pages of 16 against the dense forward within 0.15, every
    attention on ``flash_prefill`` / ``flash_decode`` at the config's head
    dim (256 for gemma, 128 for the rest).
+UF1-UF4, the multi-tenant step of those families at full width (bf16,
+random weights from seed 0, one shared base), every lane held to a lone
+``Trainer`` (or the scalar fused loss) at atol 0, each phase printing
+its seconds, peak memory and launches by kernel and body:
+UF1. granite-moe-1b-a400m, full depth, through the ``train_fleet`` CLI:
+   6 users on 4 slots, 3 fused sgd steps each, B 8 x 128; every MoE
+   dispatch routes one lane's 1024 tokens against that lane's capacity
+   (recorded: some lane drops past it); every user's losses, parameters
+   and replay log against a lone Trainer; one dispatch profiled.
+UF2. rwkv6-7b, full depth, through the CLI: 3 users on 2 slots, 2
+   steps, B 4 x 128, against lone Trainers.
+UF3. jamba-v0.1-52b cut as F3 (8 sublayers): the user-axis fused loss
+   over one shared 27 GB base, U = 2 lanes, each against the scalar
+   fused loss; peak memory.
+UF4. whisper-base, full depth, through the ``TrainEngine`` with batches
+   that carry ``enc_embeds`` (8 x 1500 frames): 4 users on 4 slots, 3
+   steps, B 8 x 128, against lone Trainers.
 FL1, A1, ST1, P1, the async fleet, the gradient baseline, the straggler
 arm and the data pipeline (OPT-1.3B at full width and depth, bf16,
 random weights from seed 0, B 8 x 128):
@@ -171,7 +191,8 @@ every path above; each must have launched on one) and the final
 
 Launch counts are reset just before each path and read just after, by
 kernel and, for the two-body kernels, by body (``ops.BODIES``): T1-T4,
-Q1, U1, U3, FL1 and ST1 must run every ``zo_matmul*`` / ``flash_attention``
+Q1, U1, U3, UF1-UF4, FL1 and ST1 must run every ``zo_matmul*`` /
+``flash_attention``
 launch on the body the dtype picks (bf16: tensor cores, f32: SIMT), and
 the bf16 serving paths (phase 4, Q3, S1-S4) every ``flash_prefill`` and
 ``flash_verify`` launch on its tensor-core body. Any
@@ -647,10 +668,14 @@ def _attn_rows(name):
 # the (heads, KV heads, head dim) of every config a family phase serves
 # or trains beyond OPT-1.3B's 32 x 64: gemma-2b (MQA at 256), qwen3-4b,
 # pixtral-12b and jamba (G 4 at 128), chatglm3-6b and glm4-9b (G 16 at
-# 128), granite-moe (G 2 at 64), whisper-base (8 heads of 64)
+# 128), granite-moe (G 2 at 64), whisper-base (8 heads of 64),
+# kimi-k2-1t-a32b (G 8 at 112, the one head dim not a power of two)
 REAL_HEADS = {"gemma-2b": (8, 1, 256), "qwen3-4b pixtral jamba": (32, 8, 128),
               "chatglm3 glm4": (32, 2, 128), "granite-moe": (16, 8, 64),
-              "whisper-base": (8, 8, 64)}
+              "whisper-base": (8, 8, 64), "kimi-k2": (64, 8, 112)}
+# flash_decode timed at kimi-k2's heads (the B 4 positions of ATTN_TIMED)
+KIMI_DECODE_TIMED = ("flash_decode", "kimi B 4", [95, 110, 127, 40], 8,
+                     REAL_HEADS["kimi-k2"])
 
 
 def _check_paged_case(torch, name, ps, pos, n_live16, h, kvh, hd, dt, tol,
@@ -735,8 +760,10 @@ def check_paged_attention(torch):
     return errs
 
 
-def time_paged_attention(torch, name, pos, n_live, checked=True):
-    """One ATTN_TIMED case in bf16: the kernel, its plain version, every
+def time_paged_attention(torch, name, pos, n_live, checked=True,
+                         heads=(32, 32, 64)):
+    """One ATTN_TIMED case in bf16 at ``heads`` (H, KV, hd; OPT-1.3B's by
+    default): the kernel, its plain version, every
     SDPA backend over K/V gathered to logical order beforehand (the
     yardstick, as for every other attention row) and, as context only,
     every backend with the page gather and transposes inside the timed
@@ -746,8 +773,8 @@ def time_paged_attention(torch, name, pos, n_live, checked=True):
     import torch.nn.functional as F
     kern, ref = _attn_fns(name)
     dev = torch.device("cuda")
-    h = kvh = 32
-    hd, ps = 64, 16
+    h, kvh, hd = heads
+    ps = 16
     b = len(pos)
     rows = _attn_rows(name)
     k, v, pages, _ = _paged_case(torch, b, ps, kvh, hd, n_live,
@@ -776,10 +803,10 @@ def time_paged_attention(torch, name, pos, n_live, checked=True):
         vg = v[pl].reshape(b, t, kvh, hd).transpose(1, 2)
         return F.scaled_dot_product_attention(
             q.reshape(b, rows, h, hd).transpose(1, 2), kg, vg,
-            attn_mask=mask)
+            attn_mask=mask, enable_gqa=kvh != h)
 
     library = sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask))
+        qq, kk, vv, attn_mask=mask, enable_gqa=kvh != h))
     context = {f"gather_{n}": e for n, e in
                sdpa_backends(torch, gathered).items()}
     times = time_interleaved(torch, {"kernel": lambda: kern(
@@ -790,7 +817,8 @@ def time_paged_attention(torch, name, pos, n_live, checked=True):
     rows_pos = [[p + r for r in range(rows)] for p in pos]
     n_bytes, flops = _attn_cost(rows_pos, kvh, h // kvh, hd, 2, q.numel())
     b_ms, b_by = bound(n_bytes + 8 * b, flops, "bf16")
-    return {"shape": list(q_shape), "pos": pos, "page_size": ps,
+    return {"shape": list(q_shape), "heads": [h, kvh, hd], "pos": pos,
+            "page_size": ps,
             "n_live": n_live, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "library_ms": lib_all[lib_name],
             "library": lib_name, "library_ms_by_call": lib_all,
@@ -813,6 +841,13 @@ def kernel_attention(torch, results):
                 "cases": {}}
         results[name]["cases"][label] = {k: row[k] for k in (
             "ms", "library_ms", "library", "bound_ms", "plain_ms")}
+    # flash_decode at kimi-k2's heads (64 of 112 over 8 KV heads)
+    name, label, pos, n_live, heads = KIMI_DECODE_TIMED
+    row = time_paged_attention(torch, name, pos, n_live, heads=heads)
+    print(json.dumps({"phase": "kernel", "name": name, "case": label, **row,
+                      "tolerance": ATTN_BF16_ATOL}), flush=True)
+    results[name]["cases"][label] = {k: row[k] for k in (
+        "ms", "library_ms", "library", "bound_ms", "plain_ms")}
 
 
 def _mm_row(bf16, m, k, n, n_bytes, lanes, t):
@@ -967,7 +1002,8 @@ def kernel_flash_attention(torch, results):
         ("roberta bidirectional", 8, 128, 16, 16, 64, False, torch.float32),
         ("ragged gqa causal", 3, 100, 8, 2, 16, True, torch.float32),
         ("ragged gqa bidirectional", 3, 100, 8, 2, 16, False,
-         torch.bfloat16)]
+         torch.bfloat16),
+        ("kimi causal", 8, 128, 64, 8, 112, True, torch.bfloat16)]
     rows = []
     for label, b, s, h, kvh, hd, causal, dt in cases:
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
@@ -1038,7 +1074,10 @@ def kernel_flash_attention(torch, results):
         "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "library": main["library"]}
+        "library": main["library"],
+        "cases": {r["case"]: {k: r[k] for k in (
+            "kernel_ms", "library_ms", "library", "bound_ms", "plain_ms")}
+            for r in rows[1:]}}
 
 
 def kernel_zo_add_q(torch, results):
@@ -2423,9 +2462,11 @@ def _fleet_counts(cfg, quant, dispatches):
     return per, {k: v * dispatches for k, v in per.items()}
 
 
-def _lone_trainer(torch, cfg, user, quant, mz, log_dir):
+def _lone_trainer(torch, cfg, user, quant, mz, log_dir, batches=None,
+                  steps=FLEET_STEPS):
     """A lone port Trainer of ``user`` (the derived seed, the CLI's batch
-    stream, the CLI's seeded init) whose checkpoint manager writes the
+    stream -- or ``batches``, a step -> batch function -- the CLI's seeded
+    init) over ``steps`` steps, whose checkpoint manager writes the
     replay log but skips the step-0 snapshot (a multi-GB write that the
     comparison does not read). Returns (losses, final params)."""
     from repro_torch.checkpoint import CheckpointManager
@@ -2440,11 +2481,11 @@ def _lone_trainer(torch, cfg, user, quant, mz, log_dir):
             self.log.append(step, aux.seed, aux.gs, self.cfg.lr,
                             self.cfg.eps, mask=direction_mask)
 
-    fn = user_batches(cfg, user, TRAIN_B, TRAIN_S, 0)
+    fn = batches or user_batches(cfg, user, TRAIN_B, TRAIN_S, 0)
     tr = Trainer(cfg, TrainerConfig(
         estimator="fused", update="sgd", mezo=mz, quant=quant,
-        n_steps=FLEET_STEPS, seed=derive_user_seed(0, user), device="cuda",
-        log_every=10 ** 6), iter([fn(t) for t in range(FLEET_STEPS)]),
+        n_steps=steps, seed=derive_user_seed(0, user), device="cuda",
+        log_every=10 ** 6), iter([fn(t) for t in range(steps)]),
         log_fn=lambda s: None)
     tr.ckpt = LogOnly(str(log_dir), mezo_cfg=mz, update_rule=SGD)
     params = build_model(cfg).init(
@@ -2600,9 +2641,10 @@ def u_fleet(torch, paths, quant):
         "losses": {r.user: r.losses for r in results}}), flush=True)
 
 
-def u4_profile(torch, engine):
+def u4_profile(torch, engine, label="U4 profile"):
     """U4: one U1 dispatch (4 active lanes, both signs: 8 lanes) under
-    the profiler, on the engine's stacked state after the CLI's run."""
+    the profiler, on the engine's stacked state after the CLI's run (UF1:
+    the same for granite-moe)."""
     import numpy as np
     from repro_torch.core import rng
     from repro_torch.launch.train_fleet import user_batches
@@ -2626,7 +2668,7 @@ def u4_profile(torch, engine):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     wall_us, by_name, n_events = _profiled(torch, one)
-    _profile_line("U4 profile", wall_us, by_name, n_events, dispatches=1,
+    _profile_line(label, wall_us, by_name, n_events, dispatches=1,
                   lanes=2 * FLEET_SLOTS, dispatch_s_unprofiled=warm_s)
 
 
@@ -3485,6 +3527,293 @@ def f5_dense(torch, paths):
 
 
 # ---------------------------------------------------------------------------
+# UF1-UF4: the multi-tenant step of the other families (the user-axis
+# forward of MoE, RWKV-6, the mamba hybrid and the encoder-decoder)
+
+UF_MZ = dict(eps=1e-3, lr=1e-4)          # the train_fleet CLI's defaults
+UF2_USERS, UF2_SLOTS, UF2_STEPS, UF2_B = 3, 2, 2, 4
+UF3_SEEDS, UF3_COEFFS = [4242, 77], [1e-3, -1e-3]
+
+
+@contextlib.contextmanager
+def _lane_drops(torch, out):
+    """Record each ``moe_apply`` call's token count and the assignments
+    it drops past its capacity (a tensor on the card: no host sync), the
+    routing recomputed as ``moe_apply`` computes it."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    orig = moe.moe_apply
+
+    def recording(cfg, p, x):
+        xf = x.reshape(-1, x.shape[-1])
+        probs = torch.softmax(xf.to(torch.float32) @ p["router"], dim=-1)
+        idx = torch.topk(probs, cfg.topk, dim=-1).indices
+        counts = F.one_hot(idx, cfg.n_experts).sum((0, 1))
+        c = moe.capacity(xf.shape[0], cfg)
+        out.append((xf.shape[0], (counts - c).clamp(min=0).sum()))
+        return orig(cfg, p, x)
+    moe.moe_apply = recording
+    try:
+        yield out
+    finally:
+        moe.moe_apply = orig
+
+
+def _drops_summary(torch, label, calls, tokens):
+    """Every recorded MoE dispatch routed one lane's ``tokens`` against
+    that lane's capacity, and some lane dropped past it."""
+    seen = {n for n, _ in calls}
+    drops = torch.stack([d for _, d in calls]).tolist() if calls else []
+    check(seen == {tokens}, f"{label}: MoE dispatches of {sorted(seen)} "
+          f"tokens, expected one lane's {tokens}")
+    check(max(drops, default=0) > 0,
+          f"{label}: no lane dropped an assignment past its capacity")
+    return {"moe_dispatches": len(calls), "tokens_a_dispatch": tokens,
+            "dispatches_dropping": sum(d > 0 for d in drops),
+            "assignments_dropped": sum(drops)}
+
+
+def _uf_lone(torch, label, cfg, results, store, root, steps,
+             batches=None):
+    """Each user of ``results`` against a lone Trainer (``_lone_trainer``:
+    the derived seed, the seeded init, the user's batches): losses,
+    parameters and replay-log bytes at atol 0. Returns the seconds."""
+    from repro_torch.core.engine import MezoConfig
+    store.cache_bytes = 1          # keep one materialized user at a time
+    t0 = time.perf_counter()
+    for r in results:
+        losses, final = _lone_trainer(
+            torch, cfg, r.user, "none", MezoConfig(**UF_MZ),
+            root / f"lone_{r.user}", steps=steps,
+            batches=None if batches is None else batches(r.user))
+        check(r.losses == losses, f"{label} {r.user}: losses {r.losses} "
+              f"!= lone {losses}")
+        mat = store.materialize(r.user)
+        for k, leaf in final.items():
+            check(_same_leaf(torch, leaf, mat[k]),
+                  f"{label} {r.user}: {k} differs from the lone run")
+        log = (root / "engine" / f"{r.user}.jsonl").read_bytes()
+        check(log == (root / f"lone_{r.user}" / "replay.jsonl").read_bytes(),
+              f"{label} {r.user}: replay log differs from the lone run's")
+        del final, mat
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def _uf_cli(torch, paths, label, arch, users, slots, steps, bsz, root,
+            record_drops=False):
+    """The train_fleet CLI at full width: (engine, results, launches,
+    seconds, peak GiB, recorded MoE dispatches)."""
+    import shutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_fleet
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", arch, "--device", "cuda", "--users", str(users),
+            "--slots", str(slots), "--steps", str(steps), "--batch",
+            str(bsz), "--seq", str(TRAIN_S), "--estimator", "fused",
+            "--update", "sgd", "--seed", "0", "--log-dir",
+            str(root / "engine"), "--out", str(root / "summary.json")]
+    calls: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with (_lane_drops(torch, calls) if record_drops
+          else contextlib.nullcontext()):
+        engine, results = train_fleet.run(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _snapshot(ops)
+    paths[label] = launches
+    st = engine.stats
+    check(st.finished == users and st.user_steps == users * steps,
+          f"{label}: {st}")
+    check(all(math.isfinite(x) for r in results for x in r.losses),
+          f"{label}: losses {[r.losses for r in results]}")
+    _check_tc(label, launches, ["zo_matmul_users"])
+    check(launches["zo_add_users"] > 0 and launches["zo_matmul"] == 0,
+          f"{label}: launches {launches}")
+    return (engine, results, launches, dt,
+            _gib(torch.cuda.max_memory_allocated()), calls)
+
+
+def _uf_stats(st, bsz):
+    return {"dispatches": st.dispatches, "user_steps": st.user_steps,
+            "dispatch_s": st.train_s / st.dispatches,
+            "user_steps_per_s": st.user_steps_per_s,
+            "tokens_per_s": st.user_steps * bsz * TRAIN_S / st.train_s}
+
+
+def uf1_moe_fleet(torch, paths):
+    """UF1: granite-moe-1b-a400m at full depth through the ``train_fleet``
+    CLI (6 users on 4 slots, 3 fused sgd steps each, B 8 x 128): each
+    lane's MoE dispatch alone (its own capacity, recorded: some lane
+    drops), every user against a lone Trainer at atol 0, one dispatch
+    under the profiler."""
+    label, arch = "UF1 moe fleet", "granite-moe-1b-a400m"
+    root = WORK / "uf1"
+    engine, results, launches, dt, peak, calls = _uf_cli(
+        torch, paths, label, arch, FLEET_USERS, FLEET_SLOTS, FLEET_STEPS,
+        TRAIN_B, root, record_drops=True)
+    check(launches["zo_add"] > 0, f"{label}: no expert through zo_add")
+    drops = _drops_summary(torch, label, calls, TRAIN_B * TRAIN_S)
+    st, cfg, store = engine.stats, engine.cfg, engine.store
+    u4_profile(torch, engine, label="UF1 profile")
+    del engine, calls
+    torch.cuda.empty_cache()
+    lone_s = _uf_lone(torch, label, cfg, results, store, root, FLEET_STEPS)
+    _phase_line(torch, label, dt, launches, arch=arch, users=FLEET_USERS,
+                slots=FLEET_SLOTS, steps=FLEET_STEPS,
+                batch=[TRAIN_B, TRAIN_S], peak_memory_gib=peak,
+                **_uf_stats(st, TRAIN_B), drop_recorder_on=True, **drops,
+                lanes_bit_equal_lone_trainers=True,
+                lone_check_seconds=lone_s,
+                losses={r.user: r.losses for r in results})
+
+
+def uf2_rwkv_fleet(torch, paths):
+    """UF2: rwkv6-7b at full depth through the ``train_fleet`` CLI (3
+    users on 2 slots, 2 steps, B 4 x 128): every user against a lone
+    Trainer at atol 0."""
+    label, arch = "UF2 rwkv fleet", "rwkv6-7b"
+    root = WORK / "uf2"
+    engine, results, launches, dt, peak, _ = _uf_cli(
+        torch, paths, label, arch, UF2_USERS, UF2_SLOTS, UF2_STEPS, UF2_B,
+        root)
+    check(launches["zo_add"] == 0, f"{label}: a scalar zo_add launched")
+    st, cfg, store = engine.stats, engine.cfg, engine.store
+    del engine
+    torch.cuda.empty_cache()
+    from repro_torch.launch.train_fleet import user_batches
+    lone_s = _uf_lone(torch, label, cfg, results, store, root, UF2_STEPS,
+                      batches=lambda u: user_batches(cfg, u, UF2_B, TRAIN_S,
+                                                     0))
+    _phase_line(torch, label, dt, launches, arch=arch, users=UF2_USERS,
+                slots=UF2_SLOTS, steps=UF2_STEPS, batch=[UF2_B, TRAIN_S],
+                peak_memory_gib=peak, **_uf_stats(st, UF2_B),
+                lanes_bit_equal_lone_trainers=True,
+                lone_check_seconds=lone_s,
+                losses={r.user: r.losses for r in results})
+
+
+def uf3_hybrid_shared_base(torch, paths):
+    """UF3: jamba-v0.1-52b cut to one super-block (F3's 8 sublayers): the
+    user-axis fused loss over one shared bf16 base, U = 2 lanes (two
+    seeds, one sign each), each lane's MoE dispatch alone; every lane's
+    loss against the scalar fused loss at atol 0; peak memory."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import PerturbCtx
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    label = "UF3 hybrid shared base"
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=JAMBA_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    u = len(UF3_SEEDS)
+    lanes = {k: v[None].expand(u, *v.shape) for k, v in batch.items()}
+    calls: list = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with _lane_drops(torch, calls):
+            got = model.loss({k: v[None] for k, v in params.items()}, lanes,
+                             perturb=PerturbCtx(seed=UF3_SEEDS,
+                                                coeff=UF3_COEFFS))
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches = _snapshot(ops)
+        peak = torch.cuda.max_memory_allocated()
+        paths[label] = launches
+        scalar = [model.loss(params, batch, perturb=PerturbCtx(s, c)).item()
+                  for s, c in zip(UF3_SEEDS, UF3_COEFFS)]
+    got = got.tolist()
+    drops = _drops_summary(torch, label, calls, TRAIN_B * TRAIN_S)
+    _phase_line(torch, label, fwd_s, launches, arch=cfg.name,
+                n_layers=cfg.n_layers, lanes=u, batch=[TRAIN_B, TRAIN_S],
+                peak_memory_gib=_gib(peak), resident_gib=_gib(resident),
+                peak_over_resident_gib=_gib(peak - resident), losses=got,
+                scalar_losses=scalar, **drops)
+    check(got == scalar, f"{label}: lane losses {got} != scalar {scalar}")
+    check(peak < 80e9, f"{label}: peak {peak} bytes")
+    _check_tc(label, launches, ["zo_matmul_users"])
+    check(launches["zo_add"] > 0 and launches["zo_matmul"] == 0,
+          f"{label}: launches {launches}")
+
+
+def _enc_batches(cfg, user, bsz):
+    """The train_fleet CLI's stream for ``user`` (B ``bsz`` x TRAIN_S,
+    seed 0) with the audio frontend stub beside it: ``enc_embeds`` (B,
+    T_enc, d) normals from a (user, step) seed. (The CLI makes none.)"""
+    import zlib
+
+    import numpy as np
+    from repro_torch.launch.train_fleet import user_batches
+    base = user_batches(cfg, user, bsz, TRAIN_S, 0)
+    salt = zlib.crc32(f"0/{user}/enc".encode()) & 0x7FFFFFFF
+
+    def fn(step):
+        b = base(step)
+        b["enc_embeds"] = np.random.default_rng((salt, step)).standard_normal(
+            (bsz, cfg.enc_len, cfg.d_model), dtype=np.float32)
+        return b
+    return fn
+
+
+def uf4_encdec_engine(torch, paths):
+    """UF4: whisper-base at full depth through the ``TrainEngine`` (4
+    users on 4 slots, 3 steps, B 8 x 128 with ``enc_embeds``): every user
+    against a lone Trainer at atol 0."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import MezoConfig
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import train_multi_tenant
+    from repro_torch.train import TrainJob
+    label, users, slots, steps = "UF4 encdec engine", 4, 4, 3
+    root = WORK / "uf4"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = get_config("whisper-base")
+    jobs = [TrainJob(user=f"user-{i}", n_steps=steps,
+                     batches=_enc_batches(cfg, f"user-{i}", TRAIN_B))
+            for i in range(users)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    engine, results = train_multi_tenant(
+        cfg, jobs, n_slots=slots, seed=0, mezo_cfg=MezoConfig(**UF_MZ),
+        log_dir=str(root / "engine"), log_fn=lambda s: None, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _snapshot(ops)
+    paths[label] = launches
+    peak = _gib(torch.cuda.max_memory_allocated())
+    st, store = engine.stats, engine.store
+    check(st.finished == users and st.user_steps == users * steps,
+          f"{label}: {st}")
+    _check_tc(label, launches, ["zo_matmul_users"])
+    check(launches["zo_add_users"] > 0 and launches["zo_matmul"] == 0,
+          f"{label}: launches {launches}")
+    del engine
+    torch.cuda.empty_cache()
+    lone_s = _uf_lone(torch, label, cfg, results, store, root, steps,
+                      batches=lambda u: _enc_batches(cfg, u, TRAIN_B))
+    _phase_line(torch, label, dt, launches, arch=cfg.name, users=users,
+                slots=slots, steps=steps, batch=[TRAIN_B, TRAIN_S],
+                enc_len=cfg.enc_len, peak_memory_gib=peak,
+                **_uf_stats(st, TRAIN_B), lanes_bit_equal_lone_trainers=True,
+                lone_check_seconds=lone_s,
+                losses={r.user: r.losses for r in results})
+
+
+# ---------------------------------------------------------------------------
 # FL1, A1, ST1, P1: the async elastic fleet, the gradient baseline, the
 # straggler arm and the data pipeline (OPT-1.3B at full width, bf16)
 
@@ -3958,6 +4287,18 @@ def main():
         t0 = time.perf_counter()
         phase()
         print(json.dumps({"phase": "family done",
+                          "seconds": time.perf_counter() - t0}), flush=True)
+
+    # UF1-UF4: the multi-tenant step of those families
+    for phase in (lambda: uf1_moe_fleet(torch, paths),
+                  lambda: uf2_rwkv_fleet(torch, paths),
+                  lambda: uf3_hybrid_shared_base(torch, paths),
+                  lambda: uf4_encdec_engine(torch, paths)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase()
+        print(json.dumps({"phase": "multi-tenant family done",
                           "seconds": time.perf_counter() - t0}), flush=True)
 
     # FL1, A1, ST1, P1: the fleet, the gradient baseline, stragglers, the

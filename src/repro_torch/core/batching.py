@@ -15,7 +15,9 @@ batches sequences on axis 1):
   ``models.runtime`` ask it);
 * :func:`stack_users` / :func:`install_user` / :func:`take_user` -- build
   a user-stacked tree from per-user trees, write one user into a slot
-  lane (in place), and read one lane back out (views).
+  lane (in place), and read one lane back out (views);
+  :func:`take_lane` reads a lane of the perturbed forward's n lanes
+  (lane i of leaves that carry P lanes is leaf lane ``i % P``).
 
 The quantized-leaf convention throughout: ``q`` / ``scale`` are frozen
 and shared by every user (one resident int8 base), only the f32 ``delta``
@@ -140,6 +142,17 @@ def install_user(stacked, tree, slot: int):
         return stacked
     stacked[slot].copy_(torch.as_tensor(tree))
     return stacked
+
+
+def take_lane(stacked, lane: int):
+    """Lane ``lane`` of a user-stacked tree whose leaves carry P lanes
+    each (lane i reads leaf lane ``i % P``, a frozen quantized leaf is
+    shared), as an unstacked tree of views: what the perturbed forward
+    hands a block that runs its lanes one at a time."""
+    if isinstance(stacked, dict):
+        return {k: take_lane(v, lane) for k, v in stacked.items()}
+    p = user_lanes(stacked)
+    return stacked if p is None else take_user(stacked, lane % p)
 
 
 def take_user(stacked, slot: int):

@@ -147,6 +147,11 @@ class PerturbCtx:
         """The scalar ctx of one lane (each lane's bits are its)."""
         return dataclasses.replace(self, seed=int(seed), coeff=coeff)
 
+    def lanes(self):
+        """The scalar ctx of every lane, in lane order: what a block that
+        runs its lanes one at a time (the MoE dispatch) perturbs with."""
+        return [self._lane(s, c) for s, c in zip(self.seed, self.coeff)]
+
     def _by_lane(self, t: torch.Tensor, p: Optional[int]) -> torch.Tensor:
         """A shared leaf (p None) or a (p, ...) per-user one as an
         (n, ...) tensor whose lane i is leaf lane i % p: a stride-0 view,

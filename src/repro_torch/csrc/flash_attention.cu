@@ -46,6 +46,15 @@
 //
 // Both: masked keys (causal, or past T) get probability 0; query head h
 // reads KV head h / (H / KV); S and T are arbitrary (tails masked).
+//
+// Head dim 112 (kimi-k2-1t-a32b), not a power of two: the bf16 body takes
+// it as it is -- 7 k-steps of 16 for Q K^T, each one ldmatrix.x4 of Q and
+// of K (no step is paired with another), and 14 output n-tiles of 8 for
+// P V, taken in pairs, 14 being even; rows of 120 elements (240 bytes)
+// keep ldmatrix 16-byte aligned and its 8 rows on distinct banks; 56 f32
+// accumulators a thread, fewer than hd 128's 64, in the 4-warp block.
+// The SIMT body gives each lane ceil(112 / 32) = 4 output columns,
+// lane + 32 e, the last lanes' fourth idle.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -75,7 +84,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int s,
                        int t, int h, int kvh, int causal, float scale) {
-  constexpr int E = HD >= 32 ? HD / 32 : 1;
+  // output columns a lane (lane + 32 * e, those past HD idle): 4 at 112
+  constexpr int E = (HD + 31) / 32;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                       // [kBQ][HD], scaled
   float* ks = qs + kBQ * HD;              // [kBK][HD + 1]
@@ -216,6 +226,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                                   scale, st);
     case 64: return launch<T, 64>(q, k, v, out, b, s, t, h, kvh, causal,
                                   scale, st);
+    case 112: return launch<T, 112>(q, k, v, out, b, s, t, h, kvh, causal,
+                                    scale, st);
     case 128: return launch<T, 128>(q, k, v, out, b, s, t, h, kvh, causal,
                                     scale, st);
     case 256: return launch<T, 256>(q, k, v, out, b, s, t, h, kvh, causal,
@@ -515,6 +527,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                                scale, st);
     case 64: return launch<64>(q, k, v, out, b, s, t, h, kvh, causal,
                                scale, st);
+    case 112: return launch<112>(q, k, v, out, b, s, t, h, kvh, causal,
+                                 scale, st);
     case 128: return launch<128>(q, k, v, out, b, s, t, h, kvh, causal,
                                  scale, st);
     case 256: return launch<256>(q, k, v, out, b, s, t, h, kvh, causal,
@@ -535,7 +549,7 @@ extern "C" int repro_flash_attention_body(int dtype) {
 }
 
 // q, out: (B, S, H, hd); k, v: (B, T, KV, hd); contiguous, one dtype
-// (0 float32, 1 bfloat16); H % KV == 0; hd in {16, 32, 64, 128, 256};
+// (0 float32, 1 bfloat16); H % KV == 0; hd in {16, 32, 64, 112, 128, 256};
 // scale: the f32 1 / sqrt(hd). Returns cudaGetLastError() after the
 // launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,

@@ -39,6 +39,14 @@
 //   hd * sizeof(T) / 16 lanes a key (8 at bf16 hd 64), one 16-byte read
 //   each, a dot of the lane's elements and log2 of that many butterfly
 //   shuffles. All G rows of the KV head share each staged tile;
+// - head dim 112 (kimi-k2-1t-a32b) is 14 chunks a row in bf16 and 28 in
+//   f32, not a power of two: the lane group a key is padded to the next
+//   one (16 lanes in bf16, 2 keys a warp pass; 32 in f32, 1 key), the
+//   idle lanes hold zeros, which leave the butterflies' dot and the key
+//   groups' merge exact, and read, write and merge nothing; the tile
+//   rounds down to a power of two of keys (8 KB / 224 B = 36 -> 32 in
+//   bf16, 18 -> 16 in f32) so the key slices still divide it. At 16,
+//   32, 64, 128 and 256 nothing of this changes;
 // - online softmax in f32 (expf, the -1e30 start, max(l, 1e-30)) over
 //   groups of keys; partials (m, l, acc) of the key-splitting warps merge
 //   through shared memory in a fixed order. No atomics: two calls give
@@ -58,31 +66,55 @@ constexpr int kStages = 4;     // tiles in the shared-memory ring
 constexpr int kWarps = 8;      // warps a block
 constexpr int kMaxRows = 4;    // query rows a warp holds
 
+constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+constexpr int pow2_floor(int n) { return n < 2 ? 1 : 2 * pow2_floor(n / 2); }
+
 template <typename T, int HD>
 struct Geo {
   static constexpr int kRow = HD * static_cast<int>(sizeof(T));  // bytes
   static constexpr int kChunks = kRow / 16;          // 16-byte chunks a row
   static constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // a chunk
-  static constexpr int kLanes = kChunks < 32 ? kChunks : 32;  // lanes a key
-  static constexpr int kCh = kChunks / kLanes;       // chunks a lane
+  static constexpr int kLanes =                      // lanes a key: 2^n
+      pow2_ceil(kChunks) < 32 ? pow2_ceil(kChunks) : 32;
+  static constexpr int kCh = (kChunks + kLanes - 1) / kLanes;  // a lane
+  // every lane's every chunk lies in the row (all but hd 112)
+  static constexpr bool kExact = kChunks % kLanes == 0;
   static constexpr int kE = kCh * kPer;              // elements a lane
   static constexpr int kKeys = 32 / kLanes;          // keys a warp pass
-  static constexpr int kTile =                       // keys a tile: 8 KB
-      8192 / kRow > 64 ? 64 : (8192 / kRow < 8 ? 8 : 8192 / kRow);
+  static constexpr int kTile = pow2_floor(           // keys a tile: 8 KB
+      8192 / kRow > 64 ? 64 : (8192 / kRow < 8 ? 8 : 8192 / kRow));
   static constexpr int kRingBytes = kStages * 2 * kTile * kRow;
   static constexpr int kSmemBytes =                  // + merge scratch
       kRingBytes + kWarps * (HD + 2) * static_cast<int>(sizeof(float));
+  static_assert(kRow % 16 == 0, "a row is whole 16-byte chunks");
 };
 
-// the lane's kCh chunks of a row: chunk (lane % kLanes) + kLanes * c
+// chunk c of the lane's kCh: (lane % kLanes) + kLanes * c, inside the row
+// unless the lane is one of hd 112's idle ones
+template <typename T, int HD>
+__device__ __forceinline__ bool own_chunk(int lane, int c) {
+  using G = Geo<T, HD>;
+  return G::kExact || (lane % G::kLanes) + G::kLanes * c < G::kChunks;
+}
+
+// the lane's kCh chunks of a row (zeros for an idle lane's)
 template <typename T, int HD>
 __device__ __forceinline__ void row_to_f32(const T* row, int lane,
                                            float* out) {
   using G = Geo<T, HD>;
 #pragma unroll
-  for (int c = 0; c < G::kCh; ++c)
-    load_f32<T, G::kPer>(row + ((lane % G::kLanes) + G::kLanes * c) * G::kPer,
-                         out + c * G::kPer);
+  for (int c = 0; c < G::kCh; ++c) {
+    if (own_chunk<T, HD>(lane, c)) {
+      load_f32<T, G::kPer>(
+          row + ((lane % G::kLanes) + G::kLanes * c) * G::kPer,
+          out + c * G::kPer);
+    } else {
+#pragma unroll
+      for (int e = 0; e < G::kPer; ++e) out[c * G::kPer + e] = 0.0f;
+    }
+  }
 }
 
 // KS: warps sharing a query row, each taking 1 / KS of every tile's keys;
@@ -239,8 +271,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     T* row = out + (static_cast<int64_t>(b) * n_heads + kv * g_per + g) * HD;
 #pragma unroll
     for (int c = 0; c < G::kCh; ++c)
-      store_from_f32<T, G::kPer>(row + (lane + G::kLanes * c) * G::kPer,
-                                 y + c * G::kPer);
+      if (own_chunk<T, HD>(lane, c))
+        store_from_f32<T, G::kPer>(row + (lane + G::kLanes * c) * G::kPer,
+                                   y + c * G::kPer);
   };
   if constexpr (KS == 1) {
 #pragma unroll
@@ -253,9 +286,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       float* pr = part + (ks * nr + rr) * (HD + 2);
 #pragma unroll
       for (int c = 0; c < G::kCh; ++c)
+        if (own_chunk<T, HD>(lane, c))
 #pragma unroll
-        for (int e = 0; e < G::kPer; ++e)
-          pr[(lane + G::kLanes * c) * G::kPer + e] = acc[0][c * G::kPer + e];
+          for (int e = 0; e < G::kPer; ++e)
+            pr[(lane + G::kLanes * c) * G::kPer + e] =
+                acc[0][c * G::kPer + e];
       if (lane == 0) {
         pr[HD] = m[0];
         pr[HD + 1] = l[0];
@@ -277,11 +312,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         den = fmaf(w, pr[HD + 1], den);
 #pragma unroll
         for (int c = 0; c < G::kCh; ++c)
+          if (own_chunk<T, HD>(lane, c))
 #pragma unroll
-          for (int e = 0; e < G::kPer; ++e)
-            o[c * G::kPer + e] =
-                fmaf(w, pr[(lane + G::kLanes * c) * G::kPer + e],
-                     o[c * G::kPer + e]);
+            for (int e = 0; e < G::kPer; ++e)
+              o[c * G::kPer + e] =
+                  fmaf(w, pr[(lane + G::kLanes * c) * G::kPer + e],
+                       o[c * G::kPer + e]);
       }
       store(rr, o, fmaxf(den, 1e-30f));
     }
@@ -350,6 +386,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                                   n_live, scale, st);
     case 64: return launch<T, 64>(q, k, v, pg, pos, out, b, h, kvh, ps,
                                   n_live, scale, st);
+    case 112: return launch<T, 112>(q, k, v, pg, pos, out, b, h, kvh, ps,
+                                    n_live, scale, st);
     case 128: return launch<T, 128>(q, k, v, pg, pos, out, b, h, kvh, ps,
                                     n_live, scale, st);
     case 256: return launch<T, 256>(q, k, v, pg, pos, out, b, h, kvh, ps,

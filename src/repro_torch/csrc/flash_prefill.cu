@@ -87,6 +87,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                                   n_live, scale, st);
     case 64: return launch<T, 64>(q, k, v, pg, pos, out, b, c, h, kvh, ps,
                                   n_live, scale, st);
+    case 112: return launch<T, 112>(q, k, v, pg, pos, out, b, c, h, kvh, ps,
+                                    n_live, scale, st);
     case 128: return launch<T, 128>(q, k, v, pg, pos, out, b, c, h, kvh, ps,
                                     n_live, scale, st);
     case 256: return launch<T, 256>(q, k, v, pg, pos, out, b, c, h, kvh, ps,
@@ -123,6 +125,9 @@ int tc_dispatch(int hd, const void* q, const void* k, const void* v,
     case 64: return tc::launch<64>(flash_prefill_tc_kernel<64>, q, k, v, pg,
                                    pos, out, b, c, h, kvh, ps, n_live, scale,
                                    st);
+    case 112: return tc::launch<112>(flash_prefill_tc_kernel<112>, q, k, v,
+                                     pg, pos, out, b, c, h, kvh, ps, n_live,
+                                     scale, st);
     case 128: return tc::launch<128>(flash_prefill_tc_kernel<128>, q, k, v,
                                      pg, pos, out, b, c, h, kvh, ps, n_live,
                                      scale, st);

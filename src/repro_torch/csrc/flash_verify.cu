@@ -95,6 +95,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                            scale, st); break;
     case 64: launch<T, 64>(q, k, v, pg, pos, out, b, w, h, kvh, ps, n_live,
                            scale, st); break;
+    case 112: launch<T, 112>(q, k, v, pg, pos, out, b, w, h, kvh, ps,
+                             n_live, scale, st); break;
     case 128: launch<T, 128>(q, k, v, pg, pos, out, b, w, h, kvh, ps,
                              n_live, scale, st); break;
     case 256: launch<T, 256>(q, k, v, pg, pos, out, b, w, h, kvh, ps,
@@ -132,6 +134,9 @@ int tc_dispatch(int hd, const void* q, const void* k, const void* v,
     case 64: return tc::launch<64>(flash_verify_tc_kernel<64>, q, k, v, pg,
                                    pos, out, b, w, h, kvh, ps, n_live, scale,
                                    st);
+    case 112: return tc::launch<112>(flash_verify_tc_kernel<112>, q, k, v,
+                                     pg, pos, out, b, w, h, kvh, ps, n_live,
+                                     scale, st);
     case 128: return tc::launch<128>(flash_verify_tc_kernel<128>, q, k, v,
                                      pg, pos, out, b, w, h, kvh, ps, n_live,
                                      scale, st);

@@ -18,8 +18,11 @@
 // scores to -1e30 and multiplies by the zero probabilities, which would
 // let a NaN through.)
 //
-// Each lane holds E = HD / 32 contiguous elements of q and of the f32
-// accumulator (one element for HD < 32, the lanes past HD idle). Keys go
+// Each lane holds E = ceil(HD / 32) contiguous elements of q and of the
+// f32 accumulator, the lanes past HD idle: HD / 32 at 64, 128 and 256
+// (every lane busy), one element for HD < 32, and 4 at HD 112 (lanes
+// 0-27 hold the row, 28-31 hold zeros, which add nothing to a dot and
+// are never stored). Keys go
 // KT at a time: KT independent dot products are loaded and reduced
 // together (butterfly shuffles), then the online softmax (m, l, acc)
 // takes the tile -- the TPU kernel's per-page update, at tile
@@ -92,10 +95,11 @@ __device__ void attend_row(const T* __restrict__ q_row,
                            const int32_t* __restrict__ table, int n_live,
                            int ps, int kvh, int kv, int qpos, float scale,
                            T* __restrict__ out_row) {
-  constexpr int E = HD >= 32 ? HD / 32 : 1;
+  constexpr int E = (HD + 31) / 32;
+  static_assert(HD % E == 0, "a lane's elements end at the row's end");
   constexpr int KT = 8;
   const int lane = threadIdx.x & 31;
-  const bool active = lane * E < HD;   // uniform unless HD < 32
+  const bool active = lane * E < HD;   // uniform at HD 32, 64, 128, 256
   float q[E], acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) q[e] = acc[e] = 0.0f;

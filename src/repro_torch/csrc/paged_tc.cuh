@@ -28,6 +28,12 @@
 // (source size 0), never read, so NaN there cannot reach the output. The
 // four warps' partials (m, l, O) merge through shared memory in a fixed
 // order: no atomics, two calls give the same bits.
+//
+// Head dim 112 (kimi-k2-1t-a32b) runs this body as it stands: Q K^T is 7
+// k-steps of 16, each its own ldmatrix.x4 of Q and of K, none paired; P V
+// is 14 n-tiles of 8 taken two at a time, 14 being even; rows of 120
+// elements (240 bytes) keep every ldmatrix 16-byte aligned and its 8 rows
+// on distinct banks; O is 56 f32 registers a thread (hd 128: 64).
 #pragma once
 
 #include "paged_attn.cuh"

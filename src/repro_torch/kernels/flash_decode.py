@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels.build import launch
 
 #: head dims the CUDA attention kernels are instantiated for
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

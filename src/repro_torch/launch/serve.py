@@ -41,7 +41,7 @@ FAMILY_ARCHS = {
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="opt-1.3b", choices=ALL_ARCHS)
+    ap.add_argument("--arch", default="gemma-2b", choices=ALL_ARCHS)
     ap.add_argument("--family", default=None, choices=sorted(FAMILY_ARCHS),
                     help="serve this family's representative arch "
                          "(overrides --arch): " + ", ".join(

@@ -1,13 +1,14 @@
 """Multi-tenant fine-tune launcher: N users through one TrainEngine.
 
-Port of the JAX package's ``launch/train_fleet.py``: the same flags, plus
-``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions,
-for reduced configs). A fleet of per-user fine-tune jobs shares one
-resident base (full precision or int8) and the batched TrainEngine
-advances every resident job per dispatch -- each user's trajectory
-bit-identical to a lone sequential Trainer run with that user's derived
-seed. On the card the projections always take the CUDA kernels (the JAX
-CLI's ``--use-kernel`` has no counterpart).
+Port of the JAX package's ``launch/train_fleet.py``: the same flags and
+defaults, plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
+plain versions, for reduced configs). A fleet of per-user fine-tune jobs
+shares one resident base (full precision or int8) and the batched
+TrainEngine advances every resident job per dispatch -- each user's
+trajectory bit-identical to a lone sequential Trainer run with that
+user's derived seed, for every family (``--arch``). On the card the
+projections always take the CUDA kernels: ``--use-kernel`` is taken and
+has no effect, as in ``launch/train.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train_fleet --arch opt-1.3b \\
       --reduced --device cpu --users 6 --slots 4 --steps 3 --quant int8
@@ -48,7 +49,7 @@ def user_batches(cfg, user: str, batch: int, seq: int, seed: int):
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch."
                                       "train_fleet")
-    ap.add_argument("--arch", default="opt-1.3b", choices=ALL_ARCHS)
+    ap.add_argument("--arch", default="gemma-2b", choices=ALL_ARCHS)
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized config of the same family")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -74,6 +75,10 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="base-weight quantization (none | int8): int8 "
                          "keeps ONE ~1 byte/param base resident for every "
                          "user; per-user state is only the f32 deltas")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="no effect: tensors on the card always take the "
+                         "CUDA kernels, tensors on the CPU their plain "
+                         "versions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-dir", default=None,
                     help="append per-user replay logs under this dir "

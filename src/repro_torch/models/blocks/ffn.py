@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.batching import take_lane
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MoE
 from repro_torch.models.blocks.base import BlockType, register_block
@@ -31,7 +32,21 @@ def _mlp_apply(cfg, p, x, rc, ctx=None):
 def _moe_apply(cfg, p, x, rc, ctx=None):
     """``ctx.materialize`` (perturb + dequant) of the expert sub-dict
     with a ctx, a plain dequant without one; the salts are the leaves'
-    full paths (``blocks/moe/w_in``, ``blocks/moe/shared/w_in/w``)."""
+    full paths (``blocks/moe/w_in``, ``blocks/moe/shared/w_in/w``).
+
+    Under a user-axis ctx the lanes dispatch one at a time, as the
+    reference's vmapped lane does: lane i's B * S tokens route with
+    ``capacity(B * S)`` through lane i's own experts, materialized by its
+    scalar ctx and freed before the next lane's (one lane's transient,
+    never n), and the aux loss comes back per lane, (n,)."""
+    if ctx is not None and ctx.batched:
+        outs, aux = [], []
+        for i, (lctx, xl) in enumerate(zip(ctx.lanes(),
+                                           ctx.split_lanes(x))):
+            y, a = MoE.moe_apply(cfg, lctx.materialize(take_lane(p, i)), xl)
+            outs.append(y)
+            aux.append(a)
+        return torch.cat(outs), torch.stack(aux)
     p = dequantize_tree(p) if ctx is None else ctx.materialize(p)
     return MoE.moe_apply(cfg, p, x)
 

@@ -81,6 +81,42 @@ def _lanes(ctx, x, fn, *per_lane):
     return fn(xl, *vs).reshape(x.shape)
 
 
+def per_row(ctx, v, x, ndim=None):
+    """Leaf ``v`` ready to broadcast, in an elementwise expression,
+    against a tensor of rank ``ndim`` (default ``x.dim()``) whose batch
+    is ``x``'s: ``v`` itself without a user-axis ctx; under one, its
+    per-lane ``(n, *leaf)`` form repeated over each lane's rows of the
+    flattened ``(n * B, ...)`` batch and shaped ``(n * B, 1, ..., 1,
+    *leaf)``, so every row meets its own lane's value where the scalar
+    path's ``leaf`` would broadcast."""
+    if not _batched(ctx):
+        return v
+    n = ctx.n_lanes
+    rows = v[:, None].expand(n, x.shape[0] // n, *v.shape[1:])
+    pad = (ndim or x.dim()) - v.dim()
+    return rows.reshape(x.shape[0], *([1] * pad), *v.shape[1:])
+
+
+def lane_matmul(ctx, x, w):
+    """``x @ w`` for a leaf ``w`` a ctx has perturbed (``ctx.perturb``):
+    under a user-axis ctx lane by lane, each lane's rows of x against its
+    own ``w`` at the scalar path's shapes."""
+    if not _batched(ctx):
+        return x @ w
+    return torch.cat([xu @ wu for xu, wu in zip(ctx.split_lanes(x),
+                                                w.unbind(0))])
+
+
+def lane_einsum(ctx, eq, *xs):
+    """``torch.einsum(eq, *xs)`` over activations batched on axis 0; under
+    a user-axis ctx lane by lane at the scalar path's shapes (a product
+    the card might sum in another order at another batch size)."""
+    if not _batched(ctx):
+        return torch.einsum(eq, *xs)
+    return torch.cat([torch.einsum(eq, *us) for us in
+                      zip(*[ctx.split_lanes(x) for x in xs])])
+
+
 def norm_apply(cfg, p, x, ctx=None):
     if ctx is not None:
         p = {k: ctx.perturb(k, v) for k, v in p.items()}
@@ -258,7 +294,14 @@ def cross_attn_apply(cfg, p, x, enc_kv, ctx=None):
     hd = cfg.resolved_head_dim
     q = dense(p["wq"], x, _sub(ctx, "wq")).reshape(b, s, cfg.n_heads, hd)
     k, v = enc_kv
-    out = attention(q, k, v, causal=False, chunk=0)
+    if _batched(ctx):
+        # lane by lane: the products and softmax at the scalar shapes
+        out = torch.cat([attention(qu, ku, vu, causal=False, chunk=0)
+                         for qu, ku, vu in zip(ctx.split_lanes(q),
+                                               ctx.split_lanes(k),
+                                               ctx.split_lanes(v))])
+    else:
+        out = attention(q, k, v, causal=False, chunk=0)
     return dense(p["wo"], out.reshape(b, s, -1), _sub(ctx, "wo"))
 
 
@@ -326,8 +369,5 @@ def unembed(cfg, embed_p, head_p, x, ctx=None):
         # the tied head reads the embedding transposed; the row-major
         # z-field does not transpose into kernel tiles: perturb transiently
         tok = ctx.scope("embed").perturb("tok", embed_p["tok"])
-        if _batched(ctx):
-            return torch.cat([xu @ tu.T for xu, tu in
-                              zip(ctx.split_lanes(x), tok.unbind(0))])
-        return x @ tok.T
+        return lane_matmul(ctx, x, tok.transpose(-2, -1))
     return dense(head_p, x, _sub(ctx, "lm_head"))

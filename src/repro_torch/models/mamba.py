@@ -9,7 +9,11 @@ The full-sequence apply threads an optional ``PerturbCtx``: dense
 projections through ``ctx``-aware ``L.dense`` (``zo_matmul`` on the
 card), the conv / SSM leaves through a transient ``ctx.perturb``
 (``zo_add``) -- the hybrid family's fused ZO loss takes no transient
-copy of the parameters.
+copy of the parameters. Under a user-axis ctx (lanes flattened in the
+batch) the conv and SSM leaves meet only their own lane's rows
+(``L.per_row``), ``dt_proj`` and the scan's one contraction a step run
+lane by lane at the scalar path's shapes, and the rest of the selective
+scan, elementwise in the batch, runs over every lane at once.
 """
 
 from __future__ import annotations
@@ -48,8 +52,9 @@ def _ssm_inputs(cfg, p, xc, d_model=None, ctx=None):
     proj = L.dense(p["x_proj"], xc, _sub(ctx, "x_proj")).to(_F32)
     dt_raw, bmat, cmat = torch.split(proj, [dtr, n, n], dim=-1)
     dtp = _sub(ctx, "dt_proj")
-    dt = _softplus(dt_raw @ _leaf(p["dt_proj"], "w", dtp).to(_F32)
-                   + _leaf(p["dt_proj"], "b", dtp).to(_F32))
+    dt = L.lane_matmul(ctx, dt_raw, _leaf(p["dt_proj"], "w", dtp).to(_F32))
+    dt = _softplus(dt + L.per_row(ctx, _leaf(p["dt_proj"], "b", dtp),
+                                  dt).to(_F32))
     return dt, bmat, cmat
 
 
@@ -62,23 +67,25 @@ def _scan_ssm(p, xc, dt, bmat, cmat, h0=None, ctx=None):
          if h0 is None else h0)
     # the per-step decay and input, for every step at once (elementwise,
     # the same products the reference forms a step at a time)
-    da = torch.exp(dt[..., None] * a)                    # (B, S, di, n)
+    da = torch.exp(dt[..., None] * L.per_row(ctx, a, dt, 4))  # (B, S, di, n)
     dbx = (dt * xc.to(_F32))[..., None] * bmat[:, :, None, :]
     ys = []
     for t in range(s):
         h = da[:, t] * h + dbx[:, t]
-        ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t]))
-    y = torch.stack(ys, dim=1) + xc.to(_F32) * _leaf(p, "D", ctx)
+        ys.append(L.lane_einsum(ctx, "bdn,bn->bd", h, cmat[:, t]))
+    y = torch.stack(ys, dim=1) + xc.to(_F32) * L.per_row(
+        ctx, _leaf(p, "D", ctx), xc)
     return y.to(xc.dtype), h
 
 
 def _conv(p, window, s, d_conv, ctx=None):
     """Depthwise causal conv: output t reads window[t .. t + d_conv)."""
-    conv_w = _leaf(p, "conv_w", ctx)
+    conv_w = [L.per_row(ctx, w, window)
+              for w in _leaf(p, "conv_w", ctx).unbind(-2)]
     out = window[:, 0:s] * conv_w[0]
     for i in range(1, d_conv):
         out = out + window[:, i:i + s] * conv_w[i]
-    return out + _leaf(p, "conv_b", ctx)
+    return out + L.per_row(ctx, _leaf(p, "conv_b", ctx), window)
 
 
 def mamba_apply(cfg, p, x, d_model=None, ctx=None):

@@ -19,9 +19,12 @@ lanes each with its own seed and coefficient) the lanes ride flattened
 in the batch, the user-stacked parameters' per-user parts are sliced at
 ``[:, layer]`` (``core.batching.user_leaf_axes`` says which), and
 ``loss`` returns the (n,) per-lane losses, each computed at the scalar
-path's shapes. The user-axis forward of the families whose blocks would
-share state across lanes (MoE capacity, recurrent scans, the encoder)
-raises ``NotImplementedError``: it lands with slice 6b of the port.
+path's shapes, as the reference's vmapped lane computes it: every
+family takes it. A MoE block dispatches lane by lane (capacity and the
+aux loss per lane: ``forward``'s aux is then (n,)), the recurrent scans
+run over the flattened lanes with their contractions lane by lane, and
+an encoder-decoder runs its encoder under the same ctx over the
+flattened ``enc_embeds``.
 
 An encoder-decoder plan carries a second, stateless stack
 (``ModelPlan.encoder``) that ``forward`` runs over ``batch["enc_embeds"]``
@@ -169,9 +172,11 @@ def _stack_apply(cfg, stack: StackPlan, params, x, rc: RunCtx, ctx=None):
     (``at_layer``), so each layer's z slice is that of the stacked leaf."""
     blocks = nest(params, stack.scope)
     sctx = _sub(ctx, stack.scope)
-    axes = (user_leaf_axes(blocks) if ctx is not None and ctx.batched
-            else None)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    batched = ctx is not None and ctx.batched
+    axes = user_leaf_axes(blocks) if batched else None
+    # the aux loss: per lane under a user-axis ctx
+    aux = torch.zeros((ctx.n_lanes,) if batched else (),
+                      dtype=torch.float32, device=x.device)
     for li in range(stack.n_layers):
         bp = _index(blocks, li, axes)
         bctx = None if sctx is None else sctx.at_layer(li)
@@ -238,17 +243,28 @@ def _stack_seq(cfg, stack: StackPlan, params, state, x, rc: RunCtx,
                for m, leaves in snaps.items()}
 
 
-def check_user_axis(plan: ModelPlan):
-    """The user-axis forward runs the lanes flattened in the batch, where
-    MoE capacity, recurrent scans and an encoder would be shared across
-    users: only the dense and encoder families take it for now."""
-    blocks = {sl.block for sl in plan.stack.sublayers}
-    if plan.encoder is not None or not blocks <= {"attention", "mlp"}:
-        raise NotImplementedError(
-            f"the user-axis (multi-tenant) forward of the "
-            f"{plan.cfg.family!r} family ({plan.cfg.name}) lands with "
-            f"slice 6b of the port: MoE capacity and recurrent state must "
-            f"stay per lane")
+#: the batch inputs a user-axis forward reads, each with its lane axis
+_LANE_INPUTS = ("tokens", "attn_mask", "patch_embeds", "enc_embeds")
+
+
+def check_user_axis(plan: ModelPlan, batch, n_lanes: int):
+    """Every family takes the user-axis forward; what cannot run is a
+    batch whose inputs do not carry the ctx's ``n_lanes`` lanes on axis
+    0 (``tokens`` (n, B, S), ``enc_embeds`` (n, B, T, d), ...), or an
+    encoder-decoder batch without ``enc_embeds``. Raises ``ValueError``
+    naming the input."""
+    if plan.encoder is not None and "enc_embeds" not in batch:
+        raise ValueError(f"{plan.cfg.name}: a user-axis batch needs "
+                         f"enc_embeds (n, B, T, d) for the encoder")
+    for key in _LANE_INPUTS:
+        v = batch.get(key)
+        if v is None:
+            continue
+        rank = 3 if key in ("tokens", "attn_mask") else 4
+        if v.dim() != rank or v.shape[0] != n_lanes:
+            raise ValueError(
+                f"{plan.cfg.name}: user-axis {key} must carry {n_lanes} "
+                f"lanes on axis 0 (rank {rank}), got {tuple(v.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -258,22 +274,28 @@ def check_user_axis(plan: ModelPlan):
 def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
     """Full-sequence forward -> (logits, aux). ``perturb`` (a PerturbCtx)
     switches on the fused perturbed forward; a user-axis one takes
-    ``tokens`` (n, B, S) and returns logits (n * B, ...). A batch's
+    ``tokens`` (n, B, S) (and every other input with its lane axis) and
+    returns logits (n * B, ...) and aux (n,). A batch's
     ``patch_embeds`` (B, P, d), the vlm frontend stub, is prepended to
     the token embeddings and cut off again before the LM head; an
     enc-dec plan runs its encoder over ``enc_embeds`` (B, T_enc, d), the
     audio frontend stub."""
     cfg = plan.cfg
+    batched = perturb is not None and perturb.batched
+    if batched:
+        check_user_axis(plan, batch, perturb.n_lanes)
     tokens = batch["tokens"]
     kv_mask = batch.get("attn_mask")
     patches = batch.get("patch_embeds")
-    if perturb is not None and perturb.batched:
-        check_user_axis(plan)
+    frames = batch["enc_embeds"] if plan.encoder is not None else None
+    if batched:
         tokens = tokens.reshape(-1, tokens.shape[-1])
         if kv_mask is not None:
             kv_mask = kv_mask.reshape(-1, kv_mask.shape[-1])
         if patches is not None:
             patches = patches.reshape(-1, *patches.shape[-2:])
+        if frames is not None:
+            frames = frames.reshape(-1, *frames.shape[-2:])
     x = L.embed_apply(cfg, nest(params, "embed"), tokens,
                       ctx=_sub(perturb, "embed"))
     n_prefix = 0
@@ -282,7 +304,7 @@ def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
         n_prefix = patches.shape[1]
     enc_out = None
     if plan.encoder is not None:       # enc-dec: the stub frontend's frames
-        e = batch["enc_embeds"].to(L.dtype_of(cfg))
+        e = frames.to(L.dtype_of(cfg))
         erc = RunCtx(positions=torch.arange(e.shape[1], device=e.device)[None])
         e, _ = _stack_apply(cfg, plan.encoder, params, e, erc, perturb)
         enc_out = L.norm_apply(cfg, nest(params, "ln_enc"), e,
@@ -334,8 +356,8 @@ def loss(plan: ModelPlan, params, batch, perturb=None):
         per_lane = [dict(zip(keys, vals)) for vals in zip(*[
             batch[k].unbind(0) if k in batch else [None] * len(lanes)
             for k in keys])]
-        return torch.stack([_ce(plan, lg, b, aux)
-                            for lg, b in zip(lanes, per_lane)])
+        return torch.stack([_ce(plan, lg, b, a) for lg, b, a in
+                            zip(lanes, per_lane, aux.unbind(0))])
     return _ce(plan, logits, batch, aux)
 
 

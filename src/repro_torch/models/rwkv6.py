@@ -11,6 +11,13 @@ As in the reference, the token-shift interpolation factors (``mu``) are
 static learned vectors and the decay LoRA is kept faithful. Every weight
 use takes the ctx: projections through ``L.dense`` (``zo_matmul`` on the
 card), the other leaves through ``ctx.perturb`` (``zo_add``).
+
+Under a user-axis ctx (the multi-tenant step, lanes flattened in the
+batch) each per-lane leaf meets only its own lane's rows
+(``L.per_row``), the decay LoRA's products and the WKV cell's one
+contraction a step run lane by lane at the scalar path's shapes, and the
+rest of the scan, elementwise in the batch, runs over every lane at
+once: each lane's bits are a lone forward's.
 """
 
 from __future__ import annotations
@@ -48,20 +55,27 @@ def _shift(x, last=None):
     return torch.cat([last.to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _mix(ctx, x, xx, mu):
+    """The token-shift interpolations ``x + xx * mu[i]``, one for each row
+    of ``mu`` ((k, D), per lane (n, k, D) under a user-axis ctx)."""
+    return [x + xx * L.per_row(ctx, m, x) for m in mu.to(x.dtype).unbind(-2)]
+
+
 def _timemix_inputs(cfg, p, x, x_prev, ctx=None):
     xx = x_prev - x
-    mu = _leaf(p, "mu", ctx).to(x.dtype)
-    xr, xk, xv, xw, xg = (x + xx * mu[i] for i in range(5))
+    xr, xk, xv, xw, xg = _mix(ctx, x, xx, _leaf(p, "mu", ctx))
     h, hd = heads(cfg)
     b, s, _ = x.shape
     r = L.dense(p["wr"], xr, _sub(ctx, "wr")).reshape(b, s, h, hd)
     k = L.dense(p["wk"], xk, _sub(ctx, "wk")).reshape(b, s, h, hd)
     v = L.dense(p["wv"], xv, _sub(ctx, "wv")).reshape(b, s, h, hd)
     g = F.silu(L.dense(p["wg"], xg, _sub(ctx, "wg")))
-    # data-dependent per-channel decay in (0, 1), in f32
-    wlog = (_leaf(p, "w0", ctx)
-            + torch.tanh(xw.to(_F32) @ _leaf(p, "w_lora_a", ctx))
-            @ _leaf(p, "w_lora_b", ctx))
+    # data-dependent per-channel decay in (0, 1), in f32; the LoRA's
+    # products lane by lane under a user-axis ctx
+    lora = L.lane_matmul(ctx, torch.tanh(L.lane_matmul(
+        ctx, xw.to(_F32), _leaf(p, "w_lora_a", ctx))),
+        _leaf(p, "w_lora_b", ctx))
+    wlog = L.per_row(ctx, _leaf(p, "w0", ctx), lora) + lora
     w = torch.exp(-torch.exp(wlog)).reshape(b, s, h, hd)
     return r, k, v, g, w
 
@@ -75,24 +89,25 @@ def timemix_apply(cfg, p, x, state=None, x_prev=None, ctx=None):
     r, k, v, g, w = _timemix_inputs(cfg, p, x, xp, ctx)
     if state is None:
         state = torch.zeros((b, h, hd, hd), dtype=_F32, device=x.device)
-    bonus = _leaf(p, "bonus", ctx)[None, :, :, None]     # (1, H, hd, 1)
+    # (H, hd, 1): broadcast over the batch (and, per lane, over its rows)
+    bonus = L.per_row(ctx, _leaf(p, "bonus", ctx), state, 3)[..., None]
     r, k, v = (t.to(_F32) for t in (r, k, v))
     ys = []
     for t in range(s):                                  # the WKV cell
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]   # (B, H, hd, hd)
-        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                               state + bonus * kv))
+        ys.append(L.lane_einsum(ctx, "bhk,bhkv->bhv", r[:, t],
+                                state + bonus * kv))
         state = w[:, t, :, :, None] * state + kv
     y = torch.stack(ys, dim=1).reshape(b, s, d)
-    y = L.rmsnorm(y.to(x.dtype), _leaf(p, "ln_x", ctx)) * g
+    y = y.to(x.dtype)
+    y = L.rmsnorm(y, L.per_row(ctx, _leaf(p, "ln_x", ctx), y)) * g
     return L.dense(p["wo"], y, _sub(ctx, "wo")), (state, x[:, -1:])
 
 
 def channelmix_apply(cfg, p, x, x_prev=None, ctx=None):
     xp = _shift(x, x_prev)
     xx = xp - x
-    mu = _leaf(p, "mu", ctx).to(x.dtype)
-    xk, xr = x + xx * mu[0], x + xx * mu[1]
+    xk, xr = _mix(ctx, x, xx, _leaf(p, "mu", ctx))
     r = torch.sigmoid(L.dense(p["wr"], xr, _sub(ctx, "wr")))
     k = torch.square(torch.relu(L.dense(p["wk"], xk, _sub(ctx, "wk"))))
     return r * L.dense(p["wv"], k, _sub(ctx, "wv")), x[:, -1:]

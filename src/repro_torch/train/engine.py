@@ -50,7 +50,6 @@ from repro_torch.core import rng as zrng
 from repro_torch.core.batching import install_user, stack_users
 from repro_torch.core.engine import MezoConfig, TrainState, build_strategy
 from repro_torch.models import build_model
-from repro_torch.models.runtime import check_user_axis
 
 #: a job's data: a sequence indexed by the user's GLOBAL step, or a
 #: callable step -> batch (so a resumed job consumes exactly the batches
@@ -119,7 +118,6 @@ class TrainEngine:
                  log_dir: Optional[str] = None):
         self.cfg = model_cfg
         self.model = build_model(model_cfg)
-        check_user_axis(self.model.plan)
         self.store = store
         self.device = store.device
         self.mz = mezo_cfg or store.cfg

@@ -1,6 +1,7 @@
 """Shared set-up of the port's family parity tests (``test_torch_moe``,
 ``test_torch_rwkv``, ``test_torch_hybrid``, ``test_torch_encdec``,
-``test_torch_dense_configs``).
+``test_torch_dense_configs``, and the multi-tenant ``test_torch_user_axis``
+and ``test_torch_user_axis_scans``).
 
 Every case is a ``reduced()`` f32 config, built by both packages, with
 the JAX package's initial parameters (``PRNGKey(0)``) carried across
@@ -10,6 +11,10 @@ reference is the JAX package run live, never the golden pins.
 
 import dataclasses
 import functools
+import json
+import sys
+import zlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +28,7 @@ from repro.core.perturb import _path_str
 from repro.core.perturb_ctx import PerturbCtx as JPerturbCtx
 from repro.data.synthetic import lm_batches as j_lm_batches
 from repro.launch import train as j_train_cli
+from repro.launch import train_fleet as j_fleet_cli
 from repro.models import build_model as j_build_model
 from repro.optim import quant as jq
 from repro.serve import AdapterStore as JAdapterStore
@@ -32,9 +38,12 @@ from repro_torch.checkpoint import ReplayLog, replay_into, store
 from repro_torch.configs import get_config
 from repro_torch.core import MezoConfig, PerturbCtx
 from repro_torch.launch import train as train_cli
+from repro_torch.launch import train_fleet as fleet_cli
 from repro_torch.models import build_model
 from repro_torch.models.transformer import param_shapes
+from repro_torch.runtime import Trainer, TrainerConfig
 from repro_torch.serve import AdapterStore, Request, ServeEngine
+from repro_torch.train import derive_user_seed
 
 CPU = "cpu"
 ATOL = 1e-5          # logits (scaled by max|logit|), aux and losses
@@ -216,12 +225,177 @@ def assert_serving_matches(arch, mode):
     return eng
 
 
-def user_axis_loss(arch):
-    """The port's fused loss under a 2-lane user-axis ctx (raises for the
-    families whose state would be shared across lanes)."""
+USER_AXIS_SEEDS, USER_AXIS_COEFFS = (11, 12), (1e-3, -1e-3)
+
+
+def user_axis_loss(arch, batch_over=None):
+    """The port's fused loss under a 2-lane user-axis ctx over one shared
+    base (``v[None]``): both lanes see the same batch, lane i perturbed by
+    ``USER_AXIS_SEEDS[i]`` at ``USER_AXIS_COEFFS[i]``; ``batch_over``
+    replaces entries of the lane batch."""
     _, _, model, params = case(arch)
     b = to_torch(batch(model.cfg))
     lanes = {k: v[None].expand(2, *v.shape) for k, v in b.items()}
+    lanes.update(batch_over or {})
     shared = {k: v[None] for k, v in params.items()}
     return model.loss(shared, lanes, perturb=PerturbCtx(
-        seed=(11, 12), coeff=np.array([1e-3, -1e-3], np.float32)))
+        seed=USER_AXIS_SEEDS,
+        coeff=np.array(USER_AXIS_COEFFS, np.float32)))
+
+
+def assert_user_axis_lanes(arch):
+    """Each lane of :func:`user_axis_loss` equals the scalar fused loss
+    with that lane's (seed, coeff) at atol 0 (per-lane MoE capacity and
+    aux, the scans and the encoder per lane); a batch whose tokens lack
+    the lane axis raises ``ValueError`` naming them, and so does an
+    encoder-decoder batch without ``enc_embeds``."""
+    import pytest
+    _, _, model, params = case(arch)
+    b = to_torch(batch(model.cfg))
+    got = user_axis_loss(arch)
+    assert got.shape == (2,)
+    for i, (seed, coeff) in enumerate(zip(USER_AXIS_SEEDS,
+                                          USER_AXIS_COEFFS)):
+        want = model.loss(params, b, perturb=PerturbCtx(
+            seed=seed, coeff=np.float32(coeff)))
+        assert got[i].item() == want.item(), (arch, i)
+    with pytest.raises(ValueError, match="tokens must carry 2 lanes"):
+        user_axis_loss(arch, {"tokens": b["tokens"]})
+    if model.cfg.family == "encdec":
+        _, _, model, params = case(arch)
+        lanes = {k: v[None].expand(2, *v.shape) for k, v in b.items()
+                 if k != "enc_embeds"}
+        with pytest.raises(ValueError, match="needs enc_embeds"):
+            model.loss({k: v[None] for k, v in params.items()}, lanes,
+                       perturb=PerturbCtx(seed=USER_AXIS_SEEDS,
+                                          coeff=USER_AXIS_COEFFS))
+
+
+# ---------------------------------------------------------------------------
+# the multi-tenant step: the train_fleet CLIs and lone Trainers
+
+FLEET_SEED, FLEET_STEPS, FLEET_B, FLEET_S = 7, 2, 2, 8
+FLEET_MZ = dict(eps=1e-3, lr=1e-3)
+# 3 users on 2 slots: the third admitted when the first two finish
+FLEET_ARGV = ["--reduced", "--users", "3", "--slots", "2", "--steps",
+              str(FLEET_STEPS), "--batch", str(FLEET_B), "--seq",
+              str(FLEET_S), "--lr", str(FLEET_MZ["lr"]), "--seed",
+              str(FLEET_SEED)]
+
+
+def fleet_jax_init(arch):
+    """The JAX train_fleet CLI's base: the reduced config's init at
+    ``PRNGKey(--seed)`` (a param tree)."""
+    return j_build_model(configs(arch)[0]).init(
+        jax.random.PRNGKey(FLEET_SEED))
+
+
+@functools.lru_cache(maxsize=None)
+def _fleet_init_flat(arch):
+    return flat(fleet_jax_init(arch))
+
+
+def fleet_params(arch):
+    """:func:`fleet_jax_init` as a fresh port parameter dict."""
+    return store.params_from_numpy(_fleet_init_flat(arch), CPU)
+
+
+def fleet_runs(arch, root):
+    """Both ``train_fleet`` CLIs, each with ``--log-dir`` and ``--out``,
+    the port's from the JAX CLI's base: a dict of the engine, results by
+    user and both summaries."""
+    argv = ["--arch", arch, *FLEET_ARGV]
+    with mock.patch.object(sys, "argv", [
+            "train_fleet", *argv, "--log-dir", str(root / "jax"),
+            "--out", str(root / "jax.json")]):
+        j_fleet_cli.main()
+    engine, results = fleet_cli.run(
+        argv + ["--device", CPU, "--log-dir", str(root / "torch"), "--out",
+                str(root / "torch.json")], params=fleet_params(arch))
+    return dict(root=root, engine=engine,
+                results={r.user: r for r in results},
+                jax=json.load(open(root / "jax.json")),
+                torch=json.load(open(root / "torch.json")))
+
+
+def assert_fleet_matches_jax(run):
+    """The same summary (save the losses and the rate), per-user losses
+    within ATOL and gs within GS_ATOL of the JAX CLI's, the same steps,
+    seeds, lr and eps in both replay logs."""
+    skip = ("losses", "user_steps_per_s")
+    assert {k: v for k, v in run["torch"].items() if k not in skip} == \
+        {k: v for k, v in run["jax"].items() if k not in skip}
+    for user, want in run["jax"]["losses"].items():
+        np.testing.assert_allclose(run["torch"]["losses"][user], want,
+                                   rtol=0, atol=ATOL, err_msg=user)
+        jrec = j_replay_log.ReplayLog.read(
+            str(run["root"] / "jax" / f"{user}.jsonl"))
+        trec = ReplayLog.read(str(run["root"] / "torch" / f"{user}.jsonl"))
+        for key in ("step", "seed", "lr", "eps"):
+            assert [r[key] for r in trec] == [r[key] for r in jrec], key
+        np.testing.assert_allclose([r["gs"] for r in trec],
+                                   [r["gs"] for r in jrec], rtol=0,
+                                   atol=GS_ATOL, err_msg=user)
+
+
+def assert_lanes_equal_lone_trainers(cfg, engine, results, batch_fns,
+                                     params_fn, log_dir, tmp):
+    """Each user of ``results`` (JobResults) against a lone port Trainer
+    with the derived seed, the user's batches (``batch_fns[user]``, a
+    step -> batch function) and as many steps: losses, final parameters
+    and the bytes of the replay log at atol 0."""
+    mz = MezoConfig(**FLEET_MZ)
+    for r in results:
+        fn = batch_fns[r.user]
+        tr = Trainer(cfg, TrainerConfig(
+            estimator="fused", update="sgd", mezo=mz, n_steps=r.n_steps,
+            seed=derive_user_seed(FLEET_SEED, r.user),
+            ckpt_dir=str(tmp / r.user), snapshot_every=10 ** 6,
+            log_every=10 ** 6, device=CPU),
+            iter([fn(t) for t in range(r.n_steps)]), log_fn=lambda s: None)
+        final = tr.train(params=params_fn())
+        assert r.losses == tr.losses, r.user
+        got = engine.store.materialize(r.user)
+        for path, leaf in final.items():
+            assert torch.equal(leaf, got[path]), (r.user, path)
+        assert (log_dir / f"{r.user}.jsonl").read_bytes() == \
+            (tmp / r.user / "replay.jsonl").read_bytes(), r.user
+
+
+def assert_logs_cross(run, arch, user="user-1"):
+    """Each package's replay log of ``user`` replayed by the other onto
+    the CLIs' base: the JAX log equals in the port what the JAX store
+    makes of it, and the port's log equals in the JAX store the port
+    engine's own state, at atol 0."""
+    jlog = str(run["root"] / "jax" / f"{user}.jsonl")
+    tlog = str(run["root"] / "torch" / f"{user}.jsonl")
+    jstore = JAdapterStore(fleet_jax_init(arch),
+                           mezo_cfg=JMezoConfig(**FLEET_MZ))
+    jstore.load(user, jlog)
+    tstore = AdapterStore(fleet_params(arch), mezo_cfg=MezoConfig(
+        **FLEET_MZ), device=CPU)
+    tstore.load(user, jlog)
+    want = flat(jstore.materialize(user))
+    got = store.params_to_numpy(tstore.materialize(user))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    jstore.load("t", tlog)
+    want = store.params_to_numpy(run["engine"].store.materialize(user))
+    got = flat(jstore.materialize("t"))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def enc_batches(cfg, user, seed=FLEET_SEED):
+    """The train_fleet CLI's per-(user, step) stream at FLEET_B x FLEET_S
+    with the audio frontend stub beside it: ``enc_embeds`` (B, T_enc, d)
+    normals from a (user, step) seed. (The CLIs make no enc_embeds.)"""
+    base = fleet_cli.user_batches(cfg, user, FLEET_B, FLEET_S, seed)
+    salt = zlib.crc32(f"{seed}/{user}/enc".encode()) & 0x7FFFFFFF
+
+    def fn(step):
+        b = base(step)
+        b["enc_embeds"] = np.random.default_rng((salt, step)).standard_normal(
+            (FLEET_B, cfg.enc_len, cfg.d_model), dtype=np.float32)
+        return b
+    return fn

@@ -12,7 +12,8 @@ package, on the reduced f32 config from the JAX init.
   * greedy tokens of token-only requests equal to the JAX engine's in the
     dense, paged, chunked and speculative modes, the cross state left at
     zeros;
-  * the user-axis forward raises ``NotImplementedError`` (slice 6b).
+  * the user-axis (multi-tenant) forward: each lane equals a lone fused
+    loss at atol 0, and a batch without the lane axis raises.
 """
 
 import numpy as np
@@ -22,8 +23,8 @@ torch = pytest.importorskip("torch")
 
 from _torch_families import (ATOL, CPU, EPS, assert_cli_matches,  # noqa: E402
                              assert_forward_matches, assert_serving_matches,
-                             batch, case, cli_runs, fused_losses, to_torch,
-                             user_axis_loss)
+                             assert_user_axis_lanes,
+                             batch, case, cli_runs, fused_losses, to_torch)
 from repro.launch import train as j_train_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -96,5 +97,6 @@ def test_serving_tokens_match_jax(mode):
 
 
 def test_user_axis_forward_raises():
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        user_axis_loss(ARCH)
+    """The multi-tenant forward: each lane equal to a lone fused loss at
+    atol 0; what it raises for is a batch without the lane axis."""
+    assert_user_axis_lanes(ARCH)

@@ -516,7 +516,8 @@ def test_multi_tenant_stale_sgd_is_sgd_bit_exact(tmp_path):
     logs = {}
     for rule in ("sgd", "stale-sgd"):
         logs[rule] = tmp_path / rule
-        train_fleet.run(["--reduced", "--device", "cpu", "--users", "3",
+        train_fleet.run(["--arch", "opt-1.3b", "--reduced", "--device",
+                         "cpu", "--users", "3",
                          "--slots", "2", "--steps", "2", "--batch", "2",
                          "--seq", "8", "--update", rule, "--log-dir",
                          str(logs[rule])])

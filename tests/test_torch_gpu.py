@@ -144,7 +144,8 @@ def _positions(case, ps, c):
 @pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
                                         ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("kvh,g,hd", [(1, 4, 64), (2, 2, 128), (4, 1, 64),
-                                      (2, 8, 32), (1, 2, 256), (2, 2, 16)])
+                                      (2, 8, 32), (1, 2, 256), (2, 2, 16),
+                                      (2, 4, 112), (4, 1, 112)])
 @pytest.mark.parametrize("c", [1, 3, 2 * PS + 3])
 def test_attention_kernels_match_plain(cuda, dtype, atol, kvh, g, hd, c, ps,
                                        case):
@@ -195,7 +196,7 @@ def test_attention_launchers_reject_what_they_do_not_take(cuda):
                                         ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("kvh,g,hd", [(4, 1, 64), (2, 2, 128), (1, 4, 64),
                                       (2, 8, 32), (1, 16, 64), (1, 2, 256),
-                                      (2, 2, 16)])
+                                      (2, 2, 16), (2, 4, 112), (1, 1, 112)])
 @pytest.mark.parametrize("w", [1, 4])
 def test_flash_verify_matches_plain_and_ignores_nan(cuda, dtype, atol, kvh,
                                                    g, hd, w):
@@ -657,23 +658,17 @@ def test_zo_matmul_users_match_plain_and_lone_launches(cuda, mkn, dtype,
         assert torch.equal(got[i], lone), i
 
 
-@pytest.mark.parametrize("quant", ["none", "int8"])
-def test_reduced_train_engine_on_card_bit_equals_lone_trainers(cuda, quant,
-                                                               tmp_path):
-    """The TrainEngine on the card (3 users on 2 slots, K = 2): each
-    user's losses, parameters and replay log equal a lone Trainer's on
-    the card at atol 0, through the user kernels only; within 1e-4 of
-    the CPU engine's losses."""
-    from repro_torch.configs import get_config
+def _engine_vs_lone_trainers(cuda, cfg, quant, tmp_path, params):
+    """The TrainEngine on the card (3 users on 2 slots, K = 2, 2 steps)
+    against a lone Trainer on the card for each user: losses, parameters
+    (deltas) and replay-log bytes at atol 0. Returns the engine's results
+    and the CPU engine's, for the caller's own checks."""
     from repro_torch.core import MezoConfig
     from repro_torch.launch.train_fleet import user_batches
-    from repro_torch.models import build_model
     from repro_torch.optim.quant import is_quantized
     from repro_torch.runtime import (Trainer, TrainerConfig,
                                      train_multi_tenant)
     from repro_torch.train import TrainJob, derive_user_seed
-    cfg = get_config("opt-1.3b").reduced()
-    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     mz = MezoConfig(eps=1e-3, lr=1e-3, n_directions=2)
     users = ["u0", "u1", "u2"]
 
@@ -688,10 +683,7 @@ def test_reduced_train_engine_on_card_bit_equals_lone_trainers(cuda, quant,
 
     ops.reset_launches()
     engine, results = fleet("cuda")
-    assert ops.LAUNCHES["zo_add_users"] > 0
-    assert ops.LAUNCHES["zo_matmul"] == 0
-    if quant == "none":
-        assert ops.LAUNCHES["zo_matmul_users"] > 0
+    launches = dict(ops.LAUNCHES)
     for r in results:
         fn = user_batches(cfg, r.user, 2, 8, 0)
         tr = Trainer(cfg, TrainerConfig(
@@ -711,6 +703,48 @@ def test_reduced_train_engine_on_card_bit_equals_lone_trainers(cuda, quant,
         assert (tmp_path / "cuda" / f"{r.user}.jsonl").read_bytes() == \
             (tmp_path / f"lone-{r.user}" / "replay.jsonl").read_bytes()
     _, cpu_results = fleet("cpu")
+    return launches, results, cpu_results
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_reduced_train_engine_on_card_bit_equals_lone_trainers(cuda, quant,
+                                                               tmp_path):
+    """The TrainEngine on the card (3 users on 2 slots, K = 2): each
+    user's losses, parameters and replay log equal a lone Trainer's on
+    the card at atol 0, through the user kernels only; within 1e-4 of
+    the CPU engine's losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("opt-1.3b").reduced()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    launches, results, cpu_results = _engine_vs_lone_trainers(
+        cuda, cfg, quant, tmp_path, params)
+    assert launches["zo_add_users"] > 0
+    assert launches["zo_matmul"] == 0
+    if quant == "none":
+        assert launches["zo_matmul_users"] > 0
+    for a, b in zip(results, cpu_results):
+        np.testing.assert_allclose(a.losses, b.losses, rtol=0, atol=1e-4)
+
+
+def test_reduced_moe_train_engine_on_card_bit_equals_lone_trainers(
+        cuda, tmp_path):
+    """Reduced granite-moe-1b-a400m (f32) at a capacity factor that drops
+    assignments, through the TrainEngine on the card: each lane's MoE
+    dispatch runs alone (its own capacity, its experts materialized by
+    ``zo_add``), and each user's losses, parameters and replay log equal
+    a lone Trainer's on the card at atol 0; within 1e-4 of the CPU
+    engine's losses."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                              capacity_factor=0.5)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    launches, results, cpu_results = _engine_vs_lone_trainers(
+        cuda, cfg, "none", tmp_path, params)
+    assert launches["zo_matmul_users"] > 0 and launches["zo_add"] > 0
+    assert launches["zo_matmul"] == 0
     for a, b in zip(results, cpu_results):
         np.testing.assert_allclose(a.losses, b.losses, rtol=0, atol=1e-4)
 
@@ -753,7 +787,7 @@ def test_zo_matmul_body_follows_dtype_and_dist(cuda, kernel, dtype, dist):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
 def test_flash_attention_tensor_core_body_head_dims(cuda, hd, causal):
     """bf16 at every head dim the kernel takes, S = 100 (a ragged last
     query and key tile), GQA 8 over 2: the tensor-core body, within the
@@ -935,7 +969,7 @@ def test_flash_verify_window_past_the_table(cuda, dtype, atol):
     assert torch.equal(fv.flash_verify(q, k, v, pages, pos), got)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
 def test_flash_verify_tensor_core_body_head_dims(cuda, hd):
     """bf16 at every head dim the kernel takes (W 4, GQA 8 over 2, page
     8, ragged positions): the tensor-core body within the bf16 limit,
@@ -959,9 +993,10 @@ def test_flash_verify_tensor_core_body_head_dims(cuda, hd):
 # (name, heads, KV heads, head dim) of the configs whose attention the
 # other families' paths run: gemma-2b (MQA, 256), qwen3-4b / pixtral-12b /
 # jamba (groups of 4, 128), chatglm3-6b / glm4-9b (groups of 16, 128),
-# whisper-base (64)
+# whisper-base (64), kimi-k2-1t-a32b (groups of 8, 112)
 REAL_GQA = [("gemma-2b", 8, 1, 256), ("qwen3-4b", 32, 8, 128),
-            ("glm4-9b", 32, 2, 128), ("whisper-base", 8, 8, 64)]
+            ("glm4-9b", 32, 2, 128), ("whisper-base", 8, 8, 64),
+            ("kimi-k2-1t-a32b", 64, 8, 112)]
 
 
 def test_moe_dispatch_is_bit_equal_across_calls(cuda):
@@ -1098,6 +1133,65 @@ def test_fleet_on_card_matches_cpu(cuda, tmp_path):
                               ReplayLog.read(str(tmp_path / "cuda")), mz)
     for k, v in g.params.items():
         assert torch.equal(replayed[k], v), k
+
+
+def test_fleet_evaluation_of_strided_host_slices(cuda, monkeypatch):
+    """What broke the fleet's first full-width run, repeated: a lease's
+    evaluation (``FleetSim._evaluate``'s device work) fed the strided
+    int32 slices of one (B, S + 1) host draw -- ``tokens`` and
+    ``targets`` -- moved to the card as they are, without the contiguous
+    copy ``_evaluate`` makes first, at OPT-1.3B's vocabulary and FL1's
+    B 8 x 128 (the width reduced), 200 times, each with a fresh draw
+    freed right after the move: every id the embedding and the cross
+    entropy gather is inside the vocabulary on the card, the moved arrays
+    equal the host's, and the gs equal those of the contiguous copies at
+    atol 0. Run it under ``CUDA_LAUNCH_BLOCKING=1`` (and compute-sanitizer
+    where it works) to place a fault at its launch."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import MezoConfig
+    from repro_torch.core.engine import _f32
+    from repro_torch.models import layers, runtime
+    from repro_torch.runtime.fleet import (FleetSim, WorkerSpec,
+                                           default_batches)
+    cfg = dataclasses.replace(get_config("opt-1.3b").reduced(),
+                              vocab=50272, max_seq=128)
+    sim = FleetSim(cfg, [WorkerSpec()], total_steps=1, device="cuda",
+                   mezo_cfg=MezoConfig(n_directions=2), batch=8, seq=128)
+    seen = []
+
+    def embed(cfg_, p, tokens, *a, **kw):
+        seen.append(torch.stack([tokens.min(), tokens.max()]))
+        return orig_embed(cfg_, p, tokens, *a, **kw)
+
+    def xent(logits, targets, mask=None):
+        seen.append(torch.stack([targets.min(), targets.max()]))
+        return orig_xent(logits, targets, mask)
+
+    orig_embed, orig_xent = layers.embed_apply, runtime.softmax_xent
+    monkeypatch.setattr(layers, "embed_apply", embed)
+    monkeypatch.setattr(runtime, "softmax_xent", xent)
+    draw = default_batches(cfg, 8, 128, 0)
+    eps = _f32(None, sim.cfg.eps)              # as _evaluate passes it
+    for step in range(200):
+        host = draw(step)
+        assert not host["targets"].flags.c_contiguous
+        strided = {k: torch.as_tensor(v).to(cuda) for k, v in host.items()}
+        dense = {k: torch.as_tensor(np.ascontiguousarray(v)).to(cuda)
+                 for k, v in host.items()}
+        want = {k: np.array(v) for k, v in host.items()}
+        del host
+        seen.clear()
+        _, gs, _ = sim._eval_fn(sim.model.loss, sim.base_params, strided,
+                                step, sim.cfg, eps=eps)
+        _, gs_dense, _ = sim._eval_fn(sim.model.loss, sim.base_params,
+                                      dense, step, sim.cfg, eps=eps)
+        ranges = torch.stack(seen).cpu()
+        assert int(ranges.min()) >= 0 and int(ranges.max()) < cfg.vocab, (
+            step, ranges.tolist())
+        for k, v in strided.items():
+            assert np.array_equal(v.cpu().numpy(), want[k]), (step, k)
+        assert torch.equal(gs, gs_dense), step
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -17,7 +17,8 @@ JAX package, on the reduced f32 config from the JAX init.
     as whole-prompt admission's fresh lane does (the JAX engine's
     chunked admission continues the lane from whatever the slot's last
     request, or decode steps over the idle slot, left there);
-  * the user-axis forward raises ``NotImplementedError`` (slice 6b).
+  * the user-axis (multi-tenant) forward: each lane equals a lone fused
+    loss at atol 0, and a batch without the lane axis raises.
 """
 
 import dataclasses
@@ -31,8 +32,8 @@ torch = pytest.importorskip("torch")
 
 from _torch_families import (ATOL, CPU, EPS, assert_cli_matches,  # noqa: E402
                              assert_forward_matches, assert_serving_matches,
-                             case, cli_runs, flat, fused_losses, serve,
-                             user_axis_loss)
+                             assert_user_axis_lanes,
+                             case, cli_runs, flat, fused_losses, serve)
 from repro_torch.models import runtime as RT  # noqa: E402
 
 torch.set_num_threads(1)
@@ -235,5 +236,6 @@ def test_chunked_admission_starts_a_recycled_lane_from_zero():
 
 
 def test_user_axis_forward_raises():
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        user_axis_loss(ARCH)
+    """The multi-tenant forward: each lane equal to a lone fused loss at
+    atol 0; what it raises for is a batch without the lane axis."""
+    assert_user_axis_lanes(ARCH)

@@ -13,7 +13,8 @@ the JAX init.
     replayed across packages at atol 0;
   * greedy tokens equal to the JAX engine's in the dense, paged and
     chunked modes;
-  * the user-axis forward raises ``NotImplementedError`` (slice 6b).
+  * the user-axis (multi-tenant) forward: each lane equals a lone fused
+    loss at atol 0, and a batch without the lane axis raises.
 """
 
 import dataclasses
@@ -27,7 +28,8 @@ torch = pytest.importorskip("torch")
 
 from _torch_families import (ATOL, EPS, assert_cli_matches,  # noqa: E402
                              assert_forward_matches, assert_serving_matches,
-                             case, cli_runs, fused_losses, user_axis_loss)
+                             assert_user_axis_lanes, case, cli_runs,
+                             fused_losses)
 from repro.models import moe as j_moe  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 
@@ -118,5 +120,6 @@ def test_serving_tokens_match_jax(mode):
 
 
 def test_user_axis_forward_raises():
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        user_axis_loss("granite-moe-1b-a400m")
+    """The multi-tenant forward: each lane equal to a lone fused loss at
+    atol 0; what it raises for is a batch without the lane axis."""
+    assert_user_axis_lanes("granite-moe-1b-a400m")

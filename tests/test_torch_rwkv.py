@@ -11,7 +11,8 @@ package, on the reduced f32 config from the JAX init.
   * greedy tokens equal to the JAX engine's, dense and under
     ``paged=True`` (no pageable state: the dense layout); ``spec_k`` and
     ``prefill_chunk`` raise the JAX engine's errors;
-  * the user-axis forward raises ``NotImplementedError`` (slice 6b).
+  * the user-axis (multi-tenant) forward: each lane equals a lone fused
+    loss at atol 0, and a batch without the lane axis raises.
 """
 
 import numpy as np
@@ -21,8 +22,8 @@ torch = pytest.importorskip("torch")
 
 from _torch_families import (ATOL, CPU, EPS, assert_cli_matches,  # noqa: E402
                              assert_forward_matches, assert_serving_matches,
-                             batch, case, cli_runs, fused_losses, to_torch,
-                             user_axis_loss)
+                             assert_user_axis_lanes,
+                             batch, case, cli_runs, fused_losses, to_torch)
 from repro.serve import AdapterStore as JAdapterStore  # noqa: E402
 from repro.serve import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.serve import AdapterStore, ServeEngine  # noqa: E402
@@ -85,5 +86,6 @@ def test_paged_only_options_raise_as_jax(kw, match):
 
 
 def test_user_axis_forward_raises():
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        user_axis_loss(ARCH)
+    """The multi-tenant forward: each lane equal to a lone fused loss at
+    atol 0; what it raises for is a batch without the lane axis."""
+    assert_user_axis_lanes(ARCH)

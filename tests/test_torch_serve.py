@@ -269,11 +269,13 @@ def test_engine_rejects_unported_and_missing_device(opt):
         ServeEngine(cfg, st, paged=True, spec_k=0, device=CPU)
     with pytest.raises(ValueError, match="spec_k requires paged=True"):
         ServeEngine(cfg, st, paged=False, spec_k=2, device=CPU)
-    # every family builds; the multi-tenant forward of the recurrent
-    # ones is what waits for a later slice (6b)
+    # every family builds and takes the multi-tenant forward: what the
+    # user-axis check refuses is a batch without the ctx's lane axis
     rwkv = build_model(get_config("rwkv6-7b").reduced())
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        check_user_axis(rwkv.plan)
+    lanes = torch.zeros((2, 1, 4), dtype=torch.int32)
+    check_user_axis(rwkv.plan, {"tokens": lanes}, 2)
+    with pytest.raises(ValueError, match="tokens must carry 2 lanes"):
+        check_user_axis(rwkv.plan, {"tokens": lanes[0]}, 2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             AdapterStore(params)
@@ -285,7 +287,8 @@ def test_cli_on_cpu(tmp_path, capsys):
     with open(ckpt / "replay.jsonl", "w") as f:
         for r in _records(2, seed=4):
             f.write(json.dumps(r) + "\n")
-    serve_cli.main(["--reduced", "--device", "cpu", "--paged",
+    serve_cli.main(["--arch", "opt-1.3b", "--reduced", "--device", "cpu",
+                    "--paged",
                     "--page-size", "4", "--prefill-chunk", "4",
                     "--requests", "3", "--slots", "2", "--prompt-len", "6",
                     "--gen", "3", "--adapter", f"alice={ckpt}"])
