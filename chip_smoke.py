@@ -185,13 +185,36 @@ ST1. the train CLI with ``--straggler-redundancy 1 --directions 2`` (3
 P1. ``DataPipeline(device="cuda")``: batches bit-equal to the host's
    and read at once on the consumer's stream; ``close()`` joins a worker
    blocked on a full queue; ``next()`` after it raises.
+SH1, SH2, DR1, the multi-device tier:
+SH1. ``zo_add`` on every 16-way shard (as the sharding plan splits a
+   16-way model axis) of OPT-1.3B's and qwen3-4b's largest stacked and
+   2-D leaves, f32 and bf16, Rademacher and Gaussian, and of kimi-k2's
+   expert ``w_out`` (one layer, 16 x 16 on expert and F), launched at the
+   shard's global offsets, equals the whole leaf's launch sliced at atol
+   0; ``zo_matmul``'s column-parallel shards equal the whole product's
+   column slice and its row-parallel partial sums add up to it, within
+   the kernel's limits; the plain versions at offsets hold as in phase
+   3; one shard's launch is timed beside the whole leaf's.
+SH2. a one-rank nccl group, a (1, 1, 1) ("pod", "data", "model") mesh:
+   full-width granite-moe-1b-a400m (``moe_ep``: the expert-parallel body,
+   32 experts local) and OPT-1.3B take 2 fused MeZO steps at B 8 x 128
+   through DTensor params and the kernels; losses, gs and params equal
+   the mesh-less steps' at atol 0 (granite-moe, were its EP combine to
+   reorder a sum: losses, gs and every leaf within the limits stated at
+   ``SH2_STEPS``); every ``zo_matmul`` / ``flash_attention`` launch on
+   the body the dtype picks; the group is destroyed after.
+DR1. ``python -m repro_torch.launch.dryrun`` in a process a cell, started
+   before SH1 on the host's cores: qwen3-4b ``train_4k``, granite-moe
+   ``decode_32k`` and kimi-k2 ``train_4k`` on 256 fake ranks (16 x 16);
+   each cell's per-device bytes and roofline terms on a line; fails if a
+   cell fails or kimi-k2's parameters exceed 80 GB a device.
 Then one ``{"kernels": [...]}`` line (each kernel with its launches on
 every path above; each must have launched on one) and the final
 ``{"ok": true, ...}``.
 
 Launch counts are reset just before each path and read just after, by
 kernel and, for the two-body kernels, by body (``ops.BODIES``): T1-T4,
-Q1, U1, U3, UF1-UF4, FL1 and ST1 must run every ``zo_matmul*`` /
+Q1, U1, U3, UF1-UF4, FL1, ST1 and SH2 must run every ``zo_matmul*`` /
 ``flash_attention``
 launch on the body the dtype picks (bf16: tensor cores, f32: SIMT), and
 the bf16 serving paths (phase 4, Q3, S1-S4) every ``flash_prefill`` and
@@ -4188,6 +4211,369 @@ def p1_pipeline(torch):
           f"close {close_s} s")
 
 
+# ---------------------------------------------------------------------------
+# SH1-SH2, DR1: the multi-device tier (shard offsets, the sharded step, the
+# dry run)
+
+# SH1's leaves, split as a 16-way model axis splits them (the sharding
+# plan's dim): (kernel, arch, path, shape, split dim, dtypes)
+SH1_ADD = (("opt-1.3b", "blocks/mlp/w_in/w", (24, 2048, 8192), 2),
+           ("opt-1.3b", "lm_head/w", (2048, 50272), 1),
+           ("qwen3-4b", "blocks/mlp/w_in/w", (36, 2560, 9728, 2), 2),
+           ("qwen3-4b", "embed/tok", (151936, 2560), 0))
+# kimi-k2's expert w_out, one layer, split 16 x 16 on (expert, F) as
+# fsdp_params splits it (model x data), in its own dtype, bf16
+SH1_KIMI = ("kimi-k2-1t-a32b", "blocks/moe/w_out", (384, 2048, 7168))
+# (arch, path of a layer's 2-D slice, (K, N), parallel): column-parallel
+# W shards give column slices, row-parallel ones partial sums
+SH1_MM = (("opt-1.3b", "lm_head/w", (2048, 50272), "column"),
+          ("opt-1.3b", "blocks/mlp/w_out/w", (8192, 2048), "row"),
+          ("qwen3-4b", "blocks/attn/wq/w", (2560, 4096), "column"),
+          ("qwen3-4b", "blocks/attn/wo/w", (4096, 2560), "row"))
+SH_WAYS = 16
+# SH2: the sharded step is the mesh-less step's arithmetic on a one-rank
+# mesh (the same launches at zero offsets, the EP body's dispatch in the
+# same order), so losses, gs and params are held at atol 0; were the EP
+# combine to reorder a sum, granite-moe's losses would be held to F1's
+# limit, FAMILY_FUSED_ATOL, its gs to that over 2 * eps, and each of its
+# leaves to SH2_STEPS steps of (lr x that gs limit, the Rademacher |z| of
+# 1, plus one rounding of the leaf's dtype at its largest entry): an
+# update of lr * gs * z computed in f32 and rounded once to the leaf.
+SH2_STEPS = 2
+DR1_CELLS = (("qwen3-4b", "train_4k"), ("granite-moe-1b-a400m", "decode_32k"),
+             ("kimi-k2-1t-a32b", "train_4k"))
+DR1_MAX_PARAM_BYTES = 80e9      # one H100's memory
+
+
+def _shard_slices(shape, dim, ways):
+    n = shape[dim] // ways
+    return [(i * n, n) for i in range(ways)]
+
+
+def sh1_offsets(torch):
+    """SH1: ``zo_add`` on every 16-way shard of full-width leaves at its
+    offsets equals the whole launch's slice at atol 0 (Rademacher and
+    Gaussian, f32 and bf16; kimi-k2's expert leaf 16 x 16 in bf16); the
+    column-parallel ``zo_matmul`` shards equal the whole product's column
+    slice, the row-parallel partial sums add up to it, within the
+    kernel's limits; the plain versions at offsets hold to the kernels as
+    phase 3 holds them; one shard's launch timed against the whole's."""
+    from repro_torch.core import rng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import zo_perturb as zp
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    seed, coeff = 424242, -0.00731
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    n_add = n_mm = 0
+    times = {}
+    for arch, path, shape, dim in SH1_ADD:
+        salt = rng.leaf_salt(path)
+        for dtype in (torch.float32, torch.bfloat16):
+            w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+                dtype)
+            for dist in ("rademacher", "gaussian"):
+                whole = ops.zo_add(w, seed, salt, coeff, dist=dist)
+                for j, (o, n) in enumerate(_shard_slices(shape, dim,
+                                                         SH_WAYS)):
+                    offs = [0] * len(shape)
+                    offs[dim] = o
+                    blk = w.narrow(dim, o, n).contiguous()
+                    got = ops.zo_add(blk, seed, salt, coeff, dist=dist,
+                                     offsets=offs)
+                    n_add += 1
+                    check(torch.equal(got, whole.narrow(dim, o, n)),
+                          f"SH1 zo_add {arch} {path} {dtype} {dist} shard "
+                          f"{j} != the whole leaf's slice")
+                    if j == 1:
+                        want = zp.zo_add_ref(blk, seed, salt, coeff, dist,
+                                             offsets=offs)
+                        err = (got.float() - want.float()).abs().max().item()
+                        tol = 0.0 if dist == "rademacher" else ZO_GAUSS_ATOL
+                        check(err <= tol, f"SH1 zo_add plain at offsets "
+                              f"{path} {dtype} {dist}: err {err} > {tol}")
+                        if (dtype == torch.bfloat16 and dist == "rademacher"
+                                and path == "blocks/mlp/w_in/w"
+                                and arch == "opt-1.3b"):
+                            times["zo_add"] = {
+                                "leaf": f"{arch} {path} {list(shape)} bf16",
+                                "whole_ms": time_ms(lambda: zp.zo_add_cuda(
+                                    w, seed, salt, coeff), 20),
+                                "shard_ms": time_ms(lambda: zp.zo_add_cuda(
+                                    blk, seed, salt, coeff, offsets=offs),
+                                    20),
+                                "shard_shape": list(blk.shape)}
+                        del want
+                    del blk, got
+                del whole
+            del w
+            torch.cuda.empty_cache()
+    # kimi-k2's expert leaf: 16 x 16 shards on (expert, F)
+    arch, path, shape = SH1_KIMI
+    salt = rng.leaf_salt(path)
+    w = torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(
+        0.0, 0.02, generator=gen)
+    for dist in ("rademacher", "gaussian"):
+        whole = ops.zo_add(w, seed, salt, coeff, dist=dist)
+        for i, (eo, en) in enumerate(_shard_slices(shape, 0, SH_WAYS)):
+            for j, (fo, fn) in enumerate(_shard_slices(shape, 1, SH_WAYS)):
+                blk = w[eo:eo + en, fo:fo + fn].contiguous()
+                got = ops.zo_add(blk, seed, salt, coeff, dist=dist,
+                                 offsets=(eo, fo, 0))
+                n_add += 1
+                check(torch.equal(got, whole[eo:eo + en, fo:fo + fn]),
+                      f"SH1 zo_add kimi-k2 expert shard ({i}, {j}) {dist}")
+                del blk, got
+        del whole
+    del w
+    torch.cuda.empty_cache()
+    # zo_matmul: column- and row-parallel shards of a layer's slice
+    for arch, path, (k, n), par in SH1_MM:
+        base = rng.fold_leading(rng.leaf_base(seed, rng.leaf_salt(path)), 3)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((TRAIN_B * TRAIN_S, k), generator=gen,
+                            device=dev).to(dtype)
+            w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(
+                dtype)
+            for dist in ("rademacher", "gaussian"):
+                kw = dict(dist=dist, prime_offset=1, prehashed=True)
+                whole = ops.zo_matmul(x, w, base, 0, 1e-3, **kw).float()
+                scale = whole.abs().max().item()
+                lim = ZO_MM_F32_RTOL if dtype == torch.float32 \
+                    else ZO_MM_BF16_RTOL
+                acc = torch.zeros_like(whole) if par == "row" else None
+                worst = 0.0
+                for j, (o, m) in enumerate(_shard_slices(
+                        (k, n), 1 if par == "column" else 0, SH_WAYS)):
+                    if par == "column":
+                        wj = w[:, o:o + m].contiguous()
+                        xj, offs = x, (0, o)
+                    else:
+                        wj = w[o:o + m].contiguous()
+                        xj, offs = x[:, o:o + m].contiguous(), (o, 0)
+                    got = ops.zo_matmul(xj, wj, base, 0, 1e-3,
+                                        offsets=offs, **kw)
+                    n_mm += 1
+                    if par == "column":
+                        worst = max(worst, (got.float() - whole[:, o:o + m])
+                                    .abs().max().item() / scale)
+                    else:
+                        acc += got.float()
+                    if j == 1:
+                        want = zp.zo_matmul_ref(xj, wj, base, 0, 1e-3,
+                                                offsets=offs, **kw)
+                        err = ((got.float() - want.float()).abs().max()
+                               / want.float().abs().max()).item()
+                        check(err <= lim, f"SH1 zo_matmul plain at offsets "
+                              f"{path} {dtype} {dist}: {err} > {lim}")
+                        if (par == "column" and dtype == torch.bfloat16
+                                and dist == "rademacher"
+                                and arch == "opt-1.3b"):
+                            times["zo_matmul"] = {
+                                "leaf": f"{arch} {path} {[k, n]} bf16, X "
+                                        f"{[TRAIN_B * TRAIN_S, k]}",
+                                "whole_ms": time_ms(lambda: zp.zo_matmul_cuda(
+                                    x, w, base, 0, 1e-3, **kw), 20),
+                                "shard_ms": time_ms(lambda: zp.zo_matmul_cuda(
+                                    xj, wj, base, 0, 1e-3, offsets=offs,
+                                    **kw), 20),
+                                "shard_shape": list(wj.shape)}
+                        del want
+                    del got, wj, xj
+                if par == "row":
+                    worst = (acc - whole).abs().max().item() / scale
+                check(worst <= lim, f"SH1 zo_matmul {par}-parallel {path} "
+                      f"{dtype} {dist}: {worst} > {lim}")
+                print(json.dumps({"phase": "SH1 zo_matmul", "leaf": path,
+                                  "parallel": par, "dtype": str(dtype),
+                                  "dist": dist, "rel_err": worst,
+                                  "limit": lim}), flush=True)
+                del whole, acc
+            del x, w
+            torch.cuda.empty_cache()
+    launches = _snapshot(ops)
+    check(launches["zo_add"] >= n_add and launches["zo_matmul"] >= n_mm,
+          f"SH1: launches {launches}")
+    print(json.dumps({"phase": "SH1 offsets",
+                      "seconds": time.perf_counter() - t0,
+                      "shards_zo_add": n_add, "shards_zo_matmul": n_mm,
+                      "times": times}), flush=True)
+
+
+def _sh2_model(torch, arch, pmesh, shd, mcfg, batch_argv):
+    """One full-width arch: SH2_STEPS fused MeZO steps mesh-less and
+    through DTensor params on ``pmesh``; returns the phase's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mezo import mezo_step_fused
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    batch = _first_batch(torch, cfg, *batch_argv)
+    sparams = shd.distribute_tree({k: v.clone() for k, v in params.items()},
+                                  pmesh)
+    sbatch = {k: shd.distribute(v, pmesh, shd.P(("pod", "data"),
+                                                *(None,) * (v.dim() - 1)))
+              for k, v in batch.items()}
+    plain, sharded = [], []
+    t_plain = t_sharded = 0.0
+    launches = None
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(SH2_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, aux = mezo_step_fused(model.loss, params, batch, 100 + step,
+                                      mcfg)
+        torch.cuda.synchronize()
+        t_plain += time.perf_counter() - t0
+        plain.append((float(aux.loss), aux.gs.tolist()))
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with shd.use_mesh(pmesh):
+            sparams, saux = mezo_step_fused(model.loss, sparams, sbatch,
+                                            100 + step, mcfg)
+        torch.cuda.synchronize()
+        t_sharded += time.perf_counter() - t0
+        snap = _snapshot(ops)
+        launches = snap if launches is None else {
+            k: launches[k] + snap[k] for k in snap}
+        sharded.append((float(saux.loss), saux.gs.tolist()))
+    gs_lim = FAMILY_FUSED_ATOL / (2 * mcfg.eps)
+    dparam = dparam_over_limit = 0.0
+    for k, v in params.items():
+        if not v.is_floating_point():
+            continue
+        d = (sparams[k].to_local() - v).abs().max().item()
+        lim = SH2_STEPS * (mcfg.lr * gs_lim + torch.finfo(v.dtype).eps *
+                           v.abs().max().item())
+        dparam = max(dparam, d)
+        dparam_over_limit = max(dparam_over_limit, d / lim)
+    return dict(cfg=cfg, plain=plain, sharded=sharded, dparam=dparam,
+                dparam_over_limit=dparam_over_limit,
+                s_plain=t_plain / SH2_STEPS, s_sharded=t_sharded / SH2_STEPS,
+                launches=launches,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def sh2_sharded_step(torch, paths):
+    """SH2: a one-rank nccl group and a (1, 1, 1) ("pod", "data", "model")
+    mesh; full-width granite-moe-1b-a400m (moe_ep: the EP body with all
+    32 experts local) and OPT-1.3B take SH2_STEPS fused MeZO steps at
+    B 8 x 128 through DTensor params and the kernels, against the
+    mesh-less steps (limits above SH2_STEPS). The group is destroyed
+    before the next phase."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.mezo import MezoConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import sharding as shd
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        pmesh = init_device_mesh("cuda", (1, 1, 1),
+                                 mesh_dim_names=("pod", "data", "model"))
+        mcfg = MezoConfig(n_directions=1)
+        total = None
+        for arch in ("granite-moe-1b-a400m", "opt-1.3b"):
+            t0 = time.perf_counter()
+            r = _sh2_model(torch, arch, pmesh, shd, mcfg,
+                           (TRAIN_B, TRAIN_S))
+            exact = r["plain"] == r["sharded"] and r["dparam"] == 0.0
+            if arch == "opt-1.3b" or exact:
+                check(exact, f"SH2 {arch}: sharded {r['sharded']} vs "
+                      f"mesh-less {r['plain']}, max |dparam| {r['dparam']}")
+            else:
+                for (lp, gp), (ls, gs) in zip(r["plain"], r["sharded"]):
+                    check(abs(lp - ls) <= FAMILY_FUSED_ATOL and
+                          max(abs(a - b) for a, b in zip(gp, gs)) <=
+                          FAMILY_FUSED_ATOL / (2 * mcfg.eps),
+                          f"SH2 {arch}: {r['sharded']} vs {r['plain']}")
+                check(r["dparam_over_limit"] <= 1.0,
+                      f"SH2 {arch}: a leaf moved {r['dparam_over_limit']}x "
+                      f"its limit (max |dparam| {r['dparam']})")
+            check(r["launches"]["zo_add"] > 0 and
+                  r["launches"]["zo_matmul"] > 0,
+                  f"SH2 {arch}: kernels not launched {r['launches']}")
+            _check_bodies(f"SH2 {arch}", r["launches"],
+                          {k: r["launches"][k]
+                           for k in ("zo_matmul", "flash_attention")},
+                          r["cfg"].dtype == "bfloat16")
+            total = r["launches"] if total is None else {
+                k: total[k] + r["launches"][k] for k in total}
+            _phase_line(torch, f"SH2 {arch}", time.perf_counter() - t0,
+                        r["launches"], exact=exact,
+                        losses_sharded=[x[0] for x in r["sharded"]],
+                        losses_plain=[x[0] for x in r["plain"]],
+                        max_abs_dparam=r["dparam"],
+                        dparam_over_limit=r["dparam_over_limit"],
+                        step_s_plain=r["s_plain"],
+                        step_s_sharded=r["s_sharded"])
+            del r
+            torch.cuda.empty_cache()
+        paths["SH2 sharded step"] = total
+        ops.reset_launches()
+    finally:
+        dist.destroy_process_group()
+
+
+def dr1_start(out_dir: Path):
+    """DR1: the three dry-run cells, each ``python -m
+    repro_torch.launch.dryrun`` in a process of its own (CPU only: fake
+    tensors on a fake group of 256 ranks), started together."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DR1_CELLS:
+        procs.append((arch, shape, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out_dir)], cwd=str(ROOT),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return procs, time.perf_counter()
+
+
+def dr1_finish(procs, t0, out_dir: Path):
+    for arch, shape, p in procs:
+        try:
+            out, _ = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail(f"DR1 {arch} {shape}: the dry run took over 600 s")
+        lines = [ln for ln in out.splitlines() if ln.startswith("[dryrun]")]
+        check(p.returncode == 0 and lines and "OK" in lines[-1],
+              f"DR1 {arch} {shape}: rc {p.returncode}: {out[-1500:]}")
+        (path,) = out_dir.glob(f"{arch}__{shape}__*.json")
+        with open(path) as f:
+            rec = json.load(f)
+        r = rec["roofline"]
+        print(json.dumps({
+            "phase": "DR1 dryrun", "arch": arch, "shape": shape,
+            "mesh": rec["mesh"], "param_bytes_per_device":
+                rec["analytic_param_bytes_per_device"],
+            "opt_bytes_per_device": rec.get("analytic_opt_bytes_per_device"),
+            "cache_bytes_per_device":
+                rec.get("analytic_cache_bytes_per_device"),
+            "peak_live_bytes_rank0":
+                rec["memory_analysis"]["peak_live_bytes_rank0"],
+            "collectives": rec["collectives"],
+            "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+            "t_collective_s": r["t_collective_s"],
+            "bottleneck": r["bottleneck"], "t_trace_s": rec["t_trace_s"]}),
+            flush=True)
+        if arch == "kimi-k2-1t-a32b":
+            check(rec["analytic_param_bytes_per_device"]
+                  <= DR1_MAX_PARAM_BYTES,
+                  f"DR1 kimi-k2: {rec['analytic_param_bytes_per_device']} "
+                  f"parameter bytes a device > {DR1_MAX_PARAM_BYTES}")
+    print(json.dumps({"phase": "DR1 done",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4310,6 +4696,16 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         phase()
+
+    # SH1, SH2, DR1: the multi-device tier (the dry run's processes run
+    # on the host's cores beside SH1 and SH2)
+    dr1 = dr1_start(WORK / "dryrun")
+    for phase in (lambda: sh1_offsets(torch),
+                  lambda: sh2_sharded_step(torch, paths)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase()
+    dr1_finish(*dr1, WORK / "dryrun")
 
     # 6. the kernels line, then the result
     from repro_torch.kernels import ops

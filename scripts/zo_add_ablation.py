@@ -40,10 +40,10 @@ OUT = ROOT / "build" / "zo_add_ablation"
 SOURCE = "repro_torch/csrc/zo_add.cu"
 HASH = ("    const float cz = c_times_z<DIST>(avalanche(h_row ^ cp), coeff);\n",
         "    const float cz = coeff;\n")
-ROW = ("perturb_in_row<T, VEC, DIST>(x, odometer_hash(o, s, base), o.col,",
-       "perturb_in_row<T, VEC, DIST>(x, base, o.col,")
-COPY = ("""    perturb_in_row<T, VEC, DIST>(x, odometer_hash(o, s, base), o.col, p_last,
-                                 coeff);""", "")
+ROW = ("perturb_in_row<T, VEC, DIST>(x, odometer_hash(o, s, base),",
+       "perturb_in_row<T, VEC, DIST>(x, base,")
+COPY = ("""    perturb_in_row<T, VEC, DIST>(x, odometer_hash(o, s, base),
+                                 o.col + off_col, p_last, coeff);""", "")
 Q_HASH = ("                           c_times_z<DIST>(avalanche(h_row ^ cp), "
           "coeff));", "                           coeff);")
 VARIANTS = {

@@ -109,7 +109,7 @@ def main():
             def call(fn=fn):
                 y = torch.empty((m, n), dtype=x.dtype, device=dev)
                 rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), 1, m, k, n,
-                        base, 0, coeff, 0,
+                        base, 0, coeff, 0, 0, 0,
                         torch.cuda.current_stream().cuda_stream)
                 cs.check(rc == 0, f"{name}: launch error {rc}")
                 return y

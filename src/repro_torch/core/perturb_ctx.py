@@ -53,6 +53,13 @@ its per-lane f32 W' = q*s + delta[i] and perturbs it in place), and a
 leaf with deltas multiplies lane by lane at the scalar path's shapes, so
 every lane is bit for bit a scalar ctx with that lane's (seed, coeff).
 
+**Sharded mode**: a leaf that is a DTensor (``models/sharding.py``)
+takes the kernels' local forms (``kernels/ops.py``): ``perturb`` and
+``matmul`` run on this rank's shard at its global offsets, so every
+shard's z is the unsharded z's slice; ``take`` of a vocab-sharded table
+gathers the ids this rank owns and sums the rows over the mesh, the
+Megatron vocab-parallel embedding.
+
 Salts are the crc32 of the leaf's ``/``-joined path in the stacked
 parameter tree (``blocks/attn/wq/w``), and a layer's slice of a stacked
 ``(L, ...)`` leaf folds the layer index into the pre-hashed base with
@@ -70,6 +77,8 @@ import torch
 
 from repro_torch.core import rng as zrng
 from repro_torch.core.batching import user_lanes
+from repro_torch.core.dtensor import (contiguous_stride, is_dtensor,
+                                      local_offsets, settle)
 from repro_torch.kernels import ops as kops
 from repro_torch.optim.quant import is_quantized, take_rows_f32
 
@@ -274,6 +283,11 @@ class PerturbCtx:
         x (n * B, ..., K), w shared or per-lane)."""
         if self.batched:
             return self._matmul_users(x, w, name)
+        if is_dtensor(w):
+            base, off = self._leaf(name)
+            return kops.zo_matmul(x, w, base, 0, self._coeff(),
+                                  dist=self.dist, prime_offset=off,
+                                  prehashed=True)
         if is_quantized(w) and w.delta is not None:
             return x @ self.perturb(name, w)
         if not is_quantized(w) and not w.is_floating_point():
@@ -297,6 +311,9 @@ class PerturbCtx:
         if self.batched:
             return self._take_users(name, table, ids)
         base, off = self._leaf(name)
+        if is_dtensor(table):
+            return take_sharded(table, ids, base, off, self._coeff(),
+                                self.dist)
         rows = take_rows_f32(table, ids)
         z = zrng.z_rows(base, ids, table.shape[1], torch.float32, self.dist,
                         prime_offset=off)
@@ -313,6 +330,47 @@ class PerturbCtx:
         return {path: ctx.materialize(leaf, path) if isinstance(leaf, dict)
                 else ctx.perturb(path, leaf)
                 for path, leaf in subtree.items()}
+
+
+def take_sharded(table, ids, base=None, off: int = 0, coeff=None,
+                 dist: str = "rademacher"):
+    """``(table + coeff * z)[ids]`` (without ``base``: ``table[ids]``) for
+    a DTensor table whose rows are sharded on at most one mesh dim: each
+    rank gathers the ids in its row block (its rows' z by their global
+    ids), zeros elsewhere, and the sum over that mesh dim (one all-reduce
+    of the gathered rows) is the result (``ids`` replicated there)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ids_l = ids._local_tensor if is_dtensor(ids) else ids
+    ids_pl = (ids.placements if is_dtensor(ids)
+              else (Replicate(),) * table.device_mesh.ndim)
+    local = table._local_tensor
+    r0 = local_offsets(table)[0]
+    n_rows = local.shape[0]
+    pl = []
+    sharded = False
+    for tp, ip in zip(table.placements, ids_pl):
+        if isinstance(tp, Shard) and tp.dim == 0:
+            if not isinstance(ip, Replicate) or sharded:
+                raise ValueError(f"take: rows sharded as {table.placements} "
+                                 f"with ids placed {ids_pl}")
+            sharded = True
+            pl.append(Partial())
+        elif isinstance(tp, Replicate):
+            pl.append(ip)
+        else:
+            raise ValueError(f"take: no local form for a table placed "
+                             f"{table.placements}")
+    mine = (ids_l >= r0) & (ids_l < r0 + n_rows)
+    rows = local[torch.where(mine, ids_l - r0, 0)].to(torch.float32)
+    if base is not None:
+        z = zrng.z_rows(base, ids_l, table.shape[1], torch.float32, dist,
+                        prime_offset=off)
+        rows = rows + coeff.to(rows.device) * z
+    rows = torch.where(mine[..., None], rows, 0.0).to(table.dtype)
+    shape = tuple(ids.shape) + (table.shape[1],)
+    return settle(DTensor.from_local(rows, table.device_mesh, pl,
+                                     shape=torch.Size(shape),
+                                     stride=contiguous_stride(shape)))
 
 
 def host_to(values, dtype, device) -> torch.Tensor:

@@ -83,6 +83,9 @@ struct Shape {
   // step[0] the outermost (not reduced)
   uint32_t step[kMaxRank];
   uint32_t prime[kMaxRank];       // dim_prime(prime_offset + d)
+  // the leaf's global offset in each dimension: a shard of a larger leaf
+  // hashes the coordinates it has there (zero for a whole leaf)
+  uint32_t off[kMaxRank];
 };
 
 template <typename T, int N>
@@ -186,14 +189,15 @@ __device__ __forceinline__ void odometer_step(Odometer& o, const Shape& s,
   if (s.nd >= 2) o.c[0] += s.step[0] + carry;
 }
 
-// the hash of the odometer's row: its outer coordinates folded in order
+// the hash of the odometer's row: its outer coordinates (global: plus
+// the shard's offsets) folded in order
 __device__ __forceinline__ uint32_t odometer_hash(const Odometer& o,
                                                   const Shape& s,
                                                   uint32_t base) {
   uint32_t h = base;
 #pragma unroll
   for (int d = 0; d < kOuter; ++d)
-    if (d <= s.nd - 2) h = avalanche(h ^ (o.c[d] * s.prime[d]));
+    if (d <= s.nd - 2) h = avalanche(h ^ ((o.c[d] + s.off[d]) * s.prime[d]));
   return h;
 }
 
@@ -208,7 +212,8 @@ __device__ __forceinline__ int64_t odometer_lead(const Odometer& o,
   return lead;
 }
 
-// VEC elements inside one row, from column col of the row hashed h_row
+// VEC elements inside one row, from (global) column col of the row
+// hashed h_row
 template <typename T, int VEC, int DIST>
 __device__ __forceinline__ void perturb_in_row(Vec<T, VEC>& x, uint32_t h_row,
                                                uint32_t col, uint32_t p_last,
@@ -242,14 +247,15 @@ __device__ __forceinline__ void zo_add_stream(const T* __restrict__ w,
   const uint32_t last = static_cast<uint32_t>(s.dim[s.nd - 1]);
   const uint32_t p_last = s.prime[s.nd - 1];
   const uint32_t step_col = s.step[s.nd - 1];
+  const uint32_t off_col = s.off[s.nd - 1];
   int64_t v = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   Odometer o = odometer_at(v * VEC, s);
   const V* wv = reinterpret_cast<const V*>(w);
   V* ov = reinterpret_cast<V*>(out);
   for (; v < nv; v += stride) {
     V x = load_stream(wv + v);
-    perturb_in_row<T, VEC, DIST>(x, odometer_hash(o, s, base), o.col, p_last,
-                                 coeff);
+    perturb_in_row<T, VEC, DIST>(x, odometer_hash(o, s, base),
+                                 o.col + off_col, p_last, coeff);
     store_stream(ov + v, x);
     odometer_step(o, s, last, step_col);
   }
@@ -422,10 +428,12 @@ void by_type(int dtype, int vectorized, int dist, F&& go) {
 
 // dtype: 0 float32, 1 bfloat16. aligned: both pointers are 16-byte
 // aligned (then a vector is 16 bytes of elements where that divides the
-// last dimension, else one element). Returns cudaGetLastError() after
-// the launch.
+// last dimension, else one element). offsets: nd global offsets of this
+// leaf within a larger one (a shard: its z is that leaf's slice), or
+// null for zeros. Returns cudaGetLastError() after the launch.
 extern "C" int repro_zo_add(const void* w, void* out, int64_t n, int dtype,
-                            const int64_t* shape, int nd, uint32_t base,
+                            const int64_t* shape, int nd,
+                            const int64_t* offsets, uint32_t base,
                             int prime_offset, float coeff, int dist,
                             int aligned, void* stream) {
   using namespace repro_torch;
@@ -436,6 +444,11 @@ extern "C" int repro_zo_add(const void* w, void* out, int64_t n, int dtype,
       !plan(s, blocks, shape, nd, prime_offset, n, vec, 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (offsets != nullptr)
+    for (int d = 0; d < nd; ++d) {
+      if (offsets[d] < 0) return static_cast<int>(cudaErrorInvalidValue);
+      s.off[d] = static_cast<uint32_t>(offsets[d]);
+    }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   by_type(dtype, vec > 1, dist, [&](auto t, auto v, auto d) {
     using T = decltype(t);

@@ -23,7 +23,9 @@ constexpr uint32_t kGaussSalt = 0x68E31DA4u;
 
 // The user-batched kernels' per-lane scalars: lane i of the grid uses the
 // pre-hashed base base[i] and the coefficient coeff[i]; zo_add_users
-// reads and writes lane idx[i] of its stacked leaf. The TPU kernels keep
+// reads and writes lane idx[i] of its stacked leaf; zo_matmul's (row0,
+// col0) is the W tile's global origin (a shard of a larger W hashes its
+// coordinates there; zero in a user launch). The TPU kernels keep
 // their (U,) seed and coefficient vectors in SMEM; here they travel by
 // value in the kernel's parameter space (a constant bank every thread
 // reads), so a launch needs no host-to-device copy and no sync.
@@ -32,6 +34,7 @@ struct Lanes {
   uint32_t base[kMaxLanes];
   float coeff[kMaxLanes];
   int idx[kMaxLanes];
+  uint32_t row0, col0;
 };
 
 __host__ __device__ __forceinline__ uint32_t dim_prime(int d) {

@@ -128,7 +128,7 @@ __device__ __forceinline__ void zo_matmul_block(
     float (&xs)[kBK][kBM], float (&ws)[kBK][kBN], const T* __restrict__ x,
     const TW* __restrict__ w, const float* __restrict__ scale,
     T* __restrict__ y, int m, int k, int n, uint32_t base, int prime_offset,
-    float coeff, int dist) {
+    float coeff, int dist, uint32_t row0, uint32_t col0) {
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
@@ -153,7 +153,7 @@ __device__ __forceinline__ void zo_matmul_block(
     }
     const int gk = k0 + wr;
     const uint32_t h_row =
-        fold(base, static_cast<uint32_t>(gk), prime_offset);
+        fold(base, static_cast<uint32_t>(gk) + row0, prime_offset);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = wc + 32 * i;
@@ -161,7 +161,8 @@ __device__ __forceinline__ void zo_matmul_block(
       float v = 0.0f;
       if (gk < k && gn < n) {
         const float z = z_from_bits(
-            fold(h_row, static_cast<uint32_t>(gn), prime_offset + 1), dist);
+            fold(h_row, static_cast<uint32_t>(gn) + col0, prime_offset + 1),
+            dist);
         v = __fadd_rn(w_f32(w, scale, static_cast<int64_t>(gk) * n + gn, gn),
                       __fmul_rn(coeff, z));
       }
@@ -202,11 +203,11 @@ __global__ void __launch_bounds__(kThreads)
 zo_matmul_kernel(const T* __restrict__ x, const TW* __restrict__ w,
                  const float* __restrict__ scale, T* __restrict__ y, int m,
                  int k, int n, uint32_t base, int prime_offset, float coeff,
-                 int dist) {
+                 int dist, uint32_t row0, uint32_t col0) {
   __shared__ __align__(16) float xs[kBK][kBM];  // X tile, transposed
   __shared__ __align__(16) float ws[kBK][kBN];  // perturbed W tile
   zo_matmul_block<T, TW>(xs, ws, x, w, scale, y, m, k, n, base,
-                         prime_offset, coeff, dist);
+                         prime_offset, coeff, dist, row0, col0);
 }
 
 // lane blockIdx.z: X and Y lane z, W lane z % w_lanes at stride w_stride.
@@ -225,7 +226,8 @@ zo_matmul_users_kernel(const T* __restrict__ x, const TW* __restrict__ w,
   const int64_t mn = static_cast<int64_t>(m) * n;
   zo_matmul_block<T, TW>(xs, ws, x + u * mk, w + (u % w_lanes) * w_stride,
                          scale, y + u * mn, m, k, n, lanes.base[u],
-                         prime_offset, lanes.coeff[u], dist);
+                         prime_offset, lanes.coeff[u], dist, lanes.row0,
+                         lanes.col0);
 }
 
 // ---------------------------------------------------------------------------
@@ -494,11 +496,12 @@ zo_matmul_tc_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
       for (int rr = 0; rr < BK / 32; ++rr) {
         const int row = zr + 32 * rr;
         const uint32_t h_row =
-            fold(base, static_cast<uint32_t>(t * BK + row), prime_offset);
+            fold(base, static_cast<uint32_t>(t * BK + row) + lanes.row0,
+                 prime_offset);
 #pragma unroll
         for (int j = 0; j < BN / 32; ++j) {
           const int col = (zq + 4 * j) * 8;
-          uint32_t np = static_cast<uint32_t>(n0 + col) * p1;
+          uint32_t np = (static_cast<uint32_t>(n0 + col) + lanes.col0) * p1;
           uint32_t o[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -668,10 +671,12 @@ int launch(const void* x, const void* w, const float* scale, void* y, int m,
 // tensor cores, everything else on the SIMT body
 bool use_tc(int dtype, int dist) { return dtype == 1 && dist == 0; }
 
-Lanes one_lane(uint32_t base, float coeff) {
+Lanes one_lane(uint32_t base, float coeff, uint32_t row0, uint32_t col0) {
   Lanes lanes{};
   lanes.base[0] = base;
   lanes.coeff[0] = coeff;
+  lanes.row0 = row0;
+  lanes.col0 = col0;
   return lanes;
 }
 
@@ -679,12 +684,13 @@ Lanes one_lane(uint32_t base, float coeff) {
 template <typename T, typename TW>
 void launch(const void* x, const void* w, const float* scale, void* y, int m,
             int k, int n, uint32_t base, int prime_offset, float coeff,
-            int dist, cudaStream_t st) {
+            int dist, cudaStream_t st, uint32_t row0 = 0, uint32_t col0 = 0) {
   using W = std::conditional_t<std::is_void_v<TW>, T, TW>;
   dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   zo_matmul_kernel<T, W><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const W*>(w), scale,
-      static_cast<T*>(y), m, k, n, base, prime_offset, coeff, dist);
+      static_cast<T*>(y), m, k, n, base, prime_offset, coeff, dist, row0,
+      col0);
 }
 
 template <typename T, typename TW>
@@ -718,25 +724,29 @@ extern "C" int repro_zo_matmul_body(int dtype, int dist) {
 // x (M, K), w (K, N), y (M, N): contiguous, one dtype (0 float32,
 // 1 bfloat16). base: the pre-hashed z base (leaf_base, plus any layer
 // fold); prime_offset: primes of (k, n) are P[po], P[po + 1]. dist 0
-// Rademacher, 1 Gaussian. Returns cudaGetLastError() after the launch.
+// Rademacher, 1 Gaussian. (row0, col0): W's global origin within a larger
+// leaf (a shard of it: z is that leaf's slice), zeros for a whole W.
+// Returns cudaGetLastError() after the launch.
 extern "C" int repro_zo_matmul(const void* x, const void* w, void* y,
                                int dtype, int m, int k, int n, uint32_t base,
                                int prime_offset, float coeff, int dist,
-                               void* stream) {
+                               int64_t row0, int64_t col0, void* stream) {
   using namespace repro_torch;
-  if (bad_args(m, k, n, prime_offset, dist))
+  if (bad_args(m, k, n, prime_offset, dist) || row0 < 0 || col0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t r0 = static_cast<uint32_t>(row0);
+  const uint32_t c0 = static_cast<uint32_t>(col0);
   if (use_tc(dtype, dist))
     return tc::launch<__nv_bfloat16>(x, w, nullptr, y, m, k, n, 0, 1,
-                                     one_lane(base, coeff), 1, prime_offset,
-                                     st);
+                                     one_lane(base, coeff, r0, c0), 1,
+                                     prime_offset, st);
   if (dtype == 0)
     launch<float, void>(x, w, nullptr, y, m, k, n, base, prime_offset, coeff,
-                        dist, st);
+                        dist, st, r0, c0);
   else if (dtype == 1)
     launch<__nv_bfloat16, void>(x, w, nullptr, y, m, k, n, base,
-                                prime_offset, coeff, dist, st);
+                                prime_offset, coeff, dist, st, r0, c0);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -757,7 +767,8 @@ extern "C" int repro_zo_matmul_q(const void* x, const void* q,
   const float* sp = static_cast<const float*>(scale);
   if (use_tc(dtype, dist))
     return tc::launch<int8_t>(x, q, sp, y, m, k, n, 0, 1,
-                              one_lane(base, coeff), 1, prime_offset, st);
+                              one_lane(base, coeff, 0, 0), 1, prime_offset,
+                              st);
   if (dtype == 0)
     launch<float, int8_t>(x, q, sp, y, m, k, n, base, prime_offset, coeff,
                           dist, st);

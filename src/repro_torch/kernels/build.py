@@ -54,7 +54,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "repro_zo_add": (_P, _P, ctypes.c_int64, _I,
-                     ctypes.POINTER(ctypes.c_int64), _I, ctypes.c_uint32,
+                     ctypes.POINTER(ctypes.c_int64), _I,
+                     ctypes.POINTER(ctypes.c_int64), ctypes.c_uint32,
                      _I, ctypes.c_float, _I, _I, _P),
     "repro_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, ctypes.c_float, _P),
@@ -63,7 +64,8 @@ _SIGNATURES = {
     "repro_flash_verify": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _I, ctypes.c_float, _P),
     "repro_zo_matmul": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_uint32, _I,
-                        ctypes.c_float, _I, _P),
+                        ctypes.c_float, _I, ctypes.c_int64, ctypes.c_int64,
+                        _P),
     "repro_zo_add_q": (_P, _P, _P, ctypes.c_int64,
                        ctypes.POINTER(ctypes.c_int64), _I, ctypes.c_uint32,
                        _I, ctypes.c_float, _I, _I, _P),

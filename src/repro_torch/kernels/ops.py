@@ -8,12 +8,26 @@ counted in :data:`LAUNCHES` (``LAUNCHES["zo_add"]`` and so on), and
 the two-body kernels' launches by body in :data:`BODIES`
 (``BODIES["zo_matmul/tc"]``: bf16 tensor cores; ``.../simt``; also
 ``flash_attention``, ``flash_prefill`` and ``flash_verify``).
+
+A DTensor (the sharded step: ``models/sharding.py``; the tensor-level
+helpers are ``core/dtensor.py``'s) takes the local form of ``zo_add``
+and ``zo_matmul``: the kernel (or its plain version) runs on this rank's
+shard at the shard's global offsets, so its z is
+the unsharded z's slice, and the result is wrapped back as a DTensor.
+``zo_matmul`` takes the two Megatron placements of W on a mesh dim --
+column-parallel (``Shard(1)``: the output ``Shard(-1)``) and row-parallel
+(``Shard(0)``: X sharded on the contraction, or replicated and sliced
+locally; the output ``Partial()``, reduced once where it is read) -- and
+a replicated W with X replicated or batch-sharded; any other placement
+raises, as do the int8 and user-batched kernels on a DTensor.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.dtensor import (contiguous_stride, is_dtensor,
+                                      local_offsets)
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import flash_prefill as _fp
@@ -34,17 +48,56 @@ def _on_cpu(kernel: str, t) -> bool:
     raise ValueError(f"{kernel}: no kernel for device {t.device}")
 
 
+def _no_partial(t, kernel: str):
+    from torch.distributed.tensor import Partial
+    if any(isinstance(p, Partial) for p in t.placements):
+        raise ValueError(f"{kernel}: a Partial DTensor has no local form "
+                         f"({t.placements})")
+
+
+def _zo_add_sharded(w, seed, salt, coeff, dist, prime_offset, prehashed,
+                    out):
+    """:func:`zo_add` of a DTensor leaf: this rank's shard at its global
+    offsets, wrapped back with the leaf's placements (in place into
+    ``out``'s shard, if given)."""
+    from torch.distributed.tensor import DTensor
+    _no_partial(w, "zo_add")
+    dst = None
+    if out is not None:
+        if not is_dtensor(out) or out.placements != w.placements:
+            raise ValueError("zo_add: out must be a DTensor placed as w")
+        dst = out._local_tensor
+    res = zo_add(w._local_tensor, seed, salt, coeff, dist, prime_offset,
+                 prehashed, out=dst, offsets=local_offsets(w))
+    if out is not None:
+        return out
+    return DTensor.from_local(res, w.device_mesh, w.placements,
+                              shape=w.shape,
+                              stride=contiguous_stride(w.shape))
+
+
 def zo_add(w, seed, salt: int, coeff, dist: str = "rademacher",
            prime_offset: int = 0, prehashed: bool = False, out=None,
-           scale=None):
+           scale=None, offsets=None):
     """``w + coeff * z(seed, salt)`` in ``w``'s dtype, for a leaf of any
     rank (the kernel masks its own edges; no alignment gate). ``out``
-    (may be ``w`` itself) receives the result.
+    (may be ``w`` itself) receives the result. ``offsets``: ``w``'s
+    global position as a shard of a larger leaf (default zeros); a
+    DTensor ``w`` supplies its own (module docstring).
 
     ``scale`` (f32, ``w.shape[:-2] + (N,)``) marks ``w`` as an int8 base:
     the result is then the f32 ``w * scale + coeff * z``, from the
     ``zo_add_q`` kernel on the card (counted as ``zo_add_q``)."""
+    if is_dtensor(w):
+        if scale is not None or offsets is not None:
+            raise ValueError("zo_add: a DTensor leaf takes neither scale= "
+                             "nor offsets=")
+        return _zo_add_sharded(w, seed, salt, coeff, dist, prime_offset,
+                               prehashed, out)
     if scale is not None:
+        if offsets is not None and any(offsets):
+            raise ValueError("zo_add(scale=): the int8 kernel takes no "
+                             "shard offsets")
         if out is not None:
             raise ValueError("zo_add(scale=) returns a new f32 tensor; "
                              "out= is not taken")
@@ -55,14 +108,67 @@ def zo_add(w, seed, salt: int, coeff, dist: str = "rademacher",
                                  prime_offset, prehashed)
     if _on_cpu("zo_add", w):
         res = _zo.zo_add_ref(w, seed, salt, coeff, dist, prime_offset,
-                             prehashed)
+                             prehashed, offsets=offsets)
         return res if out is None else out.copy_(res)
     return _zo.zo_add_cuda(w, seed, salt, coeff, dist, prime_offset,
-                           prehashed, out=out)
+                           prehashed, out=out, offsets=offsets)
+
+
+def zo_matmul_sharded(x, w, seed, salt: int, coeff, dist: str = "rademacher",
+                      prime_offset: int = 0, prehashed: bool = False):
+    """``x @ (w + coeff * z)`` for a DTensor W (K, N) and x (..., K) (a
+    DTensor, or a plain tensor taken as replicated): the kernel on this
+    rank's shards at W's global offsets, the result a DTensor (..., N)
+    placed by the rule in the module docstring."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    _no_partial(w, "zo_matmul")
+    mesh = w.device_mesh
+    if is_dtensor(x):
+        if x.device_mesh != mesh:
+            raise ValueError("zo_matmul: x and w on different meshes")
+        _no_partial(x, "zo_matmul")
+        xl, xps = x._local_tensor, x.placements
+    else:
+        xl, xps = x, (Replicate(),) * mesh.ndim
+    wl = w._local_tensor
+    row0, col0 = local_offsets(w)
+    last = x.dim() - 1
+    out_pl = []
+    for wp, xp in zip(w.placements, xps):
+        x_shards_k = isinstance(xp, Shard) and xp.dim % x.dim() == last
+        if isinstance(wp, Replicate):
+            if x_shards_k:
+                raise ValueError(f"zo_matmul: x sharded on the contraction "
+                                 f"with W replicated ({xps}, {w.placements})")
+            out_pl.append(xp)
+        elif isinstance(wp, Shard) and wp.dim % 2 == 1:    # column-parallel
+            if not isinstance(xp, Replicate):
+                raise ValueError(f"zo_matmul: column-parallel W needs x "
+                                 f"replicated on its mesh dim ({xps})")
+            out_pl.append(Shard(last))
+        elif isinstance(wp, Shard):                        # row-parallel
+            if not (x_shards_k or isinstance(xp, Replicate)):
+                raise ValueError(f"zo_matmul: row-parallel W needs x "
+                                 f"sharded on the contraction ({xps})")
+            out_pl.append(Partial())
+        else:
+            raise ValueError(f"zo_matmul: no local form for W placed "
+                             f"{w.placements}")
+    k_loc = wl.shape[0]
+    if xl.shape[-1] != k_loc:             # replicated x: this rank's slice
+        xl = xl[..., row0:row0 + k_loc]
+    lead = xl.shape[:-1]
+    y = zo_matmul(xl.reshape(-1, k_loc).contiguous(), wl, seed, salt, coeff,
+                  dist, prime_offset, prehashed, offsets=(row0, col0))
+    y = y.reshape(*lead, wl.shape[1])
+    shape = tuple(x.shape[:-1]) + (w.shape[1],)
+    return DTensor.from_local(y, mesh, out_pl, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def zo_matmul(x, w, seed, salt: int, coeff, dist: str = "rademacher",
-              prime_offset: int = 0, prehashed: bool = False, scale=None):
+              prime_offset: int = 0, prehashed: bool = False, scale=None,
+              offsets=None):
     """``x @ (w + coeff * z(seed, salt))`` for x (M, K), w (K, N), the
     Pallas kernel's true-f32 dot, result in ``x``'s dtype (any shape, no
     alignment gate). On the card, bf16 x with Rademacher z runs the
@@ -72,8 +178,19 @@ def zo_matmul(x, w, seed, salt: int, coeff, dist: str = "rademacher",
 
     ``scale`` (f32, (N,)) marks ``w`` as an int8 base: ``x @ (w * scale +
     coeff * z)``, the ``zo_matmul_q`` kernel on the card (counted as
-    ``zo_matmul_q``)."""
+    ``zo_matmul_q``). ``offsets=(row0, col0)``: w's global origin as a
+    shard of a larger weight (default zeros); a DTensor w goes through
+    :func:`zo_matmul_sharded`."""
+    if is_dtensor(w):
+        if scale is not None or offsets is not None:
+            raise ValueError("zo_matmul: a DTensor w takes neither scale= "
+                             "nor offsets=")
+        return zo_matmul_sharded(x, w, seed, salt, coeff, dist,
+                                 prime_offset, prehashed)
     if scale is not None:
+        if offsets is not None and any(offsets):
+            raise ValueError("zo_matmul(scale=): the int8 kernel takes no "
+                             "shard offsets")
         if _on_cpu("zo_matmul_q", x):
             return _zo.zo_matmul_q_ref(x, w, scale, seed, salt, coeff, dist,
                                        prime_offset, prehashed)
@@ -81,9 +198,9 @@ def zo_matmul(x, w, seed, salt: int, coeff, dist: str = "rademacher",
                                     prime_offset, prehashed)
     if _on_cpu("zo_matmul", x):
         return _zo.zo_matmul_ref(x, w, seed, salt, coeff, dist,
-                                 prime_offset, prehashed)
+                                 prime_offset, prehashed, offsets=offsets)
     return _zo.zo_matmul_cuda(x, w, seed, salt, coeff, dist, prime_offset,
-                              prehashed)
+                              prehashed, offsets=offsets)
 
 
 def zo_add_users(w, seeds, salt: int, coeffs, dist: str = "rademacher",

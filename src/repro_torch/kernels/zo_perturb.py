@@ -36,6 +36,13 @@ step seed and folds the leaf ``salt`` in; ``prehashed=True`` takes a base
 already folded (``rng.leaf_base`` / ``rng.fold_leading``) and ignores
 ``salt``. ``prime_offset`` selects the per-dimension primes, so a slice
 of a stacked leaf reproduces that slice of the whole field.
+
+Shards: ``zo_add`` takes ``offsets`` (one per dimension) and ``zo_matmul``
+``offsets=(row0, col0)``, the global position of a shard of a larger
+leaf, whose z is then that leaf's slice (the reference's counter hash is
+over global coordinates; GSPMD partitions its iota the same way). Zero
+offsets are the whole leaf, bit for bit as without them. The int8 and
+user-batched kernels take no offsets: the sharded path runs neither.
 """
 
 from __future__ import annotations
@@ -70,11 +77,23 @@ def tile_z(seed, salt: int, shape, row0: int, col0: int, dist: str,
                         base=_base(seed, salt, prehashed), device=device)
 
 
+def _offsets(offsets, nd: int, kernel: str):
+    """``offsets`` as nd non-negative ints (None: zeros)."""
+    if offsets is None:
+        return (0,) * nd
+    offsets = tuple(int(o) for o in offsets)
+    if len(offsets) != nd or min(offsets, default=0) < 0:
+        raise ValueError(f"{kernel}: offsets {offsets} for rank {nd}")
+    return offsets
+
+
 def zo_add_ref(w: torch.Tensor, seed, salt: int, coeff, dist="rademacher",
-               prime_offset: int = 0, prehashed: bool = False):
+               prime_offset: int = 0, prehashed: bool = False,
+               offsets=None):
     """Plain version: ``(f32(w) + f32(coeff) * z).to(w.dtype)`` for a leaf
-    of any rank, on any device."""
+    of any rank, on any device; z at the global ``offsets``."""
     z = zrng.z_field(None, 0, w.shape, torch.float32, dist,
+                     offsets=_offsets(offsets, w.dim(), "zo_add"),
                      prime_offset=prime_offset,
                      base=_base(seed, salt, prehashed), device=w.device)
     c = torch.as_tensor(coeff, dtype=torch.float32, device=w.device)
@@ -83,11 +102,12 @@ def zo_add_ref(w: torch.Tensor, seed, salt: int, coeff, dist="rademacher",
 
 def zo_add_cuda(w: torch.Tensor, seed, salt: int, coeff,
                 dist="rademacher", prime_offset: int = 0,
-                prehashed: bool = False, out=None):
+                prehashed: bool = False, out=None, offsets=None):
     """Launch the ``zo_add`` kernel on ``torch.cuda.current_stream()``.
 
     ``w``: a contiguous f32 or bf16 CUDA tensor of rank 0..8; ``out``
-    (optional, may be ``w`` itself) receives the result.
+    (optional, may be ``w`` itself) receives the result; ``offsets``: the
+    global offsets of a shard (default zeros).
     """
     if w.device.type != "cuda":
         raise ValueError(f"zo_add kernel needs a CUDA tensor, got {w.device}")
@@ -106,13 +126,15 @@ def zo_add_cuda(w: torch.Tensor, seed, salt: int, coeff,
           or out.device != w.device or not out.is_contiguous()):
         raise ValueError("zo_add: out must match w (shape, dtype, device) "
                          "and be contiguous")
+    offs = _offsets(offsets, w.dim(), "zo_add")
     if w.numel() == 0:
         return out
     dims = (ctypes.c_int64 * max(w.dim(), 1))(*w.shape)
+    offs = (ctypes.c_int64 * max(w.dim(), 1))(*offs)
     vectorized = int(w.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     coeff_f32 = float(torch.as_tensor(coeff, dtype=torch.float32))
     launch("zo_add", "repro_zo_add", w.data_ptr(), out.data_ptr(),
-           w.numel(), _DTYPES[w.dtype], dims, w.dim(),
+           w.numel(), _DTYPES[w.dtype], dims, w.dim(), offs,
            _base(seed, salt, prehashed), prime_offset, coeff_f32,
            _DISTS[dist], vectorized,
            torch.cuda.current_stream(w.device).cuda_stream)
@@ -121,11 +143,13 @@ def zo_add_cuda(w: torch.Tensor, seed, salt: int, coeff,
 
 def zo_matmul_ref(x: torch.Tensor, w: torch.Tensor, seed, salt: int,
                   coeff, dist="rademacher", prime_offset: int = 0,
-                  prehashed: bool = False):
+                  prehashed: bool = False, offsets=None):
     """Plain version: ``(f32(x) @ (f32(w) + f32(coeff) * z)).to(x.dtype)``
-    for x (M, K), w (K, N), z over the whole (K, N) field."""
-    z = tile_z(seed, salt, w.shape, 0, 0, dist, prime_offset, prehashed,
-               device=w.device)
+    for x (M, K), w (K, N), z over the (K, N) field at the global
+    ``offsets=(row0, col0)`` (default the whole field)."""
+    row0, col0 = _offsets(offsets, 2, "zo_matmul")
+    z = tile_z(seed, salt, w.shape, row0, col0, dist, prime_offset,
+               prehashed, device=w.device)
     c = torch.as_tensor(coeff, dtype=torch.float32, device=w.device)
     wp = w.to(torch.float32) + c * z
     return (x.to(torch.float32) @ wp).to(x.dtype)
@@ -133,13 +157,14 @@ def zo_matmul_ref(x: torch.Tensor, w: torch.Tensor, seed, salt: int,
 
 def zo_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed, salt: int,
                    coeff, dist="rademacher", prime_offset: int = 0,
-                   prehashed: bool = False):
+                   prehashed: bool = False, offsets=None):
     """Launch the ``zo_matmul`` kernel on ``torch.cuda.current_stream()``.
 
     ``x`` (M, K) and ``w`` (K, N): contiguous CUDA tensors of one dtype,
     float32 or bfloat16. Returns (M, N) in that dtype. ``seed`` is a host
     int and ``coeff`` a host number, so a launch never waits for the
-    device.
+    device. ``offsets=(row0, col0)``: w's global origin as a shard of a
+    larger weight (default zeros).
     """
     for name, t in (("x", x), ("w", w)):
         if t.device.type != "cuda":
@@ -157,6 +182,7 @@ def zo_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed, salt: int,
         raise ValueError(f"unknown zo distribution: {dist}")
     if prime_offset + 2 > len(zrng._DIM_PRIMES):
         raise ValueError(f"prime_offset {prime_offset} unsupported")
+    row0, col0 = _offsets(offsets, 2, "zo_matmul")
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -166,7 +192,8 @@ def zo_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed, salt: int,
     launch("zo_matmul", "repro_zo_matmul", x.data_ptr(), w.data_ptr(),
            out.data_ptr(), _DTYPES[x.dtype], m, k, n,
            _base(seed, salt, prehashed), prime_offset, coeff_f32,
-           _DISTS[dist], torch.cuda.current_stream(x.device).cuda_stream,
+           _DISTS[dist], row0, col0,
+           torch.cuda.current_stream(x.device).cuda_stream,
            body=_mm_body(x, dist))
     return out
 

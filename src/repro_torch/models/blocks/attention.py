@@ -15,6 +15,15 @@ window through ``flash_verify``. Physical page 0 is the pool's trash
 page: masked-out slots and window offsets (``rc.write_mask``) and
 unallocated table entries point there, so scatters need no merge and
 reads need no index clamping.
+
+Under a mesh the dense cache is a DTensor by ``sharding.cache_spec``:
+batch over ``data``, sequence over ``model`` (the reference's
+sequence-parallel cache). Decode then writes each slot's position on the
+rank that holds it and attends as the reference's partitioned program
+does: every rank scores the query against its stretch of the sequence,
+and a max and two sums over ``model`` combine the partial softmaxes
+(plain PyTorch: the ``flash_decode`` kernel reads a paged pool, and a
+pool sharded over more than one rank is not taken).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from repro_torch.core.batching import masked_merge
 from repro_torch.kernels.ops import (paged_decode_attn, paged_prefill_attn,
                                      paged_verify_attn)
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as shd
 from repro_torch.models.blocks.base import BlockType, register_block
 
 
@@ -82,6 +92,8 @@ def _decode_step(cfg, p, state, x, rc, causal=None):
     a masked slot's old entry: the JAX engine's masked merge."""
     if "k_pages" in state:
         return _decode_paged(cfg, p, state, x, rc)
+    if shd.is_dtensor(state["k"]):
+        return _decode_sharded(cfg, p, state, x, rc)
     ck, cv = state["k"], state["v"]                 # (B, S, KV, hd)
     b = x.shape[0]
     pos = rc.pos.long()
@@ -98,6 +110,69 @@ def _decode_step(cfg, p, state, x, rc, causal=None):
              <= pos[:, None])
     out = L.attention(q, ck, cv, causal=False, kv_mask=valid, chunk=0)
     return L.dense(p["wo"], out.reshape(b, 1, -1)), {"k": ck, "v": cv}
+
+
+def _decode_sharded(cfg, p, state, x, rc):
+    """:func:`_decode_step` over a DTensor cache (module docstring)."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ck, cv = state["k"], state["v"]                 # (B, S, KV, hd)
+    mesh = ck.device_mesh
+    names = shd.axis_names(mesh)
+    b = x.shape[0]
+    q, k, v = L.attn_project_qkv(cfg, p, x)
+    pos_all = rc.pos.long()
+    q, k = _rope(cfg, q, k, pos_all[:, None])
+    # queries and the new K/V: batch-sharded as the cache, whole heads
+    pl = [cp if isinstance(cp, Shard) and cp.dim == 0 else Replicate()
+          for cp in ck.placements]
+
+    def local(t):
+        if not shd.is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+        return shd.settle(t).redistribute(mesh, pl).to_local()
+
+    ql, kl, vl = local(q), local(k), local(v)
+    ckl, cvl = ck.to_local(), cv.to_local()
+    b0, t0 = shd.local_offsets(ck)[:2]
+    bl, tl = ckl.shape[:2]
+    pos = pos_all[b0:b0 + bl]
+    at = pos - t0
+    inside = (at >= 0) & (at < tl)
+    if rc.write_mask is not None:
+        inside = inside & rc.write_mask[b0:b0 + bl]
+    rows = torch.arange(bl, device=x.device)
+    slot = at.clamp(0, tl - 1)
+    keep = inside[:, None, None]
+    ckl[rows, slot] = torch.where(keep, kl[:, 0].to(ckl.dtype),
+                                  ckl[rows, slot])
+    cvl[rows, slot] = torch.where(keep, vl[:, 0].to(cvl.dtype),
+                                  cvl[rows, slot])
+    # partial softmax over this rank's stretch, combined over the axes
+    # that shard the sequence
+    seq_axes = [n for n, cp in zip(names, ck.placements)
+                if isinstance(cp, Shard) and cp.dim == 1
+                and shd.axis_sizes(mesh)[n] > 1]
+    h, kvh, hd = ql.shape[2], ckl.shape[2], ql.shape[3]
+    g = h // kvh
+    scale = 1.0 / float(hd) ** 0.5
+    qg = ql[:, 0].reshape(bl, kvh, g, hd).to(torch.float32) * scale
+    sc = torch.einsum("bkgh,btkh->bkgt", qg, ckl.to(torch.float32))
+    valid = (t0 + torch.arange(tl, device=x.device))[None] <= pos[:, None]
+    sc = sc.masked_fill(~valid[:, None, None], L._NEG_INF)
+    m = sc.amax(-1)
+    for a in seq_axes:
+        m = fc.wait_tensor(fc.all_reduce(m, "max", mesh.get_group(a)))
+    e = torch.exp(sc - m[..., None])
+    den = e.sum(-1)
+    num = torch.einsum("bkgt,btkh->bkgh", e, cvl.to(torch.float32))
+    for a in seq_axes:
+        den = fc.wait_tensor(fc.all_reduce(den, "sum", mesh.get_group(a)))
+        num = fc.wait_tensor(fc.all_reduce(num, "sum", mesh.get_group(a)))
+    out = (num / den[..., None]).to(x.dtype).reshape(bl, 1, h * hd)
+    out = DTensor.from_local(out, mesh, pl, shape=(b, 1, h * hd),
+                             stride=(h * hd, h * hd, 1))
+    return L.dense(p["wo"], out), {"k": ck, "v": cv}
 
 
 def _window_paged(cfg, p, state, x, rc, attn, what):

@@ -32,23 +32,27 @@ def _mlp_apply(cfg, p, x, rc, ctx=None):
 def _moe_apply(cfg, p, x, rc, ctx=None):
     """``ctx.materialize`` (perturb + dequant) of the expert sub-dict
     with a ctx, a plain dequant without one; the salts are the leaves'
-    full paths (``blocks/moe/w_in``, ``blocks/moe/shared/w_in/w``).
+    full paths (``blocks/moe/w_in``, ``blocks/moe/shared/w_in/w``). A
+    ``cfg.moe_ep`` config dispatches through ``moe_apply_ep``, as the
+    reference's block does: under a mesh the expert-parallel body, without
+    one ``moe_apply`` itself.
 
     Under a user-axis ctx the lanes dispatch one at a time, as the
     reference's vmapped lane does: lane i's B * S tokens route with
     ``capacity(B * S)`` through lane i's own experts, materialized by its
     scalar ctx and freed before the next lane's (one lane's transient,
     never n), and the aux loss comes back per lane, (n,)."""
+    fn = MoE.moe_apply_ep if cfg.moe_ep else MoE.moe_apply
     if ctx is not None and ctx.batched:
         outs, aux = [], []
         for i, (lctx, xl) in enumerate(zip(ctx.lanes(),
                                            ctx.split_lanes(x))):
-            y, a = MoE.moe_apply(cfg, lctx.materialize(take_lane(p, i)), xl)
+            y, a = fn(cfg, lctx.materialize(take_lane(p, i)), xl)
             outs.append(y)
             aux.append(a)
         return torch.cat(outs), torch.stack(aux)
     p = dequantize_tree(p) if ctx is None else ctx.materialize(p)
-    return MoE.moe_apply(cfg, p, x)
+    return fn(cfg, p, x)
 
 
 MLP = register_block(BlockType(name="mlp", apply=_mlp_apply))

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.perturb_ctx import sub as _sub
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding as shd
 from repro_torch.optim.quant import deq as _deq
 from repro_torch.optim.quant import take_rows as _take_rows
 
@@ -239,9 +240,11 @@ def attention(q, k, v, *, causal: bool, q_offset=0,
 def attn_project_qkv(cfg, p, x, ctx=None):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense(p["wq"], x, _sub(ctx, "wq")).reshape(b, s, cfg.n_heads, hd)
-    k = dense(p["wk"], x, _sub(ctx, "wk")).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(p["wv"], x, _sub(ctx, "wv")).reshape(b, s, cfg.n_kv_heads, hd)
+    q = shd.split_heads(dense(p["wq"], x, _sub(ctx, "wq")), cfg.n_heads, hd)
+    k = shd.split_heads(dense(p["wk"], x, _sub(ctx, "wk")), cfg.n_kv_heads,
+                        hd)
+    v = shd.split_heads(dense(p["wv"], x, _sub(ctx, "wv")), cfg.n_kv_heads,
+                        hd)
     if cfg.qk_norm:
         qn = p["q_norm"] if ctx is None else ctx.perturb("q_norm",
                                                          p["q_norm"])
@@ -258,7 +261,7 @@ def attn_project_qkv(cfg, p, x, ctx=None):
 def attn_apply(cfg, p, x, *, positions=None, kv_mask=None, causal=None,
                ctx=None):
     """Self-attention over x: (B, S, D). positions: (B, S) or None."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     q, k, v = attn_project_qkv(cfg, p, x, ctx)
     if cfg.pos == "rope":
         pos = (positions if positions is not None
@@ -267,7 +270,18 @@ def attn_apply(cfg, p, x, *, positions=None, kv_mask=None, causal=None,
                           cfg.rope_theta)
         q, k = apply_rope(q, cs), apply_rope(k, cs)
     causal = cfg.causal if causal is None else causal
-    if cfg.attn_impl == "flash" and kv_mask is None:
+    if shd.is_dtensor(q):
+        # under a mesh: this rank's heads (sharding.local_heads)
+        if cfg.attn_impl == "flash" and kv_mask is None:
+            out = shd.local_heads(
+                lambda q_, k_, v_: kops.flash_attention(
+                    q_.contiguous(), k_, v_, causal=causal), q, k, v)
+        else:
+            out = shd.local_heads(
+                lambda q_, k_, v_, m_: attention(
+                    q_, k_, v_, causal=causal, kv_mask=m_,
+                    chunk=cfg.attn_chunk), q, k, v, kv_mask)
+    elif cfg.attn_impl == "flash" and kv_mask is None:
         out = kops.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal)
     elif _batched(ctx):
@@ -283,7 +297,7 @@ def attn_apply(cfg, p, x, *, positions=None, kv_mask=None, causal=None,
     else:
         out = attention(q, k, v, causal=causal, kv_mask=kv_mask,
                         chunk=cfg.attn_chunk)
-    return dense(p["wo"], out.reshape(b, s, -1), _sub(ctx, "wo"))
+    return dense(p["wo"], shd.merge_heads(out), _sub(ctx, "wo"))
 
 
 def cross_attn_apply(cfg, p, x, enc_kv, ctx=None):

@@ -52,6 +52,7 @@ import torch
 from repro_torch.core.batching import user_leaf_axes
 from repro_torch.core.perturb_ctx import sub as _sub
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as shd
 from repro_torch.models.blocks import RunCtx, get_block
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.quant import is_quantized
@@ -185,7 +186,7 @@ def _stack_apply(cfg, stack: StackPlan, params, x, rc: RunCtx, ctx=None):
             z = L.norm_apply(cfg, _get(bp, sl.ln), x, _sub(bctx, sl.ln))
             y, a = bt.apply(cfg, _get(bp, sl.mixer), z, rc,
                             ctx=_sub(bctx, sl.mixer), **dict(sl.opts))
-            x = x + y
+            x = x + shd.settle(y)
             aux = aux + a
     return x, aux
 
@@ -238,7 +239,7 @@ def _stack_seq(cfg, stack: StackPlan, params, state, x, rc: RunCtx,
                       "chunk": bt.prefill_paged or bt.prefill,
                       "verify": bt.verify or bt.decode_step}[mode]
                 y, _ = fn(cfg, p, _get(ls, sl.mixer), z, rc, **opts)
-            x = x + y
+            x = x + shd.settle(y)
     return x, {m: {k: torch.stack(v) for k, v in leaves.items()}
                for m, leaves in snaps.items()}
 
@@ -336,7 +337,10 @@ def softmax_xent(logits, targets, mask=None):
     m = logits.amax(dim=-1)
     sumexp = torch.exp((logits - m[..., None]).to(torch.float32)).sum(-1)
     lse = m.to(torch.float32) + torch.log(sumexp)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    if shd.is_dtensor(logits):     # vocab-parallel: no gather of logits
+        gold = shd.gather_last(logits, targets)
+    else:
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = lse - gold.to(torch.float32)
     if mask is not None:
         return torch.sum(nll * mask) / (torch.sum(mask) + 1e-9)
@@ -347,7 +351,9 @@ def loss(plan: ModelPlan, params, batch, perturb=None):
     """The ZO objective: CE (+ aux) for LMs, the CLS head's CE for the
     encoder classifier. ``perturb`` switches on the fused forward; a
     user-axis one returns the (n,) losses of its lanes, each reduced over
-    its own (B, S) exactly as a lone forward reduces it."""
+    its own (B, S) exactly as a lone forward reduces it. Under a mesh
+    (DTensor parameters) the loss comes back as a plain tensor, the global
+    scalar every rank holds, as the reference's replicated loss is."""
     logits, aux = forward(plan, params, batch, perturb=perturb)
     if perturb is not None and perturb.batched:
         lanes = perturb.lane_view(logits).unbind(0)
@@ -358,7 +364,8 @@ def loss(plan: ModelPlan, params, batch, perturb=None):
             for k in keys])]
         return torch.stack([_ce(plan, lg, b, a) for lg, b, a in
                             zip(lanes, per_lane, aux.unbind(0))])
-    return _ce(plan, logits, batch, aux)
+    out = _ce(plan, logits, batch, aux)
+    return out.full_tensor() if shd.is_dtensor(out) else out
 
 
 def _ce(plan: ModelPlan, logits, batch, aux):

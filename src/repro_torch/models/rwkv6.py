@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.perturb_ctx import sub as _sub
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as shd
 from repro_torch.optim.quant import deq as _deq
 
 _F32 = torch.float32
@@ -80,6 +81,57 @@ def _timemix_inputs(cfg, p, x, x_prev, ctx=None):
     return r, k, v, g, w
 
 
+def _wkv(ctx, r, k, v, w, bonus, state):
+    """The WKV recurrence over (B, S, H, hd) inputs: y (B, S, H, hd) and
+    the last state."""
+    ys = []
+    for t in range(r.shape[1]):                         # the WKV cell
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]   # (B, H, hd, hd)
+        ys.append(L.lane_einsum(ctx, "bhk,bhkv->bhv", r[:, t],
+                                state + bonus * kv))
+        state = w[:, t, :, :, None] * state + kv
+    return torch.stack(ys, dim=1), state
+
+
+def _wkv_sharded(r, k, v, w, bonus, state):
+    """:func:`_wkv` under a mesh, on this rank's batch rows and heads:
+    the recurrence is independent a (row, head), so each rank runs it on
+    its block (the batch as the inputs place it, the heads over
+    ``model`` where they divide) and the results are placed back."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = r.device_mesh
+    sizes = shd.axis_sizes(mesh)
+    h = r.shape[2]
+    tgt = []          # per mesh dim: "b" batch, "h" heads, None replicated
+    for name, pl in zip(shd.axis_names(mesh), r.placements):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            tgt.append("b")
+        elif name == "model" and h % sizes[name] == 0:
+            tgt.append("h")
+        else:
+            tgt.append(None)
+
+    def local(t, b_dim, h_dim):
+        if not shd.is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+        pl = [Shard(b_dim) if g == "b" and b_dim is not None else
+              Shard(h_dim) if g == "h" else Replicate() for g in tgt]
+        return shd.settle(t).redistribute(mesh, pl).to_local(), pl
+
+    (rl, pl4), (kl, _), (vl, _), (wl, _) = (local(t, 0, 2)
+                                            for t in (r, k, v, w))
+    sl, pl_state = local(state, 0, 1)
+    bl, _ = local(bonus, None, 0)
+    y, st = _wkv(None, rl, kl, vl, wl, bl, sl)
+    shape_y = tuple(r.shape)
+    y = DTensor.from_local(y, mesh, pl4, shape=shape_y,
+                           stride=shd.contiguous_stride(shape_y))
+    st = DTensor.from_local(st.contiguous(), mesh, pl_state,
+                            shape=state.shape,
+                            stride=shd.contiguous_stride(state.shape))
+    return y, st
+
+
 def timemix_apply(cfg, p, x, state=None, x_prev=None, ctx=None):
     """x: (B, S, D); state: (B, H, hd, hd) f32 keyed [k-dim, v-dim] or
     None. Returns y, (state, x_last)."""
@@ -89,16 +141,17 @@ def timemix_apply(cfg, p, x, state=None, x_prev=None, ctx=None):
     r, k, v, g, w = _timemix_inputs(cfg, p, x, xp, ctx)
     if state is None:
         state = torch.zeros((b, h, hd, hd), dtype=_F32, device=x.device)
+    # the scan state head-sharded over the model axis under a mesh (the
+    # reference's anchor against replicating the scan on every shard)
+    state = shd.maybe_shard(state, None, "model", None, None)
     # (H, hd, 1): broadcast over the batch (and, per lane, over its rows)
     bonus = L.per_row(ctx, _leaf(p, "bonus", ctx), state, 3)[..., None]
     r, k, v = (t.to(_F32) for t in (r, k, v))
-    ys = []
-    for t in range(s):                                  # the WKV cell
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]   # (B, H, hd, hd)
-        ys.append(L.lane_einsum(ctx, "bhk,bhkv->bhv", r[:, t],
-                                state + bonus * kv))
-        state = w[:, t, :, :, None] * state + kv
-    y = torch.stack(ys, dim=1).reshape(b, s, d)
+    if shd.is_dtensor(r):
+        y, state = _wkv_sharded(r, k, v, w, bonus, state)
+    else:
+        y, state = _wkv(ctx, r, k, v, w, bonus, state)
+    y = y.reshape(b, s, d)
     y = y.to(x.dtype)
     y = L.rmsnorm(y, L.per_row(ctx, _leaf(p, "ln_x", ctx), y)) * g
     return L.dense(p["wo"], y, _sub(ctx, "wo")), (state, x[:, -1:])

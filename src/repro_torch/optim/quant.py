@@ -252,8 +252,13 @@ def take_rows_f32(table, ids: torch.Tensor) -> torch.Tensor:
 
 
 def take_rows(table, ids: torch.Tensor) -> torch.Tensor:
-    """Row gather in the table's logical dtype."""
+    """Row gather in the table's logical dtype (a row-sharded DTensor
+    table: ``perturb_ctx.take_sharded``'s local gather)."""
     if not is_quantized(table):
+        from torch.distributed.tensor import DTensor
+        if isinstance(table, DTensor):
+            from repro_torch.core.perturb_ctx import take_sharded
+            return take_sharded(table, ids)
         return table[ids]
     return take_rows_f32(table, ids).to(table.dtype)
 

@@ -12,12 +12,13 @@ about parameter sharding -- only the direction count K:
 ``mesh_shape_for`` is the reference's arithmetic, stranding warning
 included. ``elastic_mesh`` lays the live ``torch`` devices (every CUDA
 device by default, or the ones the caller names, e.g. the CPU) out on
-that shape; ``remesh_params`` moves live parameters onto it. The port
-places parameters on one device: a one-device mesh keeps every tensor
-already there as it is (no copy, values untouched), and a mesh of more
-devices is refused, since sharding a tree over several cards needs a
-sharding plan (the reference's ``models/sharding.py``) that the port
-does not have.
+that shape, and ``Mesh.device_mesh`` is the ``DeviceMesh`` of that
+layout over the default process group (one rank a device).
+``remesh_params`` moves live parameters onto a mesh: onto a
+``DeviceMesh`` of any size each leaf is distributed by the sharding plan
+(``models/sharding.py``; a leaf already on another mesh is gathered
+first), and on a one-device ``Mesh`` every tensor already there is kept
+as it is (no copy, values untouched).
 """
 
 from __future__ import annotations
@@ -69,6 +70,15 @@ class Mesh:
     devices: np.ndarray
     axis_names: Tuple[str, str, str] = AXES
 
+    def device_mesh(self, device_type: str = None):
+        """The ``DeviceMesh`` of this layout over the default process
+        group, whose world size must be the mesh's size."""
+        from torch.distributed.device_mesh import init_device_mesh
+        if device_type is None:
+            device_type = next(iter(self.devices.flat)).type
+        return init_device_mesh(device_type, tuple(self.devices.shape),
+                                mesh_dim_names=self.axis_names)
+
 
 def elastic_mesh(devices: Sequence = None, model_parallel: int = 16,
                  data_parallel: int = 16) -> Mesh:
@@ -90,17 +100,25 @@ def elastic_mesh(devices: Sequence = None, model_parallel: int = 16,
     return Mesh(arr[: int(np.prod(shape))].reshape(shape))
 
 
-def remesh_params(params: Dict[str, object], new_mesh: Mesh
+def remesh_params(params: Dict[str, object], new_mesh
                   ) -> Dict[str, object]:
     """Move live params onto ``new_mesh`` (pod join/leave), values
-    untouched: on a one-device mesh a tensor already on that device is
-    kept as it is, any other is moved there."""
+    untouched. A ``DeviceMesh``: every leaf distributed by the sharding
+    plan (``sharding.spec_tree``'s defaults), a DTensor on another mesh
+    gathered first. A one-device :class:`Mesh`: a
+    tensor already on that device is kept as it is, any other is moved
+    there."""
+    if hasattr(new_mesh, "mesh_dim_names"):
+        from repro_torch.models import sharding as shd
+        specs = shd.param_specs(params, new_mesh)
+        return {k: shd.distribute(v, new_mesh, specs[k])
+                for k, v in params.items()}
     devs = set(new_mesh.devices.flat)
     if len(devs) != 1:
         raise ValueError(
-            f"remesh_params: the port places parameters on one device; "
-            f"this mesh spans {len(devs)} (sharding across cards needs a "
-            f"sharding plan)")
+            f"remesh_params: a Mesh lays out this process's one device; "
+            f"this one spans {len(devs)} -- a mesh of several ranks is a "
+            f"DeviceMesh (Mesh.device_mesh())")
     (dev,) = devs
     return {k: v if v.device == dev else v.to(dev)
             for k, v in params.items()}

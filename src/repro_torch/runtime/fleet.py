@@ -67,6 +67,7 @@ from repro_torch.checkpoint.replay_log import ReplayLog, replay_into
 from repro_torch.core import rng as zrng
 from repro_torch.core.engine import MezoConfig, _f32, build_strategy
 from repro_torch.models.transformer import resolve_device
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
 from repro_torch.roofline.analysis import active_params, model_flops
 from repro_torch.runtime.elastic import elastic_mesh, remesh_params
 from repro_torch.runtime.stragglers import StragglerPolicy
@@ -74,8 +75,8 @@ from repro_torch.runtime.stragglers import StragglerPolicy
 Params = Dict[str, Any]
 
 # the H100 SXM data sheet: bf16 dense tensor-core peak, HBM3 bandwidth
-H100_PEAK_FLOPS_BF16 = 989e12
-H100_HBM_BW = 3.35e12
+H100_PEAK_FLOPS_BF16 = PEAK_FLOPS_BF16
+H100_HBM_BW = HBM_BW
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,10 @@ families: two MoE dispatches at granite-moe's layer shapes are
 bit-equal (with and without drops), reduced kimi-k2 (MoE with its shared
 expert) runs on the card within 1e-4 of the CPU, and the four attention
 kernels hold to their limits at the real configs' heads, KV heads and
-head dims (256 MQA, 128 in groups of 4 and 16, 64).
+head dims (256 MQA, 128 in groups of 4 and 16, 64). Shards: ``zo_add``
+at a shard's global offsets equals the whole leaf's launch sliced at
+atol 0, and ``zo_matmul``'s column- and row-parallel shards hold to its
+limits against the whole product.
 """
 
 import math
@@ -320,6 +323,68 @@ def test_zo_matmul_prehashed_slice_matches_stacked_field(cuda):
         want = x @ (w[layer] + 0.5 * z[layer])
         err = (got - want).abs().max() / want.abs().max()
         assert err <= MM_RTOL["float32"], err
+
+
+@pytest.mark.parametrize("dist", ["rademacher", "gaussian"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zo_add_shard_offsets_equal_the_whole_leafs_slice(cuda, dtype, dist):
+    """A stacked leaf split (2, 4) on its last two dims, as a mesh would
+    split it: each shard's launch at its offsets equals the whole launch's
+    slice at atol 0, and the plain version at offsets holds to the
+    kernel's limits."""
+    dt = getattr(torch, dtype)
+    w = (torch.randn((3, 64, 200), device=cuda) * 0.02).to(dt)
+    seed, salt, coeff = 17, rng.leaf_salt("blocks/attn/wq/w"), 0.3
+    full = ops.zo_add(w, seed, salt, coeff, dist=dist)
+    for i, rows in enumerate(w.chunk(2, dim=1)):
+        for j, blk in enumerate(rows.chunk(4, dim=2)):
+            offs = (0, 32 * i, 50 * j)
+            got = ops.zo_add(blk.contiguous(), seed, salt, coeff, dist=dist,
+                             offsets=offs)
+            assert torch.equal(got, full[:, 32 * i:32 * (i + 1),
+                                         50 * j:50 * (j + 1)])
+            want = zp.zo_add_ref(blk.contiguous(), seed, salt, coeff, dist,
+                                 offsets=offs)
+            if dist == "rademacher":
+                assert torch.equal(got, want)
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=0, atol=GAUSS_ATOL if
+                                           dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("dist", ["rademacher", "gaussian"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zo_matmul_shard_offsets_column_and_row_parallel(cuda, dtype, dist):
+    """Column shards of W (4 ways) give the column slice of the whole
+    product, row shards (4 ways, X sliced on K) partial sums that add up
+    to it, both within the kernel's limits; the plain version at the same
+    offsets holds to them too."""
+    m, k, n = 96, 256, 320
+    dt = getattr(torch, dtype)
+    x = torch.randn((m, k), device=cuda).to(dt)
+    w = (torch.randn((k, n), device=cuda) * 0.02).to(dt)
+    base = rng.fold_leading(rng.leaf_base(5, rng.leaf_salt("lm_head/w")), 2)
+    kw = dict(dist=dist, prime_offset=1, prehashed=True)
+    full = ops.zo_matmul(x, w, base, 0, 1e-3, **kw).float()
+    scale = full.abs().max()
+    for j in range(4):
+        c0 = j * n // 4
+        wj = w[:, c0:c0 + n // 4].contiguous()
+        got = ops.zo_matmul(x, wj, base, 0, 1e-3, offsets=(0, c0), **kw)
+        err = (got.float() - full[:, c0:c0 + n // 4]).abs().max() / scale
+        assert err <= MM_RTOL[dtype], (j, err)
+        want = zp.zo_matmul_ref(x, wj, base, 0, 1e-3, offsets=(0, c0), **kw)
+        err = (got.float() - want.float()).abs().max() / scale
+        assert err <= MM_RTOL[dtype], (j, err)
+    acc = torch.zeros_like(full)
+    for i in range(4):
+        r0 = i * k // 4
+        acc += ops.zo_matmul(x[:, r0:r0 + k // 4].contiguous(),
+                             w[r0:r0 + k // 4].contiguous(), base, 0, 1e-3,
+                             offsets=(r0, 0), **kw).float()
+    err = (acc - full).abs().max() / scale
+    assert err <= MM_RTOL[dtype], err
 
 
 def test_zo_matmul_launcher_rejects_mixed_dtypes(cuda):

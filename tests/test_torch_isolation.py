@@ -64,6 +64,19 @@ def test_speculative_serving_modules_import_without_jax(module):
     _import_alone(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.dtensor",
+                                    "repro_torch.models.sharding",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.specs",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.roofline.trace",
+                                    "repro_torch.roofline.analysis",
+                                    "repro_torch.models.moe",
+                                    "repro_torch.runtime.elastic"])
+def test_multi_device_modules_import_without_jax(module):
+    _import_alone(module)
+
+
 def _import_alone(module):
     """``module`` imports in a fresh interpreter with JAX blocked, and
     loads nothing of JAX or the JAX package."""
