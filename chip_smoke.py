@@ -22,7 +22,11 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
    Gaussian bounded by the instructions its z adds an element (counted
    in the SASS of a probe, ``gauss_instructions``):
    ``zo_add``, ``flash_decode``, ``flash_prefill``; T0 ``zo_matmul`` and
-   ``flash_attention``; Q0 ``zo_add_q`` and ``zo_matmul_q``; S0
+   ``flash_attention`` (their SIMT bodies too: ``zo_matmul`` at
+   RoBERTa-large's three projection shapes in f32 and the Gaussian arm
+   at OPT-1.3B's ``w_in`` slice, ``SIMT_MM_TIMED``; ``flash_attention``
+   f32 at RoBERTa-large's, ``SIMT_ATTN_TIMED``); Q0 ``zo_add_q`` and
+   ``zo_matmul_q``; S0
    ``flash_verify`` (B 4, W 4, 32 heads of 64, page 16, positions 96-128,
    f32 and bf16, three GQA layouts and every family's heads
    (``REAL_HEADS``, kimi-k2's 64 heads of 112 over 8 KV heads among
@@ -72,6 +76,10 @@ T1. the train CLI (``launch.train.run``), full-width OPT-1.3B,
 T4. one T1 step under the profiler.
 T2. / T3. the Trainer with flash attention (OPT-1.3B, then RoBERTa-large,
    f32): 2 fused steps, the first loss against the materialized one.
+R1. the train CLI on full-width RoBERTa-large (f32, synthetic SST-2),
+   ``mezo-fused``, 4 steps at B 8 x S 128: losses, step time, tokens/s,
+   peak memory, launches by body (all 290 ``zo_matmul`` launches a step
+   on the SIMT body), one step under the profiler.
 Q1. the frozen int8 base: OPT-1.3B (bf16) and RoBERTa-large (f32)
    quantized with no deltas; the fused loss at +-eps (every projection
    through ``zo_matmul_q``) against the loss at ``ctx.materialize``
@@ -214,7 +222,7 @@ every path above; each must have launched on one) and the final
 
 Launch counts are reset just before each path and read just after, by
 kernel and, for the two-body kernels, by body (``ops.BODIES``): T1-T4,
-Q1, U1, U3, UF1-UF4, FL1, ST1 and SH2 must run every ``zo_matmul*`` /
+R1, Q1, U1, U3, UF1-UF4, FL1, ST1 and SH2 must run every ``zo_matmul*`` /
 ``flash_attention``
 launch on the body the dtype picks (bf16: tensor cores, f32: SIMT), and
 the bf16 serving paths (phase 4, Q3, S1-S4) every ``flash_prefill`` and
@@ -873,20 +881,29 @@ def kernel_attention(torch, results):
         "ms", "library_ms", "library", "bound_ms", "plain_ms")}
 
 
-def _mm_row(bf16, m, k, n, n_bytes, lanes, t):
+def _mm_row(bf16, m, k, n, n_bytes, lanes, t, gauss=False):
     """The timing and bound keys of a ``zo_matmul``-family row: kernel
     and library (cuBLAS SGEMM, TF32 off) ms from ``time_interleaved``, the
     bf16 cuBLAS product of the unperturbed W as the product's floor
     (context, not the yardstick), the bound at the peak of the body that
-    runs (bf16 X, Rademacher z: bf16 tensor cores) and the SIMT body's f32
-    bound beside it."""
+    runs (bf16 X, Rademacher z: bf16 tensor cores; else the SIMT body's
+    f32 FMAs, with ``gauss`` the instructions Gaussian z adds a weight,
+    ``gauss_instructions``, beside them at ``INSTR_RATE``) and the SIMT
+    body's f32 bound beside it."""
     flops = 2.0 * lanes * m * k * n
-    b_ms, b_by = bound(n_bytes, flops, "bf16" if bf16 else "f32")
-    return {"body": "tc" if bf16 else "simt", "kernel_ms": t["kernel"],
-            "library_ms": t["sgemm"], "library": "sgemm",
-            "cublas_bf16_ms": t.get("cublas_bf16"), "bound_ms": b_ms,
-            "bound_by": b_by,
-            "bound_f32_simt_ms": bound(n_bytes, flops, "f32")[0]}
+    tc = bf16 and not gauss
+    b_ms, b_by = bound(n_bytes, flops, "bf16" if tc else "f32")
+    row = {"body": "tc" if tc else "simt", "kernel_ms": t["kernel"],
+           "library_ms": t["sgemm"], "library": "sgemm",
+           "cublas_bf16_ms": t.get("cublas_bf16"), "bound_ms": b_ms,
+           "bound_by": b_by,
+           "bound_f32_simt_ms": bound(n_bytes, flops, "f32")[0]}
+    if gauss:
+        instr = gauss_instructions()
+        row["bound_ms"] = max(b_ms, (flops / 2 + lanes * k * n * instr) /
+                              INSTR_RATE * 1e3)
+        row["gauss_instructions_a_weight"] = instr
+    return row
 
 
 def _mm_result(rows, opt):
@@ -903,66 +920,101 @@ def _mm_result(rows, opt):
             "bound_f32_simt_ms": sum(r["bound_f32_simt_ms"] for r in opt)}
 
 
+# T0's SIMT body cases beside OPT-1.3B's two tensor-core shapes (PERF.md
+# section 6, row 4-f32): RoBERTa-large's three projection shapes at B 8 x
+# 128 (f32 X), and the Gaussian arm at OPT-1.3B's w_in slice (bf16 X):
+# (label, M, K, N, dtype, dist timed, leaf path, layer)
+SIMT_MM_TIMED = (
+    ("roberta wq", 1024, 1024, 1024, "float32", "rademacher",
+     "blocks/attn/wq/w", 5),
+    ("roberta w_in slice", 1024, 1024, 4096, "float32", "rademacher",
+     "blocks/mlp/w_in/w", 5),
+    ("roberta w_out", 1024, 4096, 1024, "float32", "rademacher",
+     "blocks/mlp/w_out/w", 5),
+    ("opt w_in slice gaussian", 1024, 2048, 8192, "bfloat16", "gaussian",
+     "blocks/mlp/w_in/w", 5))
+
+
+def mm_case(torch, gen, m, k, n, dt, path, layer, seed=987654321):
+    """x (M, K), w (K, N) of ``dt`` from ``gen`` and the kernel's keyword
+    arguments: the leaf's seed and salt, or a layer slice's prehashed
+    base (prime offset 1)."""
+    from repro_torch.core import rng
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(dt)
+    salt = rng.leaf_salt(path)
+    if layer is None:
+        kw = dict(seed=seed, salt=salt, prime_offset=0, prehashed=False)
+    else:
+        kw = dict(seed=rng.fold_leading(rng.leaf_base(seed, salt), layer),
+                  salt=0, prime_offset=1, prehashed=True)
+    return x, w, kw
+
+
+def mm_library(torch, x, w, coeff, dist, kw):
+    """The yardstick's operands: f32 X and W' = W + c z materialized."""
+    from repro_torch.kernels import zo_perturb as zp
+    z = zp.tile_z(kw["seed"], kw["salt"], tuple(w.shape), 0, 0, dist,
+                  kw["prime_offset"], kw["prehashed"], device=w.device)
+    wp = w.float() + torch.tensor(coeff, dtype=torch.float32,
+                                  device=w.device) * z
+    return x.float(), wp
+
+
 def kernel_zo_matmul(torch, results):
     """T0: ``zo_matmul`` at the training path's shapes against its plain
     version; the library yardstick is cuBLAS SGEMM (TF32 off) of
-    ``X.float() @ W'`` on a W' materialized beforehand."""
-    from repro_torch.core import rng
+    ``X.float() @ W'`` on a W' materialized beforehand. OPT-1.3B's bf16
+    shapes run the tensor-core body, ``SIMT_MM_TIMED`` the SIMT body."""
     from repro_torch.kernels import zo_perturb as zp
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    seed, coeff = 987654321, 1e-3
-    cases = [  # (name, M, K, N, dtype, leaf path, layer or None)
+    coeff = 1e-3
+    cases = [  # (name, M, K, N, dtype, leaf path, layer or None, dist)
         ("opt w_in slice", 1024, 2048, 8192, torch.bfloat16,
-         "blocks/mlp/w_in/w", 5),
+         "blocks/mlp/w_in/w", 5, "rademacher"),
         ("opt lm_head", 1024, 2048, 50272, torch.bfloat16, "lm_head/w",
-         None),
-        ("roberta w_in slice", 1024, 1024, 4096, torch.float32,
-         "blocks/mlp/w_in/w", 5)]
+         None, "rademacher")] + [
+        (label, m, k, n, getattr(torch, dt), path, layer, dist)
+        for label, m, k, n, dt, dist, path, layer in SIMT_MM_TIMED]
     rows = []
-    for label, m, k, n, dt, path, layer in cases:
-        x = torch.randn((m, k), generator=gen, device=dev).to(dt)
-        w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(dt)
-        salt = rng.leaf_salt(path)
-        if layer is None:
-            kw = dict(seed=seed, salt=salt, prime_offset=0, prehashed=False)
-        else:
-            kw = dict(seed=rng.fold_leading(rng.leaf_base(seed, salt), layer),
-                      salt=0, prime_offset=1, prehashed=True)
+    for label, m, k, n, dt, path, layer, dist in cases:
+        x, w, kw = mm_case(torch, gen, m, k, n, dt, path, layer)
         tol = ZO_MM_F32_RTOL if dt == torch.float32 else ZO_MM_BF16_RTOL
         errs, abs_err = {}, 0.0
-        for dist in ("rademacher", "gaussian"):
-            got = zp.zo_matmul_cuda(x, w, coeff=coeff, dist=dist, **kw)
-            want = zp.zo_matmul_ref(x, w, coeff=coeff, dist=dist, **kw)
+        for d in ("rademacher", "gaussian"):
+            got = zp.zo_matmul_cuda(x, w, coeff=coeff, dist=d, **kw)
+            want = zp.zo_matmul_ref(x, w, coeff=coeff, dist=d, **kw)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs().max()
             err = (diff / want.float().abs().max()).item()
             check(err <= tol and torch.isfinite(got).all().item(),
-                  f"zo_matmul {label} {dist}: max|d|/max|Y| {err} > {tol}")
-            errs[dist] = err
+                  f"zo_matmul {label} {d}: max|d|/max|Y| {err} > {tol}")
+            errs[d] = err
             abs_err = max(abs_err, diff.item())
             del got, want
-        plain = time_ms(lambda: zp.zo_matmul_ref(x, w, coeff=coeff, **kw),
+        plain = time_ms(lambda: zp.zo_matmul_ref(x, w, coeff=coeff,
+                                                 dist=dist, **kw),
                         iters=2, warmup=1)
-        z = zp.tile_z(kw["seed"], kw["salt"], (k, n), 0, 0, "rademacher",
-                      kw["prime_offset"], kw["prehashed"], device=dev)
-        wp = w.float() + torch.tensor(coeff, dtype=torch.float32,
-                                      device=dev) * z
-        del z
-        xf = x.float()
+        xf, wp = mm_library(torch, x, w, coeff, dist, kw)
         t = time_interleaved(torch, {
-            "kernel": lambda: zp.zo_matmul_cuda(x, w, coeff=coeff, **kw),
+            "kernel": lambda: zp.zo_matmul_cuda(x, w, coeff=coeff,
+                                                dist=dist, **kw),
             "sgemm": lambda: xf @ wp,
             **({"cublas_bf16": lambda: x @ w} if dt == torch.bfloat16
                else {})})
         del wp, xf
         row = {"phase": "kernel", "name": "zo_matmul", "case": label,
                "shape": [m, k, n], "dtype": str(dt).split(".")[-1],
+               "dist": dist,
                **_mm_row(dt == torch.bfloat16, m, k, n,
-                         (m * k + k * n + m * n) * x.element_size(), 1, t),
+                         (m * k + k * n + m * n) * x.element_size(), 1, t,
+                         gauss=dist == "gaussian"),
                "rel_err_rademacher": errs["rademacher"],
                "rel_err_gaussian": errs["gaussian"], "tolerance": tol,
                "max_abs_err": abs_err, "plain_ms": plain}
+        if row["body"] == "simt":
+            row["tile"] = list(zp.simt_tile(m, n))
         print(json.dumps(row), flush=True)
         rows.append(row)
         del x, w
@@ -974,13 +1026,8 @@ def kernel_zo_matmul(torch, results):
             ("jamba x_proj", 1024, 8192, 288, "blocks/sub_1/mamba/x_proj/w",
              1),
             ("whisper enc wq", 12000, 512, 512, "enc_blocks/attn/wq/w", 2)):
-        x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
-        w = (torch.randn((k, n), generator=gen, device=dev)
-             * 0.02).bfloat16()
-        kw = dict(seed=rng.fold_leading(rng.leaf_base(seed,
-                                                      rng.leaf_salt(path)),
-                                        layer),
-                  salt=0, prime_offset=1, prehashed=True)
+        x, w, kw = mm_case(torch, gen, m, k, n, torch.bfloat16, path,
+                           layer)
         errs, abs_err = {}, 0.0
         for dist in ("rademacher", "gaussian"):
             got = zp.zo_matmul_cuda(x, w, coeff=coeff, dist=dist, **kw)
@@ -1002,6 +1049,10 @@ def kernel_zo_matmul(torch, results):
         del x, w, got, want
     torch.cuda.empty_cache()
     results["zo_matmul"] = _mm_result(rows, rows[:2])
+    results["zo_matmul"]["cases"] = {   # the SIMT body's timed cases
+        r["case"]: {k: r[k] for k in ("body", "kernel_ms", "library_ms",
+                                      "bound_ms", "plain_ms")}
+        for r in rows[2:] if "kernel_ms" in r}
 
 
 def _flash_cost(b, s, t, h, kvh, hd, causal, item):
@@ -1013,6 +1064,12 @@ def _flash_cost(b, s, t, h, kvh, hd, causal, item):
     return n_bytes, flops
 
 
+# T0's f32 (SIMT body) attention, timed (PERF.md section 6, row 8-f32):
+# RoBERTa-large's bidirectional attention at B 8 x 128, 16 heads of 64:
+# (label, B, S, H, KV, hd, causal)
+SIMT_ATTN_TIMED = (("roberta bidirectional", 8, 128, 16, 16, 64, False),)
+
+
 def kernel_flash_attention(torch, results):
     """T0: ``flash_attention`` against its plain version; the library
     yardstick is ``F.scaled_dot_product_attention`` on the same tensors."""
@@ -1022,7 +1079,7 @@ def kernel_flash_attention(torch, results):
     gen = torch.Generator(device=dev).manual_seed(9)
     cases = [  # (label, B, S, H, KV, hd, causal, dtype)
         ("opt causal", 8, 128, 32, 32, 64, True, torch.bfloat16),
-        ("roberta bidirectional", 8, 128, 16, 16, 64, False, torch.float32),
+        *[c + (torch.float32,) for c in SIMT_ATTN_TIMED],
         ("ragged gqa causal", 3, 100, 8, 2, 16, True, torch.float32),
         ("ragged gqa bidirectional", 3, 100, 8, 2, 16, False,
          torch.bfloat16),
@@ -2164,6 +2221,52 @@ def train_fused_vs_materialized(torch, paths, arch, label, tol):
           f"{label}: losses {tr.losses}")
     check(err <= tol, f"{label}: fused loss {tr.losses[0]} vs materialized "
           f"{mat}: {err} > {tol}")
+
+
+def r1_roberta(torch, paths):
+    """R1: the train CLI on full-width RoBERTa-large (f32, synthetic
+    SST-2), ``mezo-fused``, 4 steps at B 8 x 128: losses, step time,
+    tokens/s, peak memory, launches by kernel and body (every
+    ``zo_matmul`` launch, 290 a step, on the SIMT body), then one step
+    under the profiler (busy share, device ms, the port's kernels' ms)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    argv = ["--arch", "roberta-large", "--optimizer", "mezo-fused",
+            "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S), "--log-every", "1", "--seed", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tr = train_mod.run(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _snapshot(ops)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    paths["R1 roberta"] = launches
+    cfg = tr.mcfg
+    check(cfg.dtype == "float32" and len(tr.losses) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in tr.losses),
+          f"R1 {cfg.dtype} losses {tr.losses}")
+    _check_launches("R1 launches", launches, cfg, TRAIN_STEPS)
+    per_step = 2 * _forward_counts(cfg)[0]
+    check(per_step == 290 and launches["zo_matmul/simt"] ==
+          per_step * TRAIN_STEPS and launches["zo_matmul/tc"] == 0,
+          f"R1: zo_matmul launches by body {launches['zo_matmul/simt']} "
+          f"simt, {launches['zo_matmul/tc']} tc for {TRAIN_STEPS} steps")
+    batch = _first_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    state = tr.strategy.init_state(tr.params, tr.tcfg.mezo)
+    torch.cuda.reset_peak_memory_stats()
+    step_s, state = _timed_steps(torch, tr.strategy, tr.model.loss, state,
+                                 batch, tr.tcfg.mezo, 2)
+    print(json.dumps({"phase": "R1 train", "arch": "roberta-large",
+                      "dtype": cfg.dtype, "losses": tr.losses,
+                      "run_seconds": dt, "step_s": step_s,
+                      "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+                      "peak_memory_gib": peak_gb,
+                      "step_peak_memory_gib":
+                          torch.cuda.max_memory_allocated() / 2**30,
+                      "zo_matmul_simt_per_step": per_step}), flush=True)
+    profile_train(torch, tr, state, batch, label="R1 profile")
 
 
 # ---------------------------------------------------------------------------
@@ -4639,6 +4742,8 @@ def main():
     torch.cuda.empty_cache()
     train_fused_vs_materialized(torch, paths, "roberta-large",
                                 "T3 roberta", ROBERTA_FUSED_ATOL)
+    torch.cuda.empty_cache()
+    r1_roberta(torch, paths)                              # R1
 
     # Q1-Q3: the int8 base
     torch.cuda.empty_cache()

@@ -34,15 +34,28 @@
 //    masked. The output goes through shared memory and out 16 bytes a
 //    thread.
 //
-// 2. f32: the SIMT body of the first port (the reference's true-f32
-//    arithmetic; f32 is not exact in bf16). Bound: operations at the f32
-//    SIMT rate. One block per (batch, head, 32 query rows), 4 warps of 8
-//    rows each. Keys go 32 at a time through shared memory as f32 (K
-//    padded one float a row so that lane j reading key j hits its own
-//    bank); lane j scores key j for all 8 rows of its warp at once, the
-//    warp takes the tile's max and sum with one butterfly each, and for
-//    P @ V each lane owns hd / 32 output columns and takes the
-//    probabilities by shuffle. q is scaled in f32 before the dot.
+// 2. f32: the SIMT body, in true f32 FFMA (f32 is not exact in bf16, so
+//    tensor cores are out). Bound at RoBERTa-large's shape (B 8, S 128,
+//    16 heads of 64, bidirectional): operations, 0.54 GFLOP / 67 TFLOP/s
+//    = 8.0 us (bytes 5.0 us). Each FMA the SMs' schedulers issue competes
+//    with every shared load, shuffle and exp for the same issue slots, so
+//    both products are register-tiled outer products: one block a
+//    (64 query rows, head, batch) -- RoBERTa's 8 x 16 heads x 128 rows
+//    are 256 blocks, two an SM -- 4 warps of 16 rows, each thread 4 rows.
+//    Q K^T: the thread scores its 4 rows against BKV / 8 keys (BKV = 64 up
+//    to hd 64, 32 above), from 16-byte loads of Q (broadcast in a quarter
+//    warp) and K (rows padded to an odd count of 16-byte chunks, so 8
+//    keys' loads are conflict-free), 16 FMAs a K load. The online softmax
+//    runs over the quarter warp that shares the rows (3 shuffles a max or
+//    sum); P is stored transposed to shared memory by the warp that owns
+//    its rows (a __syncwarp, no block barrier), and P V is again a 4-row
+//    outer product, 16 FMAs a V load. K and V tiles are staged by
+//    16-byte cp.async, double-buffered (hd 64: 2 x 34 KB, 104 KB a
+//    block); edge tiles (past T) and causal diagonal tiles alone are
+//    masked, and causal tiles wholly above a warp's rows are skipped. The
+//    reference's arithmetic: q scaled in f32 before the dot, the running
+//    max from -1e30, a masked key's probability 0 (never exp(-1e30 - m)),
+//    expf, the denominator max(l, 1e-30).
 //
 // Both: masked keys (causal, or past T) get probability 0; query head h
 // reads KV head h / (H / KV); S and T are arbitrary (tails masked).
@@ -53,8 +66,8 @@
 // P V, taken in pairs, 14 being even; rows of 120 elements (240 bytes)
 // keep ldmatrix 16-byte aligned and its 8 rows on distinct banks; 56 f32
 // accumulators a thread, fewer than hd 128's 64, in the 4-warp block.
-// The SIMT body gives each lane ceil(112 / 32) = 4 output columns,
-// lane + 32 e, the last lanes' fourth idle.
+// The SIMT body gives each thread 16-byte output chunks tx + 8 e of 28,
+// the fourth idle for tx >= 4.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -65,177 +78,297 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kWarps = 4, kRows = 8, kBQ = kWarps * kRows, kBK = 32;
+// ---------------------------------------------------------------------------
+// the SIMT body (f32)
+
+namespace simt {
+
+using namespace sm80;
+
+// query rows a thread, warps a block, query rows a block (each warp's 4
+// groups of 8 lanes take RT rows each)
+constexpr int RT = 4, kWarps = 4, kThreads = 32 * kWarps, BQ = 4 * RT * kWarps;
+static_assert(RT == 4, "P^T moves one 16-byte row quad a key");
+constexpr int PLD = BQ + 4;             // a row of P^T (floats)
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float fa_f32(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T fa_out(float x);
-template <>
-__device__ __forceinline__ float fa_out<float>(float x) { return x; }
-
+// keys a K / V tile
 template <int HD>
-constexpr int smem_floats() {
-  return kBQ * HD + kBK * (HD + 1) + kBK * HD;
+__host__ __device__ constexpr int bkv() { return HD <= 64 ? 64 : 32; }
+// a staged row of Q, K or V (floats): HD + 4, an odd number of 16-byte
+// chunks, so 8 rows read at one column fall on 8 distinct bank quads
+template <int HD>
+__host__ __device__ constexpr int ld() { return HD + 4; }
+template <int HD>
+__host__ __device__ constexpr int smem_bytes() {
+  return (BQ * ld<HD>() + 4 * bkv<HD>() * ld<HD>() + bkv<HD>() * PLD) * 4;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int s,
-                       int t, int h, int kvh, int causal, float scale) {
-  // output columns a lane (lane + 32 * e, those past HD idle): 4 at 112
-  constexpr int E = (HD + 31) / 32;
+// One block a (64 query rows, head, batch); warp w owns rows 16 w .. +15,
+// lane (tx = lane % 8, ty = lane / 8) rows 16 w + 4 ty .. + 3. For a K / V
+// tile of BKV keys the thread scores its 4 rows against keys tx + 8 e (a
+// 4 x BKV / 8 register tile: each 16-byte Q load, broadcast to the quarter
+// warp, and K load, 8 distinct rows, feeds 16 FMAs), takes the online
+// softmax with its quarter warp (3 shuffles a max or sum), writes P
+// transposed to shared memory (its warp's rows only, so a __syncwarp
+// hands it over), and adds P V to its 4 rows x output chunks tx + 8 e (a
+// 16-byte P^T load broadcast, one V load of 8 distinct chunks, 16 FMAs).
+// K and V are staged by 16-byte cp.async, double-buffered; vec: every
+// base 16-byte aligned, else element loads.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_simt_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ out, int s, int t, int h,
+                            int kvh, int causal, float scale, int vec) {
+  constexpr int BKV = bkv<HD>(), LD = ld<HD>();
+  constexpr int DQ = HD / 4;            // 16-byte chunks a row
+  constexpr int NK = BKV / 8;           // keys a thread scores
+  constexpr int NC = (DQ + 7) / 8;      // output chunks a thread (past DQ idle)
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                       // [kBQ][HD], scaled
-  float* ks = qs + kBQ * HD;              // [kBK][HD + 1]
-  float* vs = ks + kBK * (HD + 1);        // [kBK][HD]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.z, head = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  float* qs = smem;                     // [BQ][LD], scaled
+  float* ks = qs + BQ * LD;             // [2][BKV][LD]
+  float* vs = ks + 2 * BKV * LD;        // [2][BKV][LD]
+  float* pt = vs + 2 * BKV * LD;        // [BKV][PLD]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tx = lane % 8, ty = lane / 8;
+  const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * BQ;
   const int kv = head / (h / kvh);
   const int64_t q_stride = static_cast<int64_t>(h) * HD;     // per position
   const int64_t kv_stride = static_cast<int64_t>(kvh) * HD;
-  const T* qb = q + (static_cast<int64_t>(b) * s) * q_stride + head * HD;
-  const T* kb = k + (static_cast<int64_t>(b) * t) * kv_stride + kv * HD;
-  const T* vb = v + (static_cast<int64_t>(b) * t) * kv_stride + kv * HD;
-
-  for (int i = tid; i < kBQ * HD; i += kWarps * 32) {
-    const int r = i / HD, d = i - r * HD;
-    const int qi = q0 + r;
-    qs[i] = qi < s ? __fmul_rn(fa_f32(qb[qi * q_stride + d]), scale) : 0.0f;
-  }
-  float m[kRows], l[kRows], acc[kRows][E];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[r][e] = 0.0f;
-  }
-  const int row0 = q0 + warp * kRows;     // this warp's first query row
-  const int last_q = min(q0 + kBQ, s) - 1;
+  const float* qb = q + static_cast<int64_t>(b) * s * q_stride + head * HD;
+  const float* kb = k + static_cast<int64_t>(b) * t * kv_stride + kv * HD;
+  const float* vb = v + static_cast<int64_t>(b) * t * kv_stride + kv * HD;
+  const int last_q = min(q0 + BQ, s) - 1;
   const int t_end = causal ? min(t, last_q + 1) : t;
+  const int n_kt = (t_end + BKV - 1) / BKV;
+  const int wrow = q0 + 4 * RT * warp;  // this warp's first query row
+  const int r0 = 4 * RT * warp + RT * ty;  // this thread's first row, in block
 
-  for (int k0 = 0; k0 < t_end; k0 += kBK) {
-    __syncthreads();                      // previous tile fully read
-    for (int i = tid; i < kBK * HD; i += kWarps * 32) {
-      const int j = i / HD, d = i - j * HD;
-      const int kt = k0 + j;
-      float kx = 0.0f, vx = 0.0f;
-      if (kt < t) {
-        kx = fa_f32(kb[kt * kv_stride + d]);
-        vx = fa_f32(vb[kt * kv_stride + d]);
+  // keys [k0, k0 + BKV) of K and V into stage buf (rows past t zero)
+  auto stage_kv = [&](int buf, int k0) {
+    float* kd = ks + buf * BKV * LD;
+    float* vd = vs + buf * BKV * LD;
+    for (int c = tid; c < BKV * DQ; c += kThreads) {
+      const int j = c / DQ, col = (c % DQ) * 4, key = k0 + j;
+      const int64_t off = static_cast<int64_t>(key) * kv_stride + col;
+      if (vec) {
+        cp_async16(kd + j * LD + col, key < t ? kb + off : kb,
+                   key < t ? 16 : 0);
+        cp_async16(vd + j * LD + col, key < t ? vb + off : vb,
+                   key < t ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          kd[j * LD + col + e] = key < t ? kb[off + e] : 0.0f;
+          vd[j * LD + col + e] = key < t ? vb[off + e] : 0.0f;
+        }
       }
-      ks[j * (HD + 1) + d] = kx;
-      vs[j * HD + d] = vx;
     }
+  };
+
+  // Q, scaled in f32 as the reference does before the dot
+  for (int c = tid; c < BQ * DQ; c += kThreads) {
+    const int r = c / DQ, col = (c % DQ) * 4, qi = q0 + r;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (qi < s) {
+      const float* p = qb + qi * q_stride + col;
+      x = vec ? __ldg(reinterpret_cast<const float4*>(p))
+              : make_float4(p[0], p[1], p[2], p[3]);
+    }
+    *reinterpret_cast<float4*>(qs + r * LD + col) =
+        make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+                    __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+  }
+  stage_kv(0, 0);
+  cp_async_commit();
+
+  float m_r[RT], l_r[RT], o[RT][4 * NC];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m_r[i] = kNegInf;
+    l_r[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) o[i][c] = 0.0f;
+  }
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int buf = it % 2, k0 = it * BKV;
+    cp_async_wait<0>();                 // tile it has landed
+    // tile it (and Q) visible to all, and every warp is done with tile
+    // it - 1, whose buffer the next copies refill
     __syncthreads();
-    // lane j scores key k0 + j for the warp's 8 rows
-    float sc[kRows];
+    if (it + 1 < n_kt) stage_kv(buf ^ 1, k0 + BKV);
+    cp_async_commit();
+    // a causal tile wholly above this warp's rows adds nothing: skipped
+    if (!causal || k0 <= wrow + 4 * RT - 1) {
+      const float* kt_s = ks + buf * BKV * LD;
+      const float* vt_s = vs + buf * BKV * LD;
+      // S = Q K^T for rows r0 .. r0 + RT - 1, keys k0 + tx + 8 e
+      float sc[RT][NK];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) sc[r] = 0.0f;
-    const float* kr = ks + lane * (HD + 1);
-    const float* qw = qs + warp * kRows * HD;
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int e = 0; e < NK; ++e) sc[i][e] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float kd = kr[d];
+      for (int dc = 0; dc < DQ; ++dc) {
+        float4 qv[RT];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) sc[r] = fmaf(qw[r * HD + d], kd, sc[r]);
-    }
-    const int kt = k0 + lane;
-    float p[kRows];
+        for (int i = 0; i < RT; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qs + (r0 + i) * LD +
+                                                   4 * dc);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool live = kt < t && (!causal || kt <= row0 + r);
-      float mx = live ? sc[r] : kNegInf;
+        for (int e = 0; e < NK; ++e) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              kt_s + (tx + 8 * e) * LD + 4 * dc);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      p[r] = live ? expf(sc[r] - m_new) : 0.0f;
-      float ps = p[r];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[r] = l[r] * alpha + ps;
-      m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[r][e] *= alpha;
-    }
-    // P @ V: lane owns columns lane + 32 * e
-    const int jn = min(kBK, t_end - k0);
-    for (int j = 0; j < jn; ++j) {
-      float vj[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int d = lane + 32 * e;
-        vj[e] = d < HD ? vs[j * HD + d] : 0.0f;
+          for (int i = 0; i < RT; ++i) {
+            sc[i][e] = fmaf(qv[i].x, kk.x, sc[i][e]);
+            sc[i][e] = fmaf(qv[i].y, kk.y, sc[i][e]);
+            sc[i][e] = fmaf(qv[i].z, kk.z, sc[i][e]);
+            sc[i][e] = fmaf(qv[i].w, kk.w, sc[i][e]);
+          }
+        }
       }
+      // masks only on a tile that reaches past t or this warp's
+      // diagonal: a masked key's score is -1e30 for the max, its
+      // probability 0
+      const bool edge = k0 + BKV > t || (causal && k0 + BKV - 1 > wrow);
+      auto live = [&](int i, int e) {
+        const int key = k0 + tx + 8 * e;
+        return !edge || (key < t && (!causal || key <= q0 + r0 + i));
+      };
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, p[r], j);
+      for (int i = 0; i < RT; ++i) {
+        float mx = kNegInf;
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(pj, vj[e], acc[r][e]);
+        for (int e = 0; e < NK; ++e) {
+          if (!live(i, e)) sc[i][e] = kNegInf;
+          mx = fmaxf(mx, sc[i][e]);
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m_r[i], mx);
+        const float alpha = expf(m_r[i] - m_new);
+        float ps = 0.0f;
+#pragma unroll
+        for (int e = 0; e < NK; ++e) {
+          sc[i][e] = live(i, e) ? expf(sc[i][e] - m_new) : 0.0f;
+          ps += sc[i][e];
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          ps += __shfl_xor_sync(0xffffffffu, ps, off);
+        l_r[i] = l_r[i] * alpha + ps;
+        m_r[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < 4 * NC; ++c) o[i][c] *= alpha;
+      }
+      // P^T: key tx + 8 e's probabilities of rows r0 .. r0 + 3
+#pragma unroll
+      for (int e = 0; e < NK; ++e)
+        *reinterpret_cast<float4*>(pt + (tx + 8 * e) * PLD + r0) =
+            make_float4(sc[0][e], sc[1][e], sc[2][e], sc[3][e]);
+      __syncwarp();
+      // O += P V over the tile's keys below t_end
+      const int jn = min(BKV, t_end - k0);
+#pragma unroll 4
+      for (int j = 0; j < jn; ++j) {
+        const float4 p4 = *reinterpret_cast<const float4*>(pt + j * PLD + r0);
+        const float p[RT] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int e = 0; e < NC; ++e) {
+          const int c = tx + 8 * e;
+          if (DQ % 8 == 0 || c < DQ) {
+            const float4 vv =
+                *reinterpret_cast<const float4*>(vt_s + j * LD + 4 * c);
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+              o[i][4 * e] = fmaf(p[i], vv.x, o[i][4 * e]);
+              o[i][4 * e + 1] = fmaf(p[i], vv.y, o[i][4 * e + 1]);
+              o[i][4 * e + 2] = fmaf(p[i], vv.z, o[i][4 * e + 2]);
+              o[i][4 * e + 3] = fmaf(p[i], vv.w, o[i][4 * e + 3]);
+            }
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = row0 + r;
-    if (qi >= s) break;
-    const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = out + (static_cast<int64_t>(b) * s + qi) * q_stride +
-              head * HD;
+  for (int i = 0; i < RT; ++i) {
+    const int qi = q0 + r0 + i;
+    if (qi >= s) continue;
+    const float denom = fmaxf(l_r[i], 1e-30f);
+    float* orow = out + (static_cast<int64_t>(b) * s + qi) * q_stride +
+                  head * HD;
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int d = lane + 32 * e;
-      if (d < HD) orow[d] = fa_out<T>(acc[r][e] / denom);
+    for (int e = 0; e < NC; ++e) {
+      const int c = tx + 8 * e;
+      if (DQ % 8 != 0 && c >= DQ) continue;
+      const float4 r = make_float4(o[i][4 * e] / denom, o[i][4 * e + 1] / denom,
+                                   o[i][4 * e + 2] / denom,
+                                   o[i][4 * e + 3] / denom);
+      if (vec) {
+        *reinterpret_cast<float4*>(orow + 4 * c) = r;
+      } else {
+        orow[4 * c] = r.x;
+        orow[4 * c + 1] = r.y;
+        orow[4 * c + 2] = r.z;
+        orow[4 * c + 3] = r.w;
+      }
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int s, int t, int h, int kvh, int causal, float scale,
            cudaStream_t st) {
-  constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
-  auto kern = flash_attention_kernel<T, HD>;
+  constexpr int bytes = smem_bytes<HD>();
+  static_assert(bytes <= 232448, "shared memory a block can use");
+  auto kern = flash_attention_simt_kernel<HD>;
   if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
+    static const cudaError_t attr = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
   }
-  dim3 grid((s + kBQ - 1) / kBQ, h, b);
-  kern<<<grid, kWarps * 32, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, t, h, kvh, causal,
-      scale);
+  const int vec = (reinterpret_cast<uintptr_t>(q) |
+                   reinterpret_cast<uintptr_t>(k) |
+                   reinterpret_cast<uintptr_t>(v) |
+                   reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  dim3 grid((s + BQ - 1) / BQ, h, b);
+  kern<<<grid, kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), s, t, h, kvh,
+      causal, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                 void* out, int b, int s, int t, int h, int kvh, int causal,
                 float scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, b, s, t, h, kvh, causal,
-                                  scale, st);
-    case 32: return launch<T, 32>(q, k, v, out, b, s, t, h, kvh, causal,
-                                  scale, st);
-    case 64: return launch<T, 64>(q, k, v, out, b, s, t, h, kvh, causal,
-                                  scale, st);
-    case 112: return launch<T, 112>(q, k, v, out, b, s, t, h, kvh, causal,
-                                    scale, st);
-    case 128: return launch<T, 128>(q, k, v, out, b, s, t, h, kvh, causal,
-                                    scale, st);
-    case 256: return launch<T, 256>(q, k, v, out, b, s, t, h, kvh, causal,
-                                    scale, st);
+    case 16: return launch<16>(q, k, v, out, b, s, t, h, kvh, causal,
+                               scale, st);
+    case 32: return launch<32>(q, k, v, out, b, s, t, h, kvh, causal,
+                               scale, st);
+    case 64: return launch<64>(q, k, v, out, b, s, t, h, kvh, causal,
+                               scale, st);
+    case 112: return launch<112>(q, k, v, out, b, s, t, h, kvh, causal,
+                                 scale, st);
+    case 128: return launch<128>(q, k, v, out, b, s, t, h, kvh, causal,
+                                 scale, st);
+    case 256: return launch<256>(q, k, v, out, b, s, t, h, kvh, causal,
+                                 scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // the tensor-core body (bf16)
@@ -562,8 +695,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, out, b, s, t, h, kvh, causal,
-                              scale, st);
+    return simt::dispatch_hd(hd, q, k, v, out, b, s, t, h, kvh, causal,
+                             scale, st);
   if (dtype == 1)
     return tc::dispatch_hd(hd, q, k, v, out, b, s, t, h, kvh, causal, scale,
                            st);

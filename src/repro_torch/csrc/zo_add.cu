@@ -61,7 +61,6 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
-#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -345,21 +344,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       odometer_step(o, s, last, step_col);
     }
   }
-}
-
-// SMs of the current device (queried once a device)
-int sm_count() {
-  static std::atomic<int> cached[64];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  int n = cached[dev].load(std::memory_order_relaxed);
-  if (n == 0) {
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-        cudaSuccess)
-      return 0;
-    cached[dev].store(n, std::memory_order_relaxed);
-  }
-  return n;
 }
 
 // A launch's plan over a leaf of n elements, vec a vector, on `lanes`

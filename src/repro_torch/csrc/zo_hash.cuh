@@ -14,6 +14,9 @@
 // Gaussian z, and bit-exactness for Rademacher z.
 #pragma once
 
+#include <cuda_runtime.h>
+
+#include <atomic>
 #include <cstdint>
 
 namespace repro_torch {
@@ -63,6 +66,22 @@ __host__ __device__ __forceinline__ uint32_t avalanche(uint32_t x) {
 __host__ __device__ __forceinline__ uint32_t fold(uint32_t h, uint32_t idx,
                                                   int d) {
   return avalanche(h ^ (idx * dim_prime(d)));
+}
+
+// SMs of the current device (queried once a device): the launchers of
+// zo_add.cu and zo_matmul.cu size their grids or tiles by it
+inline int sm_count() {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  int n = cached[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return 0;
+    cached[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
 }
 
 // dist 0: Rademacher (+-1 from the top bit); dist 1: Box-Muller Gaussian

@@ -63,24 +63,40 @@
 //    and W is read from device memory about once.
 //    Y = acc_W (* s_n) + c * acc_z.
 //
-// 2. f32 X, or Gaussian z: the SIMT body, unchanged from the first port.
-//    The reference dots true f32 (preferred_element_type f32 on an f32
-//    perturbed tile), and neither f32 X nor Gaussian z is exact in bf16,
-//    so tensor cores are out; the bound is operations at the f32 SIMT
-//    rate. A 128 x 128 output block per 256-thread block, each thread an
-//    8 x 8 register tile, the K loop in steps of 8 through shared memory.
-//    While the W tile is staged it is perturbed: w' = __fadd_rn(w,
-//    __fmul_rn(c, z)) (an int8 tile: w' = __fadd_rn(__fmul_rn(q, s),
-//    __fmul_rn(c, z))), the plain version's f32 value bit for bit with
-//    Rademacher z. Edges are masked in M, K and N.
+// 2. f32 X, or Gaussian z: the SIMT body, in true f32 FFMA. The reference
+//    dots true f32 (preferred_element_type f32 on an f32 perturbed tile),
+//    and neither f32 X nor Gaussian z is exact in bf16, so tensor cores
+//    are out; the bound is operations at the f32 SIMT rate (67 TFLOP/s:
+//    0.128 ms for RoBERTa-large's (1024, 1024) @ (1024, 4096) w_in).
+//    The card's FMA pipes take one warp instruction a clock on each of
+//    an SM's four schedulers, so every other instruction a thread issues
+//    -- fragment loads, staging, the hash -- is an FMA not issued. The
+//    design keeps them few: 256 threads a block, each a (BM / 16) x
+//    (BN / 16) register tile whose A and B fragments are 16-byte shared
+//    loads, conflict-free (one LDS.128 feeds 16 or 32 FMAs); stages of 16
+//    k, one barrier each, through a double buffer, the next stage's X and W loaded into registers at the
+//    top of a stage and stored -- X transposed, conflict-free, W
+//    perturbed -- half way through its FMAs, so the loads' latency and
+//    the hash hide behind FMAs; the W tile hashed and perturbed once per
+//    BM rows (256 where the shape fills the card), w' = __fadd_rn(w,
+//    __fmul_rn(c, z)) (int8: w = __fmul_rn(q, s); Rademacher c * z as c
+//    with z's sign, the same bits), the plain version's f32 value bit for
+//    bit with Rademacher z, column folds and scales read once a block.
+//    The launcher picks the tile (256 x 128, 128 x 128, 128 x 64 or
+//    64 x 64) from M, N, the lane count and the card's SMs (pick_tile:
+//    RoBERTa's square projections take 128 x 64, 128 blocks on 132 SMs;
+//    its w_in 256 x 128). No split-K: each output is one fmaf chain over
+//    k = 0 .. K - 1 in order, so its bits depend on neither the tile, M,
+//    N, the lane count nor (row0, col0). Edges are masked in M, K and N;
+//    X, W and Y take element loads and stores where K or N is not a
+//    multiple of 4 or a base is not aligned.
 //
 // Lanes: in both bodies the lane is blockIdx.z and the per-lane scalars
-// travel in the Lanes struct; the tile shape, the k order and the
-// per-element arithmetic depend neither on the number of lanes nor on
-// the entry point (a lone launch is the one-lane case of the same
-// kernel in the tensor-core body), so every lane's bits are those of a
-// lone zo_matmul (or zo_matmul_q) launch with that lane's seed and
-// coefficient.
+// travel in the Lanes struct; the k order and the per-element arithmetic
+// depend neither on the number of lanes nor on the entry point (a lone
+// launch is the one-lane case of the same kernel in both bodies), so
+// every lane's bits are those of a lone zo_matmul (or zo_matmul_q) launch
+// with that lane's seed and coefficient.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -92,143 +108,378 @@
 namespace repro_torch {
 namespace {
 
+// bit 31 = the sign of z at column coordinate n of a row whose fold is
+// h_row: fold(h_row, n, d) without avalanche's last xorshift, which
+// leaves bit 31 as it is (z_from_bits(.., 0) reads only bit 31)
+__device__ __forceinline__ uint32_t z_sign(uint32_t h_row, uint32_t n_prime) {
+  uint32_t x = h_row ^ n_prime;
+  x ^= x >> 15;
+  x *= 0x2C1B3C6Du;
+  x ^= x >> 12;
+  x *= 0x297A2D39u;
+  return x;
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // ---------------------------------------------------------------------------
 // the SIMT body (f32 X, or Gaussian z)
 
-constexpr int kBM = 128, kBN = 128, kBK = 8, kTM = 8, kTN = 8;
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
+namespace simt {
 
-__device__ __forceinline__ float mm_f32(float x) { return x; }
-__device__ __forceinline__ float mm_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+using bf16 = __nv_bfloat16;
+
+constexpr int BK = 16;          // k a stage
+
+// The tiles the launcher picks from: a BM x BN output block a block, each
+// thread a TM x TN register tile (4 x 4 sub-tiles), BM / TM x BN / TN
+// threads. kEff: each tile's outputs an SM a second, in %
+// of the 256 x 128 tile's, measured on an H100 at RoBERTa-large's w_in
+// shape (1024, 1024, 4096), where every tile gives an SM the same
+// outputs (scripts/simt_tiles.py: 100, 84.3, 82.1, 60.5).
+constexpr int kTiles = 4;
+constexpr int kTileBM[kTiles] = {256, 128, 128, 64};
+constexpr int kTileBN[kTiles] = {128, 128, 64, 64};
+constexpr int kTileTM[kTiles] = {16, 8, 8, 4};
+constexpr int kTileTN[kTiles] = {8, 8, 4, 4};
+constexpr int kEff[kTiles] = {100, 84, 82, 60};
+
+// The tile of a launch of m x n outputs a lane over `sms` SMs: the least
+// modelled time -- the blocks an SM runs, ceil(blocks / sms), times a
+// block's outputs, over the tile's kEff -- ties to the larger tile.
+// Integers throughout; tests/test_torch_zo_matmul_tile.py repeats it.
+int pick_tile(int64_t m, int64_t n, int64_t lanes, int64_t sms) {
+  int best = 0;
+  int64_t best_work = 0;
+  for (int i = 0; i < kTiles; ++i) {
+    const int64_t blocks = (m + kTileBM[i] - 1) / kTileBM[i] *
+                           ((n + kTileBN[i] - 1) / kTileBN[i]) * lanes;
+    const int64_t work =
+        (blocks + sms - 1) / sms * kTileBM[i] * kTileBN[i];
+    if (i == 0 || work * kEff[best] < best_work * kEff[i]) {
+      best = i;
+      best_work = work;
+    }
+  }
+  return best;
 }
-// W element (gk, gn) as f32: a float/bf16 weight as it is, an int8 one
-// times its column's scale (exact with power-of-two scales)
-template <typename TW>
-__device__ __forceinline__ float w_f32(const TW* w, const float*,
-                                       int64_t idx, int64_t) {
-  return mm_f32(w[idx]);
-}
-__device__ __forceinline__ float w_f32(const int8_t* w, const float* scale,
-                                       int64_t idx, int64_t col) {
-  return __fmul_rn(static_cast<float>(w[idx]), scale[col]);
-}
+
+// four consecutive elements of a row of X or W as stored: a float4, four
+// bf16 in a uint2, four int8 in a word
 template <typename T>
-__device__ __forceinline__ T mm_out(float x);
+struct QuadOf { using type = float4; };
 template <>
-__device__ __forceinline__ float mm_out<float>(float x) { return x; }
+struct QuadOf<bf16> { using type = uint2; };
 template <>
-__device__ __forceinline__ __nv_bfloat16 mm_out<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+struct QuadOf<int8_t> { using type = uint32_t; };
+template <typename T>
+using Quad = typename QuadOf<T>::type;
+
+// p[0 .. 3] in one load (p aligned to 4 elements)
+template <typename T>
+__device__ __forceinline__ Quad<T> load_quad(const T* p) {
+  return __ldg(reinterpret_cast<const Quad<T>*>(p));
 }
-
-// one 128 x 128 output block (blockIdx.x, blockIdx.y) of X @ W'
-template <typename T, typename TW>
-__device__ __forceinline__ void zo_matmul_block(
-    float (&xs)[kBK][kBM], float (&ws)[kBK][kBN], const T* __restrict__ x,
-    const TW* __restrict__ w, const float* __restrict__ scale,
-    T* __restrict__ y, int m, int k, int n, uint32_t base, int prime_offset,
-    float coeff, int dist, uint32_t row0, uint32_t col0) {
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kBN;
-  // X loads: row m0 + tid / 2, columns (tid % 2) * 4 .. + 3 of the tile
-  const int xr = tid / 2, xc = (tid % 2) * 4;
-  // W loads: row tid / 32 of the tile, columns tid % 32 + 32 * i
-  const int wr = tid / 32, wc = tid % 32;
-  float acc[kTM][kTN];
+// p[0 .. valid - 1] by element, -0.0 after: an X element past K times
+// the 0.0 of W' past K adds -0.0 to a sum, which leaves every sum (a
+// -0.0 one too) as it is, so the padded k are no part of the chain
+__device__ __forceinline__ float4 load_quad_elems(const float* p, int valid) {
+  float e[4];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+  for (int i = 0; i < 4; ++i) e[i] = i < valid ? p[i] : -0.0f;
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+__device__ __forceinline__ uint2 load_quad_elems(const bf16* p, int valid) {
+  const uint16_t* b = reinterpret_cast<const uint16_t*>(p);
+  uint32_t e[4];
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    const int64_t gm = m0 + xr;
+  for (int i = 0; i < 4; ++i) e[i] = i < valid ? b[i] : 0x8000u;
+  return make_uint2(e[0] | e[1] << 16, e[2] | e[3] << 16);
+}
+__device__ __forceinline__ uint32_t load_quad_elems(const int8_t* p,
+                                                    int valid) {
+  uint32_t r = 0u;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gk = k0 + xc + i;
-      xs[xc + i][xr] = (gm < m && gk < k)
-                           ? mm_f32(x[gm * k + gk]) : 0.0f;
-    }
-    const int gk = k0 + wr;
-    const uint32_t h_row =
-        fold(base, static_cast<uint32_t>(gk) + row0, prime_offset);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = wc + 32 * i;
-      const int64_t gn = n0 + c;
-      float v = 0.0f;
-      if (gk < k && gn < n) {
-        const float z = z_from_bits(
-            fold(h_row, static_cast<uint32_t>(gn) + col0, prime_offset + 1),
-            dist);
-        v = __fadd_rn(w_f32(w, scale, static_cast<int64_t>(gk) * n + gn, gn),
-                      __fmul_rn(coeff, z));
-      }
-      ws[wr][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM], b[kTN];
-      const float4* ap = reinterpret_cast<const float4*>(&xs[kk][ty * kTM]);
-      const float4* bp = reinterpret_cast<const float4*>(&ws[kk][tx * kTN]);
-      float4 a0 = ap[0], a1 = ap[1], b0 = bp[0], b1 = bp[1];
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i)
+    if (i < valid) r |= static_cast<uint32_t>(static_cast<uint8_t>(p[i]))
+                        << (8 * i);
+  return r;
+}
+// element i as f32 (exact; an int8 one as its integer value)
+__device__ __forceinline__ float quad_at(const float4& q, int i) {
+  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+__device__ __forceinline__ float quad_at(const uint2& q, int i) {
+  const uint32_t w = i < 2 ? q.x : q.y;
+  return __uint_as_float(i % 2 ? (w & 0xFFFF0000u) : (w << 16));
+}
+__device__ __forceinline__ float quad_at(uint32_t q, int i) {
+  return static_cast<float>(static_cast<int8_t>((q >> (8 * i)) & 0xFFu));
+}
+// four outputs to p[0 .. 3] (full: in one store, p aligned), else to
+// p[0 .. valid - 1]
+__device__ __forceinline__ void store_quad(float* p, const float (&v)[4],
+                                           bool full, int valid) {
+  if (full) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
   }
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int64_t gm = m0 + ty * kTM + i;
-    if (gm >= m) break;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int64_t gn = n0 + tx * kTN + j;
-      if (gn < n) y[gm * n + gn] = mm_out<T>(acc[i][j]);
-    }
+  for (int i = 0; i < 4; ++i)
+    if (i < valid) p[i] = v[i];
+}
+__device__ __forceinline__ void store_quad(bf16* p, const float (&v)[4],
+                                           bool full, int valid) {
+  if (full) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+    return;
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < valid) p[i] = __float2bfloat16_rn(v[i]);
 }
 
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kThreads)
-zo_matmul_kernel(const T* __restrict__ x, const TW* __restrict__ w,
-                 const float* __restrict__ scale, T* __restrict__ y, int m,
-                 int k, int n, uint32_t base, int prime_offset, float coeff,
-                 int dist, uint32_t row0, uint32_t col0) {
-  __shared__ __align__(16) float xs[kBK][kBM];  // X tile, transposed
-  __shared__ __align__(16) float ws[kBK][kBN];  // perturbed W tile
-  zo_matmul_block<T, TW>(xs, ws, x, w, scale, y, m, k, n, base,
-                         prime_offset, coeff, dist, row0, col0);
-}
-
-// lane blockIdx.z: X and Y lane z, W lane z % w_lanes at stride w_stride.
-// Two blocks an SM: left to itself the int8 instantiation takes 130
-// registers a thread, so only one 256-thread block fits on an SM.
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kThreads, 2)
-zo_matmul_users_kernel(const T* __restrict__ x, const TW* __restrict__ w,
-                       const float* __restrict__ scale, T* __restrict__ y,
-                       int m, int k, int n, int64_t w_stride, int w_lanes,
-                       Lanes lanes, int prime_offset, int dist) {
-  __shared__ __align__(16) float xs[kBK][kBM];
-  __shared__ __align__(16) float ws[kBK][kBN];
+// One BM x BN output block (blockIdx.x, blockIdx.y) of lane blockIdx.z:
+// X and Y lane z, W lane z % w_lanes at stride w_stride. T: X's and Y's
+// type; TW: W's (T, or int8_t with column scales); DIST: z's (0
+// Rademacher, 1 Gaussian). vec: X, W and Y take 4-element loads and
+// stores (K and N multiples of 4, bases aligned).
+//
+// Thread (tx, ty) of the TXN x TYN grid owns rows 4 (TYN i + ty) + 0..3
+// and columns 4 (TXN j + tx) + 0..3 of the block: its fragments of a k
+// are 16-byte shared loads that a quarter warp (8 tx, one ty) takes
+// broadcast (A) or from 8 distinct 16-byte slots (B), so they are
+// conflict-free. One block an SM at most for the two larger tiles: at
+// two, 128 x 128 spills (128 registers a thread) and ran slower on an
+// H100, and 256 x 128 holds 128 accumulators a thread; the smaller tiles
+// fit two an SM (under 128 registers). Stages of BK k go through a double buffer: stage t + 1's
+// X and W are loaded into registers at the top of stage t, stored (X
+// transposed: a warp's 32 threads hold 32 consecutive rows, so the
+// stores are conflict-free) and perturbed into the other buffer half way
+// through stage t's FMAs, and one barrier a stage hands them over. Each
+// output is one fmaf chain over k = 0 .. K - 1 in order, whatever the
+// tile, so its bits depend on neither the tile, M, N, the lane count nor
+// (row0, col0).
+template <typename T, typename TW, int DIST, int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(BM / TM * (BN / TN), 1)
+zo_matmul_simt_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                      const float* __restrict__ scale, T* __restrict__ y,
+                      int m, int k, int n, int64_t w_stride, int w_lanes,
+                      Lanes lanes, int prime_offset, int vec) {
+  constexpr bool kInt8 = std::is_same_v<TW, int8_t>;
+  constexpr int TXN = BN / TN, TYN = BM / TM;   // the thread grid
+  constexpr int kThreads = TXN * TYN;
+  constexpr int XC = BM * BK / 4 / kThreads;    // X quads a thread a stage
+  constexpr int WQ = BN / 4;                    // W quads a stage row
+  constexpr int WC = BK * WQ / kThreads;        // W quads a thread a stage
+  constexpr int WK = kThreads / WQ;             // stage rows between them
+  static_assert(TM % 4 == 0 && TN % 4 == 0 && TXN % 8 == 0 &&
+                kThreads % 32 == 0 && BM % 32 == 0 && XC >= 1 &&
+                WC >= 1 && XC * kThreads == BM * BK / 4 &&
+                WC * WK == BK, "tile split");
+  __shared__ __align__(16) float xs[2][BK][BM];  // X stages, transposed
+  __shared__ __align__(16) float ws[2][BK][BN];  // W' stages
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tx = lane % 8 + 8 * (warp % (TXN / 8));
+  const int ty = lane / 8 + 4 * (warp / (TXN / 8));
   const int u = blockIdx.z;
-  const int64_t mk = static_cast<int64_t>(m) * k;
-  const int64_t mn = static_cast<int64_t>(m) * n;
-  zo_matmul_block<T, TW>(xs, ws, x + u * mk, w + (u % w_lanes) * w_stride,
-                         scale, y + u * mn, m, k, n, lanes.base[u],
-                         prime_offset, lanes.coeff[u], dist, lanes.row0,
-                         lanes.col0);
+  x += static_cast<int64_t>(u) * m * k;
+  y += static_cast<int64_t>(u) * m * n;
+  w += (u % w_lanes) * w_stride;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const uint32_t base = lanes.base[u];
+  const float coeff = lanes.coeff[u];
+  const int n_tiles = (k + BK - 1) / BK;
+
+  // this thread's W quads: stage rows wk + WK i, columns gn .. gn + 3 in
+  // every stage, so their column folds and scales are read once
+  const int wq = tid % WQ, wk = tid / WQ, gn = n0 + 4 * wq;
+  const uint32_t p1 = dim_prime(prime_offset + 1);
+  uint32_t n_prime[4];
+  float col_scale[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    n_prime[e] = (static_cast<uint32_t>(gn + e) + lanes.col0) * p1;
+    col_scale[e] = kInt8 && gn + e < n ? scale[gn + e] : 1.0f;
+  }
+
+  Quad<T> xq[XC];
+  Quad<TW> wv[WC];
+  // stage k0's X and W into registers (-0.0 / 0 past M, K and N)
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < XC; ++i) {
+      const int c = tid + kThreads * i, gk = k0 + 4 * (c / BM);
+      const int64_t gm = m0 + c % BM;
+      const T* p = x + gm * k + gk;
+      const int valid = gm < m ? min(4, k - gk) : 0;
+      xq[i] = vec && valid == 4 ? load_quad(p) : load_quad_elems(p, valid);
+    }
+#pragma unroll
+    for (int i = 0; i < WC; ++i) {
+      const int gk = k0 + wk + WK * i;
+      const TW* p = w + static_cast<int64_t>(gk) * n + gn;
+      const int valid = gk < k ? min(4, n - gn) : 0;
+      wv[i] = vec && valid == 4 ? load_quad(p) : load_quad_elems(p, valid);
+    }
+  };
+  // the registers into stage buffer buf: X transposed, W perturbed,
+  // w' = __fadd_rn(w, __fmul_rn(c, z)) (int8: w = __fmul_rn(q, s)), the
+  // plain version's f32 value (bit for bit with Rademacher z)
+  auto store = [&](int buf, int k0) {
+#pragma unroll
+    for (int i = 0; i < XC; ++i) {
+      const int c = tid + kThreads * i, r = c % BM, kq = c / BM;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[buf][4 * kq + e][r] = quad_at(xq[i], e);
+    }
+#pragma unroll
+    for (int i = 0; i < WC; ++i) {
+      const int kr = wk + WK * i, gk = k0 + kr;
+      const uint32_t h_row =
+          fold(base, static_cast<uint32_t>(gk) + lanes.row0, prime_offset);
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float wf = quad_at(wv[i], e);
+        if constexpr (kInt8) wf = __fmul_rn(wf, col_scale[e]);
+        float cz;
+        if constexpr (DIST == 0) {
+          // c * (+-1): c with z's sign, the bits of __fmul_rn(c, z)
+          cz = __uint_as_float(__float_as_uint(coeff) ^
+                               (z_sign(h_row, n_prime[e]) & 0x80000000u));
+        } else {
+          cz = __fmul_rn(coeff,
+                         z_from_bits(avalanche(h_row ^ n_prime[e]), 1));
+        }
+        o[e] = gk < k && gn + e < n ? __fadd_rn(wf, cz) : 0.0f;
+      }
+      *reinterpret_cast<float4*>(&ws[buf][kr][4 * wq]) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  fetch(0);
+  store(0, 0);
+  __syncthreads();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int cur = t & 1;
+    const bool more = t + 1 < n_tiles;
+    if (more) fetch((t + 1) * BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      // the buffer cur ^ 1 was last read before the previous barrier
+      if (kk == BK / 2 && more) store(cur ^ 1, (t + 1) * BK);
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM / 4; ++i) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&xs[cur][kk][4 * (TYN * i + ty)]);
+        a[4 * i] = v.x;
+        a[4 * i + 1] = v.y;
+        a[4 * i + 2] = v.z;
+        a[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < TN / 4; ++j) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&ws[cur][kk][4 * (TXN * j + tx)]);
+        b[4 * j] = v.x;
+        b[4 * j + 1] = v.y;
+        b[4 * j + 2] = v.z;
+        b[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t gm = m0 + 4 * (TYN * (i / 4) + ty) + i % 4;
+    if (gm >= m) continue;
+#pragma unroll
+    for (int j = 0; j < TN / 4; ++j) {
+      const int gc = n0 + 4 * (TXN * j + tx);
+      const float v[4] = {acc[i][4 * j], acc[i][4 * j + 1],
+                          acc[i][4 * j + 2], acc[i][4 * j + 3]};
+      store_quad(y + gm * n + gc, v, vec && gc + 3 < n, n - gc);
+    }
+  }
 }
+
+template <typename T, typename TW, int DIST, int BM, int BN, int TM, int TN>
+int launch_tile(const void* x, const void* w, const float* scale, void* y,
+                int m, int k, int n, int64_t w_stride, int w_lanes,
+                const Lanes& lanes, int n_lanes, int prime_offset, int vec,
+                cudaStream_t st) {
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, n_lanes);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  zo_matmul_simt_kernel<T, TW, DIST, BM, BN, TM, TN>
+      <<<grid, BM / TM * (BN / TN), 0, st>>>(
+      static_cast<const T*>(x), static_cast<const TW*>(w), scale,
+      static_cast<T*>(y), m, k, n, w_stride, w_lanes, lanes, prime_offset,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename TW, int DIST>
+int launch_dist(const void* x, const void* w, const float* scale, void* y,
+                int m, int k, int n, int64_t w_stride, int w_lanes,
+                const Lanes& lanes, int n_lanes, int prime_offset,
+                cudaStream_t st) {
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  constexpr int xb = 4 * sizeof(T), wb = 4 * sizeof(TW);
+  const int vec = k % 4 == 0 && n % 4 == 0 && w_stride % 4 == 0 &&
+                  aligned(x, xb) && aligned(w, wb) && aligned(y, xb);
+#define REPRO_SIMT_TILE(I)                                                  \
+  case I:                                                                   \
+    return launch_tile<T, TW, DIST, kTileBM[I], kTileBN[I], kTileTM[I],     \
+                       kTileTN[I]>(                                         \
+        x, w, scale, y, m, k, n, w_stride, w_lanes, lanes, n_lanes,         \
+        prime_offset, vec, st);
+  switch (pick_tile(m, n, n_lanes, sms)) {
+    REPRO_SIMT_TILE(0)
+    REPRO_SIMT_TILE(1)
+    REPRO_SIMT_TILE(2)
+    REPRO_SIMT_TILE(3)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_SIMT_TILE
+}
+
+// T: X's and Y's type; TW: W's. bf16 X with Rademacher z runs on the
+// tensor cores (use_tc), so it has no SIMT instantiation.
+template <typename T, typename TW>
+int launch(const void* x, const void* w, const float* scale, void* y, int m,
+           int k, int n, int64_t w_stride, int w_lanes, const Lanes& lanes,
+           int n_lanes, int prime_offset, int dist, cudaStream_t st) {
+  if (dist == 1)
+    return launch_dist<T, TW, 1>(x, w, scale, y, m, k, n, w_stride, w_lanes,
+                                 lanes, n_lanes, prime_offset, st);
+  if constexpr (std::is_same_v<T, float>)
+    return launch_dist<T, TW, 0>(x, w, scale, y, m, k, n, w_stride, w_lanes,
+                                 lanes, n_lanes, prime_offset, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // the tensor-core body (bf16 X, Rademacher z)
@@ -331,17 +582,6 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// bit 31 = the sign of z at column coordinate n of a row whose fold is
-// h_row: fold(h_row, n, d) without avalanche's last xorshift, which
-// leaves bit 31 as it is (z_from_bits(.., 0) reads only bit 31)
-__device__ __forceinline__ uint32_t z_sign(uint32_t h_row, uint32_t n_prime) {
-  uint32_t x = h_row ^ n_prime;
-  x ^= x >> 15;
-  x *= 0x2C1B3C6Du;
-  x ^= x >> 12;
-  x *= 0x297A2D39u;
-  return x;
-}
 // two z as bf16 +-1 (0x3F80 | sign << 15): a in the low half, b in the high
 __device__ __forceinline__ uint32_t z_pair(uint32_t sa, uint32_t sb) {
   return 0x3F803F80u | ((sa >> 16) & 0x8000u) | (sb & 0x80000000u);
@@ -645,10 +885,6 @@ int launch_vec(const void* x, const void* w, const float* scale, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // TW: bf16 (W of X's dtype) or int8_t (with column scales)
 template <typename TW>
 int launch(const void* x, const void* w, const float* scale, void* y, int m,
@@ -656,7 +892,7 @@ int launch(const void* x, const void* w, const float* scale, void* y, int m,
            int n_lanes, int prime_offset, cudaStream_t st) {
   constexpr int w_vec = std::is_same_v<TW, int8_t> ? 16 : 8;
   const bool vec = k % 8 == 0 && n % w_vec == 0 && w_stride % w_vec == 0 &&
-                   aligned16(x) && aligned16(w);
+                   aligned(x, 16) && aligned(w, 16);
   return vec ? launch_vec<TW, true>(x, w, scale, y, m, k, n, w_stride,
                                     w_lanes, lanes, n_lanes, prime_offset,
                                     st)
@@ -680,35 +916,59 @@ Lanes one_lane(uint32_t base, float coeff, uint32_t row0, uint32_t col0) {
   return lanes;
 }
 
-// TW void: W has X's dtype T; TW int8_t: an int8 W with f32 scales
-template <typename T, typename TW>
-void launch(const void* x, const void* w, const float* scale, void* y, int m,
-            int k, int n, uint32_t base, int prime_offset, float coeff,
-            int dist, cudaStream_t st, uint32_t row0 = 0, uint32_t col0 = 0) {
-  using W = std::conditional_t<std::is_void_v<TW>, T, TW>;
-  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  zo_matmul_kernel<T, W><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w), scale,
-      static_cast<T*>(y), m, k, n, base, prime_offset, coeff, dist, row0,
-      col0);
-}
-
-template <typename T, typename TW>
-void launch_users(const void* x, const void* w, const float* scale, void* y,
-                  int m, int k, int n, int64_t w_stride, int w_lanes,
-                  const Lanes& lanes, int n_lanes, int prime_offset,
-                  int dist, cudaStream_t st) {
-  using W = std::conditional_t<std::is_void_v<TW>, T, TW>;
-  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, n_lanes);
-  zo_matmul_users_kernel<T, W><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w), scale,
-      static_cast<T*>(y), m, k, n, w_stride, w_lanes, lanes, prime_offset,
-      dist);
-}
-
 bool bad_args(int m, int k, int n, int prime_offset, int dist) {
   return m <= 0 || k <= 0 || n <= 0 || prime_offset < 0 ||
          prime_offset + 2 > kMaxRank || (dist != 0 && dist != 1);
+}
+
+// every entry point: the body by (dtype, dist), W of X's dtype (scale
+// null) or int8 with column scales
+int run(const void* x, const void* w, const float* scale, void* y,
+        int dtype, int m, int k, int n, int64_t w_stride, int w_lanes,
+        const Lanes& lanes, int n_lanes, int prime_offset, int dist,
+        cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  if (use_tc(dtype, dist))
+    return scale == nullptr
+               ? tc::launch<bf16>(x, w, nullptr, y, m, k, n, w_stride,
+                                  w_lanes, lanes, n_lanes, prime_offset, st)
+               : tc::launch<int8_t>(x, w, scale, y, m, k, n, w_stride,
+                                    w_lanes, lanes, n_lanes, prime_offset,
+                                    st);
+  if (dtype == 0)
+    return scale == nullptr
+               ? simt::launch<float, float>(x, w, nullptr, y, m, k, n,
+                                            w_stride, w_lanes, lanes,
+                                            n_lanes, prime_offset, dist, st)
+               : simt::launch<float, int8_t>(x, w, scale, y, m, k, n,
+                                             w_stride, w_lanes, lanes,
+                                             n_lanes, prime_offset, dist, st);
+  if (dtype == 1)
+    return scale == nullptr
+               ? simt::launch<bf16, bf16>(x, w, nullptr, y, m, k, n,
+                                          w_stride, w_lanes, lanes, n_lanes,
+                                          prime_offset, dist, st)
+               : simt::launch<bf16, int8_t>(x, w, scale, y, m, k, n,
+                                            w_stride, w_lanes, lanes,
+                                            n_lanes, prime_offset, dist, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int users(const void* x, const void* w, const float* scale, void* y,
+          int dtype, int m, int k, int n, int64_t w_stride, int w_lanes,
+          const uint32_t* bases, const float* coeffs, int n_lanes,
+          int prime_offset, int dist, void* stream) {
+  if (bad_args(m, k, n, prime_offset, dist) || n_lanes <= 0 ||
+      n_lanes > kMaxLanes || w_lanes <= 0 || n_lanes % w_lanes != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Lanes lanes{};
+  for (int i = 0; i < n_lanes; ++i) {
+    lanes.base[i] = bases[i];
+    lanes.coeff[i] = coeffs[i];
+    lanes.idx[i] = i;
+  }
+  return run(x, w, scale, y, dtype, m, k, n, w_stride, w_lanes, lanes,
+             n_lanes, prime_offset, dist, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -719,6 +979,16 @@ bool bad_args(int m, int k, int n, int prime_offset, int dist) {
 // body: the rule every zo_matmul entry point below follows.
 extern "C" int repro_zo_matmul_body(int dtype, int dist) {
   return repro_torch::use_tc(dtype, dist) ? 1 : 0;
+}
+
+// The SIMT body's tile for a launch of m x n outputs a lane on `lanes`
+// lanes over `sms` SMs (sms <= 0: the current device's): its index in
+// (256 x 128, 128 x 128, 128 x 64, 64 x 64); -1 for bad arguments.
+extern "C" int repro_zo_matmul_simt_tile(int m, int n, int lanes, int sms) {
+  using namespace repro_torch;
+  if (sms <= 0) sms = sm_count();
+  if (m <= 0 || n <= 0 || lanes <= 0 || sms <= 0) return -1;
+  return simt::pick_tile(m, n, lanes, sms);
 }
 
 // x (M, K), w (K, N), y (M, N): contiguous, one dtype (0 float32,
@@ -734,22 +1004,10 @@ extern "C" int repro_zo_matmul(const void* x, const void* w, void* y,
   using namespace repro_torch;
   if (bad_args(m, k, n, prime_offset, dist) || row0 < 0 || col0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t r0 = static_cast<uint32_t>(row0);
-  const uint32_t c0 = static_cast<uint32_t>(col0);
-  if (use_tc(dtype, dist))
-    return tc::launch<__nv_bfloat16>(x, w, nullptr, y, m, k, n, 0, 1,
-                                     one_lane(base, coeff, r0, c0), 1,
-                                     prime_offset, st);
-  if (dtype == 0)
-    launch<float, void>(x, w, nullptr, y, m, k, n, base, prime_offset, coeff,
-                        dist, st, r0, c0);
-  else if (dtype == 1)
-    launch<__nv_bfloat16, void>(x, w, nullptr, y, m, k, n, base,
-                                prime_offset, coeff, dist, st, r0, c0);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return run(x, w, nullptr, y, dtype, m, k, n, 0, 1,
+             one_lane(base, coeff, static_cast<uint32_t>(row0),
+                      static_cast<uint32_t>(col0)),
+             1, prime_offset, dist, static_cast<cudaStream_t>(stream));
 }
 
 // x (M, K) of dtype 0 float32 / 1 bfloat16, q (K, N) int8, scale (N,)
@@ -761,70 +1019,12 @@ extern "C" int repro_zo_matmul_q(const void* x, const void* q,
                                  int prime_offset, float coeff, int dist,
                                  void* stream) {
   using namespace repro_torch;
-  if (bad_args(m, k, n, prime_offset, dist))
+  if (bad_args(m, k, n, prime_offset, dist) || scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sp = static_cast<const float*>(scale);
-  if (use_tc(dtype, dist))
-    return tc::launch<int8_t>(x, q, sp, y, m, k, n, 0, 1,
-                              one_lane(base, coeff, 0, 0), 1, prime_offset,
-                              st);
-  if (dtype == 0)
-    launch<float, int8_t>(x, q, sp, y, m, k, n, base, prime_offset, coeff,
-                          dist, st);
-  else if (dtype == 1)
-    launch<__nv_bfloat16, int8_t>(x, q, sp, y, m, k, n, base, prime_offset,
-                                  coeff, dist, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return run(x, q, static_cast<const float*>(scale), y, dtype, m, k, n, 0, 1,
+             one_lane(base, coeff, 0, 0), 1, prime_offset, dist,
+             static_cast<cudaStream_t>(stream));
 }
-
-namespace {
-
-int users(const void* x, const void* w, const float* scale, void* y,
-          int dtype, int m, int k, int n, int64_t w_stride, int w_lanes,
-          const uint32_t* bases, const float* coeffs, int n_lanes,
-          int prime_offset, int dist, void* stream) {
-  using namespace repro_torch;
-  if (bad_args(m, k, n, prime_offset, dist) || n_lanes <= 0 ||
-      n_lanes > kMaxLanes || w_lanes <= 0 || n_lanes % w_lanes != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Lanes lanes{};
-  for (int i = 0; i < n_lanes; ++i) {
-    lanes.base[i] = bases[i];
-    lanes.coeff[i] = coeffs[i];
-    lanes.idx[i] = i;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (use_tc(dtype, dist))
-    return scale == nullptr
-               ? tc::launch<__nv_bfloat16>(x, w, nullptr, y, m, k, n,
-                                           w_stride, w_lanes, lanes, n_lanes,
-                                           prime_offset, st)
-               : tc::launch<int8_t>(x, w, scale, y, m, k, n, w_stride,
-                                    w_lanes, lanes, n_lanes, prime_offset,
-                                    st);
-  if (scale == nullptr && dtype == 0)
-    launch_users<float, void>(x, w, nullptr, y, m, k, n, w_stride, w_lanes,
-                              lanes, n_lanes, prime_offset, dist, st);
-  else if (scale == nullptr && dtype == 1)
-    launch_users<__nv_bfloat16, void>(x, w, nullptr, y, m, k, n, w_stride,
-                                      w_lanes, lanes, n_lanes, prime_offset,
-                                      dist, st);
-  else if (dtype == 0)
-    launch_users<float, int8_t>(x, w, scale, y, m, k, n, w_stride, w_lanes,
-                                lanes, n_lanes, prime_offset, dist, st);
-  else if (dtype == 1)
-    launch_users<__nv_bfloat16, int8_t>(x, w, scale, y, m, k, n, w_stride,
-                                        w_lanes, lanes, n_lanes,
-                                        prime_offset, dist, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
 
 // x (n_lanes, M, K) and y (n_lanes, M, N) contiguous, of dtype 0 float32
 // / 1 bfloat16; w: w_lanes row-major (K, N) weights of x's dtype, lane j
@@ -839,8 +1039,9 @@ extern "C" int repro_zo_matmul_users(const void* x, const void* w, void* y,
                                      const float* coeffs, int n_lanes,
                                      int prime_offset, int dist,
                                      void* stream) {
-  return users(x, w, nullptr, y, dtype, m, k, n, w_stride, w_lanes, bases,
-               coeffs, n_lanes, prime_offset, dist, stream);
+  return repro_torch::users(x, w, nullptr, y, dtype, m, k, n, w_stride,
+                            w_lanes, bases, coeffs, n_lanes, prime_offset,
+                            dist, stream);
 }
 
 // x, y, bases, coeffs as for repro_zo_matmul_users; q (K, N) int8 and
@@ -854,6 +1055,7 @@ extern "C" int repro_zo_matmul_users_q(const void* x, const void* q,
                                        int prime_offset, int dist,
                                        void* stream) {
   if (scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return users(x, q, static_cast<const float*>(scale), y, dtype, m, k, n, 0,
-               1, bases, coeffs, n_lanes, prime_offset, dist, stream);
+  return repro_torch::users(x, q, static_cast<const float*>(scale), y, dtype,
+                            m, k, n, 0, 1, bases, coeffs, n_lanes,
+                            prime_offset, dist, stream);
 }

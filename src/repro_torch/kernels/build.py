@@ -88,6 +88,7 @@ _SIGNATURES = {
                                 ctypes.POINTER(ctypes.c_float), _I, _I, _I,
                                 _P),
     "repro_zo_matmul_body": (_I, _I),
+    "repro_zo_matmul_simt_tile": (_I, _I, _I, _I),
     "repro_flash_attention_body": (_I,),
     "repro_flash_prefill_body": (_I,),
     "repro_flash_verify_body": (_I,),

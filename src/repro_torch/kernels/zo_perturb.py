@@ -27,9 +27,11 @@ kernel has two bodies (``csrc/zo_matmul.cu``): bf16 ``X`` with
 Rademacher z takes bf16 tensor cores, ``X @ W + c * (X @ z)`` (``X @
 q`` times the column scales for an int8 W), which is that true-f32 dot
 up to summation order because every product of these inputs is exact
-in f32; f32 ``X`` or Gaussian z takes the SIMT body of the f32 W'. The
-choice depends on dtype and dist only, so a user lane still equals a
-lone launch bit for bit.
+in f32; f32 ``X`` or Gaussian z takes the SIMT body of the f32 W', whose
+tile (:data:`SIMT_TILES`, :func:`simt_tile`) the launcher picks from the
+shape, the lane count and the card's SMs -- each output one f32 FMA
+chain in k order whatever the tile. The body depends on dtype and dist
+only, so a user lane still equals a lone launch bit for bit.
 
 Seed conventions (the Pallas kernel's): ``prehashed=False`` takes the
 step seed and folds the leaf ``salt`` in; ``prehashed=True`` takes a base
@@ -53,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import rng as zrng
-from repro_torch.kernels.build import body, launch
+from repro_torch.kernels.build import body, launch, library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DISTS = {"rademacher": 0, "gaussian": 1}
@@ -63,6 +65,22 @@ def _mm_body(x: torch.Tensor, dist: str) -> str:
     """The ``zo_matmul`` body a launch runs (``csrc/zo_matmul.cu``'s
     rule): ``"tc"`` for bf16 x with Rademacher z, else ``"simt"``."""
     return body("repro_zo_matmul_body", _DTYPES[x.dtype], _DISTS[dist])
+
+
+#: the SIMT body's output tiles (BM, BN), as ``csrc/zo_matmul.cu``'s
+#: ``pick_tile`` indexes them
+SIMT_TILES = ((256, 128), (128, 128), (128, 64), (64, 64))
+
+
+def simt_tile(m: int, n: int, lanes: int = 1, sms: int = 0):
+    """(BM, BN) of the tile the SIMT body takes for ``m`` x ``n`` outputs
+    a lane on ``lanes`` lanes over ``sms`` SMs (0: the current card's);
+    builds the kernels on first use."""
+    i = library().repro_zo_matmul_simt_tile(m, n, lanes, sms)
+    if i < 0:
+        raise ValueError(f"no SIMT tile for m {m}, n {n}, lanes {lanes}, "
+                         f"sms {sms}")
+    return SIMT_TILES[i]
 
 
 def _base(seed, salt: int, prehashed: bool) -> int:

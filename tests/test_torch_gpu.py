@@ -875,6 +875,164 @@ def test_flash_attention_tensor_core_body_head_dims(cuda, hd, causal):
 
 
 # ---------------------------------------------------------------------------
+# the SIMT bodies (f32 x, or Gaussian z; f32 attention): edges, the tile
+# the launcher picks, head dims
+
+SIMT_ARMS = [("float32", "rademacher"), ("float32", "gaussian"),
+             ("bfloat16", "gaussian")]
+
+
+def _simt_operands(kernel, m, k, n, dtype, cuda, seed=0):
+    """x ((2, M, K) for a users entry point), w or int8 q with its scale,
+    from a seeded generator."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    lead = (2,) if kernel.startswith("zo_matmul_users") else ()
+    x = torch.randn(lead + (m, k), generator=gen, device=cuda).to(dt)
+    if kernel.endswith("_q"):
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        scale = 2.0 ** torch.randint(-12, -6, (n,), generator=gen,
+                                     device=cuda).float()
+    else:
+        w = (torch.randn((k, n), generator=gen, device=cuda) * 0.02).to(dt)
+        scale = None
+    return x, w, scale
+
+
+def _simt_call(kernel, x, w, scale, dist, ref=False):
+    salt = rng.leaf_salt("blocks/mlp/w_in/w")
+    if kernel.startswith("zo_matmul_users"):
+        fn = zp.zo_matmul_users_ref if ref else ops.zo_matmul_users
+        return fn(x, w, U_SEEDS[:2], salt, U_COEFFS[:2], dist, scale=scale)
+    if ref:
+        return (zp.zo_matmul_ref(x, w, 11, salt, 1e-3, dist) if scale is None
+                else zp.zo_matmul_q_ref(x, w, scale, 11, salt, 1e-3, dist))
+    return ops.zo_matmul(x, w, 11, salt, 1e-3, dist, scale=scale)
+
+
+@pytest.mark.parametrize("mkn", [(1, 64, 64), (37, 33, 50), (64, 64, 2),
+                                 (3, 32, 50272), (129, 257, 65),
+                                 (300, 100, 130)], ids=str)
+@pytest.mark.parametrize("dtype,dist", SIMT_ARMS)
+@pytest.mark.parametrize("kernel", ["zo_matmul", "zo_matmul_q",
+                                    "zo_matmul_users", "zo_matmul_users_q"])
+def test_zo_matmul_simt_edges_match_plain(cuda, kernel, dtype, dist, mkn):
+    """The SIMT body at every entry point, f32 and Gaussian, against its
+    plain version at M 1, K 33, N 2, N 50272 and M, N, K off every tile
+    multiple, within the kernels' limits; each launch on the SIMT body."""
+    m, k, n = mkn
+    x, w, scale = _simt_operands(kernel, m, k, n, dtype, cuda)
+    before = build.BODIES[f"{kernel}/simt"]
+    got = _simt_call(kernel, x, w, scale, dist)
+    assert build.BODIES[f"{kernel}/simt"] == before + 1
+    want = _simt_call(kernel, x, w, scale, dist, ref=True)
+    assert got.dtype == x.dtype and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err <= MM_RTOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype,dist", SIMT_ARMS)
+@pytest.mark.parametrize("kernel", ["zo_matmul", "zo_matmul_q"])
+def test_zo_matmul_simt_bits_do_not_depend_on_the_tile(cuda, kernel, dtype,
+                                                      dist):
+    """Rows [:m'] of a product equal the product of X[:m'], and columns
+    [:n'] that of W[:, :n'] (and the scales' [:n']), at atol 0, where the
+    launcher picks three different tiles for the whole and the parts."""
+    m, k, n = 1024, 256, 4096
+    x, w, scale = _simt_operands(kernel, m, k, n, dtype, cuda, seed=1)
+    full = _simt_call(kernel, x, w, scale, dist)
+    tiles = {zp.simt_tile(m, n)}
+    for mp in (1, 100, 700):
+        tiles.add(zp.simt_tile(mp, n))
+        part = _simt_call(kernel, x[:mp].contiguous(), w, scale, dist)
+        assert torch.equal(full[:mp], part), mp
+    for np_ in (2, 130, 1000):
+        tiles.add(zp.simt_tile(m, np_))
+        part = _simt_call(kernel, x, w[:, :np_].contiguous(),
+                          None if scale is None else scale[:np_].contiguous(),
+                          dist)
+        assert torch.equal(full[:, :np_], part), np_
+    assert len(tiles) >= 3, tiles
+
+
+@pytest.mark.parametrize("dtype,dist", SIMT_ARMS)
+@pytest.mark.parametrize("weight", ["shared", "int8"])
+def test_zo_matmul_simt_lane_equals_a_lone_launch_across_tiles(
+        cuda, weight, dtype, dist):
+    """4 lanes of (1024, 128) @ (128, 1024) take another tile than a lone
+    launch of one lane; every lane equals its lone launch at atol 0."""
+    kernel = "zo_matmul" if weight == "shared" else "zo_matmul_q"
+    _, w, scale = _simt_operands(kernel, 1024, 128, 1024, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((4, 1024, 128), generator=gen, device=cuda).to(
+        getattr(torch, dtype))
+    assert zp.simt_tile(1024, 1024, 4) != zp.simt_tile(1024, 1024, 1)
+    salt = rng.leaf_salt("lm_head/w")
+    got = ops.zo_matmul_users(x, w, U_SEEDS, salt, U_COEFFS, dist,
+                              scale=scale)
+    for i in range(4):
+        lone = ops.zo_matmul(x[i].contiguous(), w, U_SEEDS[i], salt,
+                             U_COEFFS[i], dist, scale=scale)
+        assert torch.equal(got[i], lone), i
+
+
+# the tiles csrc/zo_matmul.cu's pick_tile gives a 132-SM card
+# (tests/test_torch_zo_matmul_tile.py models it on the CPU)
+SIMT_PATH_TILES = {(1024, 1024, 1): (128, 64), (1024, 4096, 1): (256, 128),
+                   (8, 2, 1): (64, 64), (1024, 8192, 1): (256, 128),
+                   (1024, 50272, 1): (256, 128), (1024, 1024, 4): (256, 128)}
+
+
+@pytest.mark.parametrize("shape", sorted(SIMT_PATH_TILES), ids=str)
+def test_zo_matmul_simt_tile_choice(cuda, shape):
+    m, n, lanes = shape
+    assert zp.simt_tile(m, n, lanes, 132) == SIMT_PATH_TILES[shape]
+    assert zp.simt_tile(m, n, lanes) in zp.SIMT_TILES
+
+
+@pytest.mark.parametrize("st", [(100, 100), (70, 130), (129, 64), (1, 65),
+                                (128, 128)], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
+def test_flash_attention_simt_head_dims_gqa_ragged(cuda, hd, causal, st):
+    """f32 at every head dim, GQA 8 over 2, ragged S and T (S past T and
+    T past S, one row): the SIMT body within 2e-5 of the plain version,
+    two calls bit-equal."""
+    from repro_torch.kernels import flash_attention as fa
+    s, t = st
+    gen = torch.Generator(device=cuda).manual_seed(hd + s)
+    q = torch.randn((2, s, 8, hd), generator=gen, device=cuda)
+    k = torch.randn((2, t, 2, hd), generator=gen, device=cuda)
+    v = torch.randn((2, t, 2, hd), generator=gen, device=cuda)
+    before = build.BODIES["flash_attention/simt"]
+    got = ops.flash_attention(q, k, v, causal)
+    assert build.BODIES["flash_attention/simt"] == before + 1
+    want = fa.flash_attention_ref(q, k, v, causal)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    assert torch.equal(ops.flash_attention(q, k, v, causal), got)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
+def test_flash_attention_simt_at_training_scale(cuda, hd, causal):
+    """f32 at B 8 x 128, 32 heads over 8 KV heads: 512 blocks, two an SM
+    where shared memory allows, causal warps skipping the tiles above
+    their rows while others still read them: within 2e-5 of the plain
+    version, two calls bit-equal."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((8, 128, 32, hd), generator=gen, device=cuda)
+    k = torch.randn((8, 128, 8, hd), generator=gen, device=cuda)
+    v = torch.randn((8, 128, 8, hd), generator=gen, device=cuda)
+    got = ops.flash_attention(q, k, v, causal)
+    torch.testing.assert_close(got, fa.flash_attention_ref(q, k, v, causal),
+                               rtol=0, atol=2e-5)
+    assert torch.equal(ops.flash_attention(q, k, v, causal), got)
+
+
+# ---------------------------------------------------------------------------
 # the zo_add family's grid-stride stream: odometer edges and large lanes
 
 
