@@ -43,11 +43,21 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
    (the rows timed since the first port), at the serving admission's B 1
    prefill and a decode at positions up to 2047 (``ATTN_TIMED``), with
    the page gather + SDPA in one graph beside the pre-gathered
-   yardstick, as context; ``flash_decode`` also at kimi-k2's heads
-   (``KIMI_DECODE_TIMED``). ``flash_attention`` is also checked at B 8 x
+   yardstick, as context. ``flash_decode`` takes its split route at
+   every G >= 2 layout and its slot route at G = 1: both held at every
+   ``REAL_HEADS`` layout, f32 and bf16, B 8 at short positions and up to
+   2047 with a slot at 0 and at chunk edges, pages 16 and 64
+   (``DECODE_SPLIT_CHECKED``): the limits, two calls bit-equal, NaN where
+   no row reads leaving the output bit-equal, each slot alone (B 1)
+   bit-equal to its row at B 8; timed at every G >= 2 layout, short and
+   long (``GQA_DECODE_TIMED``); the tensor-core body (bf16, G 8-16) is
+   also held to the split model with P rounded as it rounds it
+   (``SPLIT_TC_RTOL``, ``SPLIT_TC_ATOL``);
+   ``flash_prefill`` and ``flash_verify`` timed once at every
+   ``REAL_HEADS`` layout. ``flash_attention`` is also checked at B 8 x
    128 at every ``REAL_HEADS`` layout and at whisper-base's encoder (B 8
-   x 1500), and timed at kimi-k2's heads (B 8 x 128, causal);
-   ``zo_matmul`` at jamba's ``x_proj`` (N 288) and whisper's
+   x 1500), and timed at every ``REAL_HEADS`` layout (B 8 x 128,
+   causal); ``zo_matmul`` at jamba's ``x_proj`` (N 288) and whisper's
    width (512), against their plain versions at the same limits.
 4. serving: ``repro_torch.launch.serve.run`` on full-width, 24-layer
    OPT-1.3B (bf16, random weights from a seed), paged KV with page size 16
@@ -59,6 +69,17 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
 5. profile: a shorter run of the same path (4 requests, 16 new tokens)
    under ``torch.profiler``: the device's busy share of the serving wall
    time and the kernels that take the most device time.
+G1. gemma-2b at full width and depth (18 layers, 8 heads over 1 KV head
+   of 256, bf16, random weights from seed 0) through the serve CLI's
+   engine with phase 4's mix (8 greedy requests of 96 + 32 tokens, 4
+   slots, page 16, chunks of 32, the base model): every ``flash_decode``
+   launch on the split route; the tokens held to the port's reference
+   loop ``serve()`` (dense cache, token by token, no paged kernel), each
+   request's first differing position recorded; every one of the 8 x 32
+   steps' logits held to the dense decode_step's on the engine's own
+   tokens (teacher-forced) within ``G1_LOGITS_ATOL``, each picked
+   token a near-tie there at worst; decode tok/s and TTFT; a profiled window of 8
+   decode steps: busy share and ``flash_decode``'s device time.
 S1. phase 4's requests with ``--spec-k 3`` (the base drafts through
    ``flash_decode``, each user's weights verify through ``flash_verify``):
    tokens held to phase 4's under the near-tie rule of
@@ -225,8 +246,9 @@ kernel and, for the two-body kernels, by body (``ops.BODIES``): T1-T4,
 R1, Q1, U1, U3, UF1-UF4, FL1, ST1 and SH2 must run every ``zo_matmul*`` /
 ``flash_attention``
 launch on the body the dtype picks (bf16: tensor cores, f32: SIMT), and
-the bf16 serving paths (phase 4, Q3, S1-S4) every ``flash_prefill`` and
-``flash_verify`` launch on its tensor-core body. Any
+the bf16 serving paths (phase 4, Q3, S1-S4, G1) every ``flash_prefill``
+and ``flash_verify`` launch on its tensor-core body; ``flash_decode`` is
+counted by route too (``flash_decode/slot``, ``flash_decode/split``). Any
 failed check exits non-zero before the final line. Imports nothing of JAX
 and nothing of the JAX package.
 """
@@ -256,7 +278,25 @@ INSTR_RATE = PEAK_FLOPS["f32"] / 2
 ZO_GAUSS_ATOL = 1e-6     # f32 z: last ulps of logf/cosf only (no FMA)
 ATTN_BF16_ATOL = 2e-2    # bf16 out: the plain version rounds probs to bf16
 ATTN_F32_ATOL = 2e-5     # f32 out: summation order only
+# flash_decode's tensor-core split body (bf16, G 8-16) against its own
+# model (paged_attn_split_ref with P rounded to bf16): |out - model| <=
+# SPLIT_TC_RTOL |model| + SPLIT_TC_ATOL[case]. The relative part is the
+# output's rounding to bf16 (2^-8 of it at most); the absolute part is P
+# rounded at the running max of each 16-key slice where the model rounds
+# at the chunk's max, noise that averages down over more keys: measured
+# at most 1.64e-3 over the short cases and 3.9e-4 over the long ones
+# (NVIDIA H100 80GB HBM3, 700 W), limits 2.4x and 2.6x that. At long
+# positions an output of N(0, 1) data is ~0.03, so 2e-2 against
+# paged_attn_ref alone would pass a body that drops or misweighs part of
+# a chunk
+SPLIT_TC_RTOL = 2 ** -8
+SPLIT_TC_ATOL = {"short": 4e-3, "long": 1e-3}
 LOGITS_BF16_ATOL = 0.15  # 24 bf16 layers, chunked kernels vs dense plain
+# G1: every logit of gemma-2b's 8 x 32 served steps (18 bf16 layers, a
+# 256000-word vocabulary whose largest logits lie at 16-32, where a bf16
+# step is 0.125) against the dense decode_step's on the same tokens:
+# measured at most 0.1875 (NVIDIA H100 80GB HBM3, 700 W), limit 1.33x
+G1_LOGITS_ATOL = 0.25
 ZO_MM_F32_RTOL = 2e-5    # max|d| / max|Y|, f32 out: summation order only
 ZO_MM_BF16_RTOL = 1e-2   # bf16 out: one rounding of Y (2^-8 relative)
 OPT_FUSED_ATOL = 2e-2    # bf16: also the rounding of W' the materialized
@@ -704,9 +744,17 @@ def _attn_rows(name):
 REAL_HEADS = {"gemma-2b": (8, 1, 256), "qwen3-4b pixtral jamba": (32, 8, 128),
               "chatglm3 glm4": (32, 2, 128), "granite-moe": (16, 8, 64),
               "whisper-base": (8, 8, 64), "kimi-k2": (64, 8, 112)}
-# flash_decode timed at kimi-k2's heads (the B 4 positions of ATTN_TIMED)
-KIMI_DECODE_TIMED = ("flash_decode", "kimi B 4", [95, 110, 127, 40], 8,
-                     REAL_HEADS["kimi-k2"])
+# flash_decode timed at every G >= 2 REAL_HEADS layout (its split route),
+# bf16, page 16: the B 4 positions of ATTN_TIMED ("short"; kimi-k2's is
+# the row timed since head dim 112 was added) and its long context
+GQA_DECODE_TIMED = (("short", [95, 110, 127, 40], 8),
+                    ("long", [2047, 1640, 1480, 1030], 128))
+# the split route's checks: B 8 (each slot also alone, at B 1), the
+# serving path's short positions and a long context with a slot at 0 and
+# at chunk edges, at pages 16 and 64 (table widths at page 16)
+DECODE_SPLIT_CHECKED = {"short": ([95, 110, 127, 40, 0, 63, 64, 17], 8),
+                        "long": ([2047, 1640, 1480, 1030, 0, 511, 1024,
+                                  2000], 128)}
 
 
 def _check_paged_case(torch, name, ps, pos, n_live16, h, kvh, hd, dt, tol,
@@ -792,13 +840,13 @@ def check_paged_attention(torch):
 
 
 def time_paged_attention(torch, name, pos, n_live, checked=True,
-                         heads=(32, 32, 64)):
+                         heads=(32, 32, 64), context=True):
     """One ATTN_TIMED case in bf16 at ``heads`` (H, KV, hd; OPT-1.3B's by
     default): the kernel, its plain version, every
     SDPA backend over K/V gathered to logical order beforehand (the
-    yardstick, as for every other attention row) and, as context only,
-    every backend with the page gather and transposes inside the timed
-    graph. ``checked``:
+    yardstick, as for every other attention row) and, as context only
+    (``context``), every backend with the page gather and transposes
+    inside the timed graph. ``checked``:
     the kernel's output is held to the plain version's first (off only
     for a deliberately patched tree, ``scripts/paged_attn_ablation.py``)."""
     import torch.nn.functional as F
@@ -838,8 +886,8 @@ def time_paged_attention(torch, name, pos, n_live, checked=True,
 
     library = sdpa_backends(torch, lambda: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask, enable_gqa=kvh != h))
-    context = {f"gather_{n}": e for n, e in
-               sdpa_backends(torch, gathered).items()}
+    context = ({f"gather_{n}": e for n, e in
+                sdpa_backends(torch, gathered).items()} if context else {})
     times = time_interleaved(torch, {"kernel": lambda: kern(
         q, k, v, pages, pos_t), **library, **context})
     ms = times.pop("kernel")
@@ -872,13 +920,118 @@ def kernel_attention(torch, results):
                 "cases": {}}
         results[name]["cases"][label] = {k: row[k] for k in (
             "ms", "library_ms", "library", "bound_ms", "plain_ms")}
-    # flash_decode at kimi-k2's heads (64 of 112 over 8 KV heads)
-    name, label, pos, n_live, heads = KIMI_DECODE_TIMED
-    row = time_paged_attention(torch, name, pos, n_live, heads=heads)
-    print(json.dumps({"phase": "kernel", "name": name, "case": label, **row,
-                      "tolerance": ATTN_BF16_ATOL}), flush=True)
-    results[name]["cases"][label] = {k: row[k] for k in (
-        "ms", "library_ms", "library", "bound_ms", "plain_ms")}
+    # flash_decode at every G >= 2 layout (the split route), flash_prefill
+    # at every layout
+    split_errs = check_decode_split(torch)
+    for arch, heads in REAL_HEADS.items():
+        cases = [("flash_prefill", f"{arch} B 4", *ATTN_TIMED[2][2:])]
+        if heads[0] != heads[1]:
+            cases = [("flash_decode", f"{arch} {label}", pos, n_live)
+                     for label, pos, n_live in GQA_DECODE_TIMED] + cases
+        for name, label, pos, n_live in cases:
+            row = time_paged_attention(torch, name, pos, n_live, heads=heads,
+                                       context=False)
+            print(json.dumps({"phase": "kernel", "name": name, "case": label,
+                              **row, "tolerance": ATTN_BF16_ATOL}),
+                  flush=True)
+            results[name]["cases"][label] = {k: row[k] for k in (
+                "ms", "library_ms", "library", "bound_ms", "plain_ms")}
+    results["flash_decode"]["max_abs_err"] = max(
+        results["flash_decode"]["max_abs_err"],
+        *[e for (_, d), e in split_errs.items() if d == "bfloat16"])
+
+
+def check_decode_split(torch):
+    """``flash_decode`` at every REAL_HEADS layout (G >= 2: the split
+    route, its tensor-core body for bf16 at G 8-16; G = 1: the slot
+    route; as ``build.BODIES`` counts) against its
+    plain version, f32 and bf16, DECODE_SPLIT_CHECKED's B 8 cases at
+    pages 16 and 64: within the attention limits, finite, two calls
+    bit-equal, NaN in the trash page and past each slot's position
+    leaving the output bit-equal, and each slot alone (B 1) bit-equal to
+    its row at B 8. Returns the worst error by (layout, dtype)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_decode as fd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    errs: dict = {}
+    tc_model: dict = {}             # label: (max |err|, max excess)
+    for arch, (h, kvh, hd) in REAL_HEADS.items():
+        route = "slot" if h == kvh else "split"
+        for case, (pos, n_live16) in DECODE_SPLIT_CHECKED.items():
+            for ps in (16, 64):
+                n_live = n_live16 * 16 // ps
+                k0, v0, pages, pos_t = _paged_case(torch, len(pos), ps, kvh,
+                                                   hd, n_live, pos, 1e4)
+                q0 = torch.randn((len(pos), h, hd), generator=gen,
+                                 device=dev)
+                for dt, tol in ((torch.float32, ATTN_F32_ATOL),
+                                (torch.bfloat16, ATTN_BF16_ATOL)):
+                    q, k, v = q0.to(dt), k0.clone().to(dt), v0.clone().to(dt)
+                    d = str(dt).split(".")[-1]
+                    label = (f"flash_decode {arch} {d} {case} page {ps}")
+                    tc = dt == torch.bfloat16 and 8 <= h // kvh <= 16
+                    before = dict(build.BODIES)
+                    got = fd.flash_decode(q, k, v, pages, pos_t)
+                    moved = {r: build.BODIES[f"flash_decode/{r}"] - before[
+                        f"flash_decode/{r}"] for r in ("slot", "split",
+                                                       "split_tc")}
+                    check(moved == {"slot": route == "slot",
+                                    "split": route == "split",
+                                    "split_tc": tc},
+                          f"{label}: routes {moved}, expected {route}"
+                          f"{' on tensor cores' if tc else ''}")
+                    want = fd.paged_attn_ref(q, k, v, pages, pos_t)
+                    err = (got.float() - want.float()).abs().max().item()
+                    check(err <= tol and torch.isfinite(got).all().item(),
+                          f"{label}: max err {err} > {tol}")
+                    check(torch.equal(fd.flash_decode(q, k, v, pages, pos_t),
+                                      got), f"{label}: two calls differ")
+                    if tc:          # its own model: P rounded as it rounds
+                        model = fd.paged_attn_split_ref(q, k, v, pages, pos_t,
+                                                        round_p=True)
+                        diff = (got.float() - model).abs()
+                        over = (diff - SPLIT_TC_RTOL * model.abs()).max()
+                        tc_model[label] = (diff.max().item(), over.item(),
+                                           SPLIT_TC_ATOL[case])
+                    for i in range(len(pos)):
+                        one = fd.flash_decode(
+                            q[i:i + 1].contiguous(), k, v,
+                            pages[i:i + 1].contiguous(),
+                            pos_t[i:i + 1].contiguous())
+                        check(torch.equal(one[0], got[i]),
+                              f"{label}: slot {i} alone differs from B 8")
+                    _poison_unread(k, v, pages, pos)
+                    check(torch.equal(fd.flash_decode(q, k, v, pages, pos_t),
+                                      got),
+                          f"{label}: NaN where no row reads reached the "
+                          f"output")
+                    key = (arch, d)
+                    errs[key] = max(errs.get(key, 0.0), err)
+                del k0, v0, q0, k, v, q
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "kernel checks", "name": "flash_decode routes",
+                      "cases": DECODE_SPLIT_CHECKED, "page_sizes": [16, 64],
+                      "real_heads": REAL_HEADS,
+                      "max_abs_err": {f"{a} {d}": e
+                                      for (a, d), e in errs.items()},
+                      "batch_invariant": True, "two_calls_bit_equal": True,
+                      "tolerance_f32": ATTN_F32_ATOL,
+                      "tolerance": ATTN_BF16_ATOL,
+                      "tc_vs_rounded_model": {
+                          lb: {"max_abs_err": e, "max_excess": x}
+                          for lb, (e, x, _) in tc_model.items()},
+                      "tc_rtol": SPLIT_TC_RTOL,
+                      "tc_atol": SPLIT_TC_ATOL}), flush=True)
+    for lb, (e, x, atol) in tc_model.items():
+        check(x <= atol,
+              f"{lb}: the tensor-core body is {e} from its rounded model, "
+              f"{x} past {SPLIT_TC_RTOL} x |model| > {atol}")
+    n_tc = sum(8 <= h // kvh <= 16 for h, kvh, _ in REAL_HEADS.values())
+    check(len(tc_model) == n_tc * len(DECODE_SPLIT_CHECKED) * 2,
+          f"the tensor-core body was held to its model in {len(tc_model)} "
+          f"cases")
+    return errs
 
 
 def _mm_row(bf16, m, k, n, n_bytes, lanes, t, gauss=False):
@@ -1083,7 +1236,10 @@ def kernel_flash_attention(torch, results):
         ("ragged gqa causal", 3, 100, 8, 2, 16, True, torch.float32),
         ("ragged gqa bidirectional", 3, 100, 8, 2, 16, False,
          torch.bfloat16),
-        ("kimi causal", 8, 128, 64, 8, 112, True, torch.bfloat16)]
+        # the families' training shape (B 8 x 128, causal) at every
+        # REAL_HEADS layout
+        *[(f"{arch} causal", 8, 128, *heads, True, torch.bfloat16)
+          for arch, heads in REAL_HEADS.items()]]
     rows = []
     for label, b, s, h, kvh, hd, causal, dt in cases:
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
@@ -1554,7 +1710,16 @@ def kernel_flash_verify(torch, results):
           flush=True)
     results["flash_verify"] = {**{k: row[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")},
-        "max_abs_err": err}
+        "max_abs_err": err, "cases": {}}
+    for arch, heads in REAL_HEADS.items():       # once at every layout
+        row = time_paged_attention(torch, name, pos, n_live, heads=heads,
+                                   context=False)
+        print(json.dumps({"phase": "kernel", "name": name,
+                          "case": f"{arch} {case}", **row,
+                          "tolerance": ATTN_BF16_ATOL}), flush=True)
+        results["flash_verify"]["cases"][f"{arch} {case}"] = {
+            k: row[k] for k in ("ms", "library_ms", "library", "bound_ms",
+                                "plain_ms")}
 
 
 # ---------------------------------------------------------------------------
@@ -1751,6 +1916,204 @@ def profile_path(torch, paged_argv, phase="profile"):
     wall_us, by_name, n_events = _profiled(torch, engine.run)
     _profile_line(phase, wall_us, by_name, n_events, requests=4, gen=16,
                   decode_steps=engine.stats.decode_steps)
+
+
+# ---------------------------------------------------------------------------
+# G1: gemma-2b served at full width and depth (flash_decode's split route)
+
+GEMMA_ARGV = ["--arch", "gemma-2b", "--device", "cuda", "--slots", "4",
+              "--requests", "8", "--prompt-len", "96", "--gen", "32",
+              "--seed", "0", "--paged", "--page-size", "16",
+              "--prefill-chunk", "32"]
+
+
+def _engine_rows(torch, engine_mod, fn):
+    """Call ``fn()`` recording every logits row the engine picks a greedy
+    token from (the base model only): rows[(rid, j)] for generated token
+    j -- the first from the prefill's row, the rest from each decode
+    step's. Returns (fn's result, rows)."""
+    import dataclasses
+    rows, last = {}, {}
+    orig_build = engine_mod.build_model
+    orig_activate = engine_mod.ServeEngine._activate
+    orig_commit = engine_mod.ServeEngine._commit
+
+    def build(cfg):
+        model = orig_build(cfg)
+        step = model.decode_step
+
+        def call(*a, **kw):
+            lg, cache = step(*a, **kw)
+            last["lg"] = lg[:, -1].float().cpu()
+            return lg, cache
+        return dataclasses.replace(model, decode_step=call)
+
+    def activate(self, slot, req, logits_row, plen):
+        rows[(req.rid, 0)] = torch.from_numpy(logits_row.copy())
+        return orig_activate(self, slot, req, logits_row, plen)
+
+    def commit(self, slot, toks):
+        rows[(self._req[slot].rid, len(self._out[slot]))] = \
+            last["lg"][slot]
+        return orig_commit(self, slot, toks)
+
+    engine_mod.build_model = build
+    engine_mod.ServeEngine._activate = activate
+    engine_mod.ServeEngine._commit = commit
+    try:
+        return fn(), rows
+    finally:
+        engine_mod.build_model = orig_build
+        engine_mod.ServeEngine._activate = orig_activate
+        engine_mod.ServeEngine._commit = orig_commit
+
+
+def _teacher_forced(torch, serve_mod, cfg, params, prompts, tokens):
+    """The dense-cache decode_step (``serve()``'s loop, no paged kernel)
+    fed each request's prompt and then its served tokens: (B, gen, vocab)
+    f32 host logits, row j the one generated token j is picked from."""
+    import numpy as np
+    model = serve_mod.build_model(cfg)
+    seq = torch.as_tensor(np.concatenate([prompts, tokens], axis=1),
+                          dtype=torch.long, device="cuda")
+    plen, gen = prompts.shape[1], tokens.shape[1]
+    cache = model.init_cache(seq.shape[0], plen + gen, device="cuda")
+    out = []
+    with torch.no_grad():
+        for t in range(plen + gen - 1):
+            lg, cache = model.decode_step(params, cache, seq[:, t:t + 1], t)
+            if t >= plen - 1:
+                out.append(lg[:, -1].float().cpu())
+    return torch.stack(out, dim=1)
+
+
+def g1_gemma(torch, paths):
+    """G1: gemma-2b at its published widths and full depth (18 layers, 8
+    heads over 1 KV head of 256, bf16, random weights from seed 0)
+    through the serve CLI's engine with phase 4's mix: 8 greedy requests
+    of 96 + 32 tokens, 4 slots, page 16, chunks of 32, the base model
+    (no adapter). Every decode launch is on ``flash_decode``'s split
+    route. Its tokens are set beside the port's reference loop
+    ``serve()`` (token by token through the dense-cache decode_step: no
+    paged kernel, all 8 prompts in one batch): each request's first
+    differing position. Every step is held teacher-forced: the dense
+    decode_step fed the engine's own tokens gives, for each of the 8 x 32
+    generated tokens, logits the engine's are within G1_LOGITS_ATOL of,
+    and the served token lies within LOGITS_BF16_ATOL of its best (a
+    near-tie at worst). Then a profiled window of 8 decode steps on 4
+    slots: the device's busy share and ``flash_decode``'s device time."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import engine as engine_mod
+    label = "G1 gemma-2b serve"
+    args = serve_mod.build_parser().parse_args(GEMMA_ARGV)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    (engine, comps, dt), rows = _engine_rows(
+        torch, engine_mod, lambda: serve_mod.run(args))
+    torch.cuda.synchronize()
+    launches = _snapshot(ops)
+    paths[label] = launches
+    print(serve_mod.summary(args, engine, comps, dt), flush=True)
+    cfg = engine.cfg
+    check((cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+           cfg.dtype) == (18, 8, 1, 256, "bfloat16"),
+          f"{label}: not gemma-2b's published shape: {cfg}")
+    for name in ("flash_decode", "flash_prefill"):
+        check(launches[name] > 0, f"{label}: {name} was not launched")
+    check(launches["flash_decode/split"] == launches["flash_decode"]
+          == launches["flash_decode/split_tc"]
+          and launches["flash_decode/slot"] == 0,
+          f"{label}: flash_decode launches off the split route's "
+          f"tensor-core body: {launches['flash_decode/split_tc']} of "
+          f"{launches['flash_decode']}")
+    _check_paged_bodies(label, launches)
+    comps = sorted(comps, key=lambda c: c.rid)
+    check(len(comps) == 8, f"{label}: {len(comps)} completions, expected 8")
+    for comp in comps:
+        t = comp.tokens
+        check(t.shape == (args.gen,) and int(t.min()) >= 0
+              and int(t.max()) < cfg.vocab,
+              f"{label} rid {comp.rid}: bad tokens {t.tolist()}")
+    st = engine.stats
+    _phase_line(torch, label, dt, launches, arch=cfg.name,
+                decode_tok_s=st.decode_tps, prefill_tok_s=st.prefill_tps,
+                ttft_avg_s=st.ttft_s / len(comps),
+                decode_steps=st.decode_steps)
+
+    # the reference loop on the same base weights and prompts, free
+    # running: where each request first parts from it
+    prompts = np.stack([c.prompt for c in comps])
+    served = np.stack([c.tokens for c in comps])
+    params = engine.store.materialize(None)
+    t0 = time.perf_counter()
+    ref = serve_mod.serve(cfg, params, prompts, args.gen, device="cuda")
+    ref_s = time.perf_counter() - t0
+    first_diff = {}
+    for comp, r in zip(comps, ref):
+        ne = np.flatnonzero(comp.tokens != r)
+        if ne.size:
+            first_diff[comp.rid] = int(ne[0])
+    # every step, teacher-forced: the dense decode_step on the engine's
+    # own tokens; the engine's logits within G1_LOGITS_ATOL of its, and
+    # each served token a near-tie there at worst
+    dense = _teacher_forced(torch, serve_mod, cfg, params, prompts, served)
+    err = torch.zeros(len(comps), args.gen)
+    gap = torch.zeros(len(comps), args.gen)
+    for i, comp in enumerate(comps):
+        # up to its first difference a request's history is serve()'s
+        same = first_diff.get(comp.rid, args.gen - 1) + 1
+        check(np.array_equal(dense[i, :same].argmax(-1).numpy(),
+                             ref[i, :same]),
+              f"{label} rid {comp.rid}: the teacher-forced loop parts from "
+              f"serve() within its first {same} tokens")
+        for j in range(args.gen):
+            row, want = rows[(comp.rid, j)], dense[i, j]
+            check(int(row.argmax()) == int(comp.tokens[j]),
+                  f"{label} rid {comp.rid} token {j}: not the recorded "
+                  f"row's argmax")
+            err[i, j] = (row - want).abs().max()
+            gap[i, j] = want.max() - want[int(comp.tokens[j])]
+    print(json.dumps({"phase": "G1 tokens vs serve()",
+                      "identical_requests": len(comps) - len(first_diff),
+                      "requests": len(comps),
+                      "first_diff_position": {str(r): j for r, j in
+                                              first_diff.items()},
+                      "steps_held": err.numel(),
+                      "logits_max_abs_err": err.max().item(),
+                      "logits_max_abs_err_by_request": {
+                          str(c.rid): err[i].max().item()
+                          for i, c in enumerate(comps)},
+                      "logits_tolerance": G1_LOGITS_ATOL,
+                      "near_tie_max_gap": gap.max().item(),
+                      "tokens_not_dense_argmax": int((gap > 0).sum()),
+                      "tolerance": LOGITS_BF16_ATOL,
+                      "reference_seconds": ref_s}), flush=True)
+    check(err.max().item() <= G1_LOGITS_ATOL,
+          f"{label}: the engine's logits are {err.max().item()} from the "
+          f"dense decode_step's on its own tokens > {G1_LOGITS_ATOL}")
+    check(gap.max().item() <= LOGITS_BF16_ATOL,
+          f"{label}: a served token lies {gap.max().item()} under the "
+          f"dense decode_step's best > {LOGITS_BF16_ATOL}")
+
+    store = engine.store
+    del engine
+    torch.cuda.empty_cache()
+    wall_us, by_name = _profile_decode_window(
+        torch, "G1 profile decode", engine_mod, cfg, store,
+        list(prompts[:4]), steps=8, paged=True, page_size=16)
+    split_us = sum(us for n, us in by_name.items() if "flash_decode" in n)
+    check(any("flash_decode_split_tc_kernel" in n for n in by_name)
+          and any("flash_decode_merge_kernel" in n for n in by_name),
+          f"{label}: the profiled decode steps show no split-route kernel")
+    print(json.dumps({"phase": "G1 flash_decode device time",
+                      "decode_steps": 8, "layers": cfg.n_layers,
+                      "flash_decode_ms": split_us / 1e3,
+                      "flash_decode_ms_a_step": split_us / 8e3,
+                      "share_of_wall": split_us / wall_us}), flush=True)
+    del store, params, rows, dense
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3043,6 +3406,7 @@ def _profile_decode_window(torch, label, engine_mod, cfg, store, prompts,
                                                  for _ in range(steps)])
     _profile_line(label, wall_us, by_name, n_events, decode_steps=steps,
                   slots=len(prompts))
+    return wall_us, by_name
 
 
 def _family_argv(paged_argv, arch):
@@ -4730,6 +5094,8 @@ def main():
     profile_path(torch, paged_argv + ["--spec-k", str(SPEC_K)],
                  phase="S5 profile spec")
     torch.cuda.empty_cache()
+    # G1: gemma-2b served on flash_decode's split route
+    g1_gemma(torch, paths)
 
     # T1 + T4: the training CLI, then one profiled step
     tr, state, batch, t1_peak_gib = train_main_path(torch, paths)
@@ -4851,7 +5217,18 @@ def main():
                         **({"launches_by_body": {
                             b: sum(p[f"{name}/{b}"] for p in paths.values())
                             for b in ("tc", "simt")}}
-                           if f"{name}/tc" in ops.BODIES else {})})
+                           if f"{name}/tc" in ops.BODIES else {}),
+                        **({"launches_by_route": {
+                            r: sum(p[f"{name}/{r}"] for p in paths.values())
+                            for r in ("slot", "split")},
+                            "launches_split_tc": sum(p[f"{name}/split_tc"]
+                                            for p in paths.values()),
+                            "route_kernels": {
+                                "slot": ["flash_decode_kernel"],
+                                "split": ["flash_decode_split_kernel or "
+                                          "flash_decode_split_tc_kernel",
+                                          "flash_decode_merge_kernel"]}}
+                           if name == "flash_decode" else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,8 +3,9 @@
 // transposed), bf16 mma.sync.m16n8k16 with f32 accumulators, the SFU's
 // exp2 and bf16 packing. The PTX is sm_80's and runs unchanged on
 // sm_90a. Used by flash_attention.cu (tensor-core body), paged_tc.cuh
-// (flash_prefill.cu's and flash_verify.cu's tensor-core body) and
-// flash_decode.cu (cp.async ring).
+// (flash_prefill.cu's and flash_verify.cu's tensor-core body, and
+// flash_decode.cu's split route at bf16 G 8-16) and flash_decode.cu
+// (cp.async ring).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -166,16 +166,17 @@ __device__ void attend_row(const T* __restrict__ q_row,
 // Positions t0 .. t0 + TILE - 1 of one (slot, KV head)'s K and V into
 // shared rows ROW elements apart (kd, vd), by THREADS threads: position t
 // is row t % ps of physical page tbl[t / ps] (the slot's page-table row,
-// staged in shared memory), kb / vb point at the KV head's first element
-// of physical page 0, tok is the pool's position stride. Positions past
-// `last` are zero-filled and never read. The offsets come first, then
-// the copies: a cp.async is a barrier to the compiler, so a table read
-// between two copies would wait for each.
+// staged in shared memory from entry pg0 on: tbl[i] is logical page
+// pg0 + i), kb / vb point at the KV head's first element of physical
+// page 0, tok is the pool's position stride. Positions past `last` are
+// zero-filled and never read. The offsets come first, then the copies:
+// a cp.async is a barrier to the compiler, so a table read between two
+// copies would wait for each.
 template <typename T, int HD, int TILE, int ROW, int THREADS>
 __device__ __forceinline__ void gather_kv_tile(T* kd, T* vd, const T* kb,
                                                const T* vb, const int* tbl,
                                                int t0, int last, int ps,
-                                               int64_t tok) {
+                                               int64_t tok, int pg0 = 0) {
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // a chunk
   constexpr int kChunks = HD / kPer;                       // a row
   constexpr int kN = (TILE * kChunks + THREADS - 1) / THREADS;
@@ -189,7 +190,8 @@ __device__ __forceinline__ void gather_kv_tile(T* kd, T* vd, const T* kb,
     bytes[n] = i < TILE * kChunks && t <= last ? 16 : 0;
     if (bytes[n]) {
       const int pg = t / ps;
-      off[n] = (static_cast<int64_t>(tbl[pg]) * ps + (t - pg * ps)) * tok +
+      off[n] = (static_cast<int64_t>(tbl[pg - pg0]) * ps + (t - pg * ps)) *
+                   tok +
                (i % kChunks) * kPer;
     }
   }

@@ -2,7 +2,9 @@
 // head) over a paged KV pool, each row with its own causal limit.
 //
 // flash_prefill.cu (a C-token prompt chunk) and flash_verify.cu (a W-token
-// speculative verify window) run it: the two read the pool alike. q/out are
+// speculative verify window) run it: the two read the pool alike;
+// flash_decode.cu's split route runs its chunked mode (attend_block's
+// kChunks) for bf16 decode at G 8-16. q/out are
 // (B, C, H, hd); row r of the C * G rows of a (slot b, KV head kv) is offset
 // r / G at position pos[b] + r / G, head kv * G + r % G, and reads positions
 // 0 .. min(pos[b] + r / G, n_live * ps - 1) (earlier positions plus causal
@@ -49,6 +51,7 @@ constexpr int kSplit = 4;                // warps a block, one key slice each
 constexpr int kThreads = kSplit * 32;
 constexpr int kBKV = 64;                 // positions a tile
 constexpr int kSlice = kBKV / kSplit;    // keys a warp a tile (k16 of P V)
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 __host__ __device__ constexpr int row_stride() { return HD + 8; }  // 16 B pad
@@ -59,8 +62,16 @@ __host__ __device__ constexpr int smem_bytes() {   // + the page table
 
 // the body of a block: rows blockIdx.z * 16 .. + 15 of the C * G rows of
 // (slot blockIdx.x, KV head blockIdx.y); each .cu wraps it in a kernel of
-// its own name (flash_prefill_tc_kernel, flash_verify_tc_kernel)
-template <int HD>
+// its own name (flash_prefill_tc_kernel, flash_verify_tc_kernel).
+//
+// kChunks (flash_decode's split route, C = 1, G <= 16): the block is
+// chunk blockIdx.z of the slot's positions instead, t0 = blockIdx.z *
+// chunk .. min(pos, t0 + chunk - 1), every row reading exactly those
+// keys; it stages only the chunk's slice of the table row (read beside
+// pos) and writes the G rows' unnormalized partials to ws (B, KV,
+// n_chunks, G, HD + 2): O, then m (natural-log units), then l; a chunk
+// past pos writes the empty partial (O 0, m -1e30, l 0).
+template <int HD, bool kChunks = false>
 __device__ __forceinline__ void attend_block(const bf16* __restrict__ q,
                                              const bf16* __restrict__ k_pool,
                                              const bf16* __restrict__ v_pool,
@@ -68,7 +79,10 @@ __device__ __forceinline__ void attend_block(const bf16* __restrict__ q,
                                              const int32_t* __restrict__ pos,
                                              bf16* __restrict__ out, int c,
                                              int n_heads, int kvh, int ps,
-                                             int n_live, float scale) {
+                                             int n_live, float scale,
+                                             float* __restrict__ ws = nullptr,
+                                             int chunk = 0,
+                                             int n_chunks = 0) {
   constexpr int RS = row_stride<HD>();
   constexpr int CH = HD / 8;             // 16-byte chunks a row
   constexpr int DT = HD / 8;             // output n-tiles (hd)
@@ -77,23 +91,41 @@ __device__ __forceinline__ void attend_block(const bf16* __restrict__ q,
   bf16* ring = qs + kRows * RS;          // [2][K, V][kBKV][RS]
   int* tbl = reinterpret_cast<int*>(smem_raw + smem_bytes<HD>());
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int b = blockIdx.x, kv = blockIdx.y, r0 = blockIdx.z * kRows;
+  const int b = blockIdx.x, kv = blockIdx.y;
+  const int r0 = kChunks ? 0 : blockIdx.z * kRows;
   const int g_per = n_heads / kvh, rows = c * g_per;
+  const int t0 = kChunks ? blockIdx.z * chunk : 0;  // the block's first key
+  const int pg0 = t0 / ps;                          // its first page
+  const int n_tbl =
+      kChunks ? min(n_live - 1, (t0 + chunk - 1) / ps) - pg0 + 1 : n_live;
+  const int32_t* table = pages + static_cast<int64_t>(b) * n_live + pg0;
+  // the slot's page table (kChunks: the chunk's slice), read once beside
+  // pos (entries past the live pages are read but never used)
+  for (int i = threadIdx.x; i < n_tbl; i += kThreads) tbl[i] = table[i];
   const int p0 = pos[b], cap = n_live * ps - 1;
+  int t_end = 0;                                    // kChunks: last key
+  if constexpr (kChunks) {
+    if (t0 > min(p0, cap)) {    // past the slot's position: empty partial
+      constexpr int kPart = HD + 2;
+      float* dst = ws + ((static_cast<int64_t>(b) * kvh + kv) * n_chunks +
+                         blockIdx.z) * g_per * kPart;
+      for (int i = threadIdx.x; i < g_per * kPart; i += kThreads)
+        dst[i] = i % kPart == HD ? -1e30f : 0.0f;
+      return;
+    }
+    t_end = min(min(p0, cap), t0 + chunk - 1);
+  }
   // row r (of the C * G) reads positions <= lim(r); padding rows none
   auto lim = [&](int r) {
+    if constexpr (kChunks) return r < rows ? t_end : -1;
     return r < rows ? min(p0 + r / g_per, cap) : -1;
   };
   const int first_lim = lim(r0);
   const int last = lim(min(r0 + kRows, rows) - 1);   // the block's furthest
-  const int n_kt = last / kBKV + 1;
-  const int32_t* table = pages + static_cast<int64_t>(b) * n_live;
+  const int n_kt = (last - t0) / kBKV + 1;
   const int64_t tok = static_cast<int64_t>(kvh) * HD;  // position stride
   const bf16* kb = k_pool + kv * HD;
   const bf16* vb = v_pool + kv * HD;
-  // the slot's page table, read once beside pos (entries past the live
-  // pages are read but never used)
-  for (int i = threadIdx.x; i < n_live; i += kThreads) tbl[i] = table[i];
 
   // the block's 16 query rows: row r is (offset r / G, head kv * G + r % G)
   for (int i = threadIdx.x; i < kRows * CH; i += kThreads) {
@@ -109,7 +141,8 @@ __device__ __forceinline__ void attend_block(const bf16* __restrict__ q,
   auto stage = [&](int kt) {
     bf16* kd = ring + (kt % 2) * 2 * kBKV * RS;
     gather_kv_tile<bf16, HD, kBKV, RS, kThreads>(
-        kd, kd + kBKV * RS, kb, vb, tbl, kt * kBKV, last, ps, tok);
+        kd, kd + kBKV * RS, kb, vb, tbl, t0 + kt * kBKV, last, ps, tok,
+        pg0);
   };
   stage(0);
   cp_async_commit();
@@ -132,7 +165,7 @@ __device__ __forceinline__ void attend_block(const bf16* __restrict__ q,
     __syncthreads();
     const bf16* kt_s = ring + (kt % 2) * 2 * kBKV * RS + warp * kSlice * RS;
     const bf16* vt_s = kt_s + kBKV * RS;
-    const int s0 = kt * kBKV + warp * kSlice;      // this warp's first key
+    const int s0 = t0 + kt * kBKV + warp * kSlice;  // this warp's first key
 
     if (s0 <= last) {
       // S = Q K^T: 16 rows x 16 keys
@@ -252,6 +285,17 @@ __device__ __forceinline__ void attend_block(const bf16* __restrict__ q,
       const float* src = os + (w * kRows + r) * HD + col;
 #pragma unroll
       for (int e = 0; e < 8; ++e) y[e] = fmaf(wt, src[e], y[e]);
+    }
+    if constexpr (kChunks) {            // the row's partial, unnormalized
+      float* dst = ws + (((static_cast<int64_t>(b) * kvh + kv) * n_chunks +
+                          blockIdx.z) * g_per + gr) * (HD + 2);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[col + e] = y[e];
+      if (col == 0) {
+        dst[HD] = mm * kLn2;              // the exp2 domain's max, in nats
+        dst[HD + 1] = den;
+      }
+      continue;
     }
     const float inv = 1.0f / fmaxf(den, 1e-30f);
     uint4 packed;

@@ -13,8 +13,8 @@ the kernel's entry in :data:`LAUNCHES`, the count of launches a run can
 read back to show which kernels it went through. A kernel with two
 bodies (``zo_matmul`` and its three twins, ``flash_attention``,
 ``flash_prefill``, ``flash_verify``: bf16 tensor cores or the SIMT body,
-as the C side's ``*_body`` rule picks) also counts the body in
-:data:`BODIES`.
+as the C side's ``*_body`` rule picks; ``flash_decode``: the slot or the
+split route, by G) also counts the body in :data:`BODIES`.
 """
 
 from __future__ import annotations
@@ -44,11 +44,16 @@ LAUNCHES: Dict[str, int] = {"zo_add": 0, "flash_decode": 0,
                             "flash_verify": 0}
 
 #: launches of the two-body kernels by body: ``"<kernel>/tc"`` (bf16
-#: tensor cores) and ``"<kernel>/simt"``
-BODIES: Dict[str, int] = {f"{k}/{b}": 0 for k in (
+#: tensor cores) and ``"<kernel>/simt"``; ``flash_decode`` by route:
+#: ``"flash_decode/slot"`` (G = 1) and ``"flash_decode/split"`` (G >= 2),
+#: the split launches on the tensor-core body (bf16, G 8-16) also in
+#: ``"flash_decode/split_tc"``
+BODIES: Dict[str, int] = {**{f"{k}/{b}": 0 for k in (
     "zo_matmul", "zo_matmul_q", "zo_matmul_users", "zo_matmul_users_q",
     "flash_attention", "flash_prefill", "flash_verify")
-    for b in ("tc", "simt")}
+    for b in ("tc", "simt")},
+    "flash_decode/slot": 0, "flash_decode/split": 0,
+    "flash_decode/split_tc": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +64,8 @@ _SIGNATURES = {
                      _I, ctypes.c_float, _I, _I, _P),
     "repro_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, ctypes.c_float, _P),
+    "repro_flash_decode_split": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, ctypes.c_float, _P),
     "repro_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, ctypes.c_float, _P),
     "repro_flash_verify": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -92,6 +99,7 @@ _SIGNATURES = {
     "repro_flash_attention_body": (_I,),
     "repro_flash_prefill_body": (_I,),
     "repro_flash_verify_body": (_I,),
+    "repro_flash_decode_split_body": (_I, _I),
 }
 
 _lock = threading.Lock()
@@ -176,16 +184,16 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def launch(kernel: str, fn_name: str, *args, body: Optional[str] = None
-           ) -> None:
+def launch(kernel: str, fn_name: str, *args, body=None) -> None:
     """Call ``fn_name`` of the library; raise on a launch error, else
-    count one launch of ``kernel`` (and of its ``body``, if given)."""
+    count one launch of ``kernel`` (and of its ``body``, if given: a name
+    or a tuple of names)."""
     rc = getattr(library(), fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
     LAUNCHES[kernel] += 1
-    if body is not None:
-        BODIES[f"{kernel}/{body}"] += 1
+    for b in (body,) if isinstance(body, str) else body or ():
+        BODIES[f"{kernel}/{b}"] += 1
 
 
 def body(fn_name: str, *args) -> str:

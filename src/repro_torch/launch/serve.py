@@ -1,8 +1,10 @@
 """Serving launcher: thin CLI over the personalized serving subsystem.
 
 Port of the JAX package's ``launch/serve.py`` (the same flags, plus
-``--device``). It builds an engine, loads per-user ZO adapters from
-replay logs, serves a synthetic request mix and prints the summary line:
+``--device``). It keeps (a) :func:`serve`, the reference per-token
+generation loop the engine is held to, and (b) a CLI that builds an
+engine, loads per-user ZO adapters from replay logs, serves a synthetic
+request mix and prints the summary line:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \\
       --paged --page-size 16 --prefill-chunk 32 --spec-k 3 \\
@@ -27,6 +29,45 @@ from repro_torch.core import MezoConfig
 from repro_torch.models import build_model
 from repro_torch.models.transformer import resolve_device
 from repro_torch.serve import AdapterStore, Request, ServeEngine
+from repro_torch.serve.sampling import sample_topk, step_keys
+
+
+def serve(cfg, params, prompts, gen: int, greedy: bool = True,
+          topk: int = 8, seed: int = 0, device="cuda"):
+    """Reference per-token loop: prefill token by token through the
+    dense-cache ``decode_step``, then decode. No paged kernel and no
+    fused prefill runs here, so it is an oracle independent of the
+    engine's paths.
+
+    prompts: (B, P) int. Returns (B, gen) int32 tokens (numpy). Sampling
+    is seeded: one ``torch.Generator`` on ``device`` from ``seed``, and
+    each step draws a generator a slot from it (``step_keys``). Greedy
+    tokens equal the JAX loop's; sampled ones follow it in distribution
+    (torch's generators are not ``jax.random``'s)."""
+    device = resolve_device(device)
+    model = build_model(cfg)
+    prompts = np.asarray(prompts)
+    bsz, plen = prompts.shape
+    cache = model.init_cache(bsz, plen + gen, device=device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=device)
+    out = []
+    last = None
+    with torch.no_grad():
+        for t in range(plen + gen - 1):
+            if t < plen:
+                cur = toks[:, t:t + 1]
+            else:
+                cur = last
+                out.append(cur.cpu().numpy())
+            logits, cache = model.decode_step(params, cache, cur, t)
+            if greedy:
+                last = torch.argmax(logits[:, -1:, :], dim=-1)
+            else:
+                last = sample_topk(step_keys(generator, bsz),
+                                   logits[:, -1, :], topk)[:, None].long()
+    out.append(last.cpu().numpy())
+    return np.concatenate(out, axis=1)[:, :gen].astype(np.int32)
 
 
 # one representative arch per decode-capable family (the JAX CLI's)

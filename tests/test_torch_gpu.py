@@ -34,7 +34,12 @@ families: two MoE dispatches at granite-moe's layer shapes are
 bit-equal (with and without drops), reduced kimi-k2 (MoE with its shared
 expert) runs on the card within 1e-4 of the CPU, and the four attention
 kernels hold to their limits at the real configs' heads, KV heads and
-head dims (256 MQA, 128 in groups of 4 and 16, 64). Shards: ``zo_add``
+head dims (256 MQA, 128 in groups of 4 and 16, 64). ``flash_decode``
+takes the slot route at G = 1 (whose entry point refuses G >= 2) and
+the split route at G >= 2, where it holds to the same limits at every
+real layout, short and long, at pages 16 and 64, each slot's output
+bit-equal at B 1 and B 8, its tensor-core body also close to the split
+model that rounds P as it does. Shards: ``zo_add``
 at a shard's global offsets equals the whole leaf's launch sliced at
 atol 0, and ``zo_matmul``'s column- and row-parallel shards hold to its
 limits against the whole product.
@@ -184,6 +189,155 @@ def test_attention_kernels_match_plain(cuda, dtype, atol, kvh, g, hd, c, ps,
     assert torch.equal(fp.flash_prefill(q, k, v, pages, pos), got)
     if c == 1:
         assert torch.equal(fd.flash_decode(dq, k, v, pages, pos), got_d)
+
+
+# (heads, KV heads, head dim) of every config the card serves or trains
+# (chip_smoke.py's REAL_HEADS): gemma-2b, qwen3-4b / pixtral / jamba,
+# chatglm3 / glm4, granite-moe, whisper-base (G = 1), kimi-k2
+REAL_HEADS = [(8, 1, 256), (32, 8, 128), (32, 2, 128), (16, 8, 64),
+              (8, 8, 64), (64, 8, 112)]
+# B 8 positions: the serving path's short ragged slots and a long context
+# (up to 2047), with a slot at 0 and at chunk edges beside them
+DECODE_POS = {"short": (8, (95, 110, 127, 40, 0, 63, 64, 17)),
+              "long": (128, (2047, 1640, 1480, 1030, 0, 511, 1024, 2000))}
+
+
+def _decode_case(cuda, h, kvh, hd, dt, case, ps, seed=11):
+    """q (8, H, hd) and pools with a scrambled page table at page size
+    ``ps``; table width DECODE_POS[case]'s n_live at page 16; trash page
+    1e3. Returns q, k, v, pages, pos on the card."""
+    n_live16, pos = DECODE_POS[case]
+    n_live = n_live16 * 16 // ps
+    g = torch.Generator().manual_seed(seed)
+    b = len(pos)
+    n_pages = 1 + b * n_live + 3
+    q = torch.randn((b, h, hd), generator=g)
+    k = torch.randn((n_pages, ps, kvh, hd), generator=g)
+    v = torch.randn((n_pages, ps, kvh, hd), generator=g)
+    k[0], v[0] = 1e3, 1e3
+    perm = torch.randperm(n_pages - 1, generator=g) + 1
+    pages = torch.zeros((b, n_live), dtype=torch.int32)
+    for i, p in enumerate(pos):
+        live = 1 + p // ps
+        pages[i, :live] = perm[i * n_live:i * n_live + live].to(torch.int32)
+    pos = torch.tensor(pos, dtype=torch.int32)
+    return [t.to(cuda) for t in (q.to(dt), k.to(dt), v.to(dt), pages, pos)]
+
+
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("case", ["short", "long"])
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("h,kvh,hd", REAL_HEADS, ids=str)
+def test_flash_decode_real_heads_batch_invariant(cuda, h, kvh, hd, dtype,
+                                                 atol, case, ps):
+    """flash_decode at every real layout against its plain version: G >= 2
+    on the split route (bf16 at G 8-16 on its tensor-core body), G = 1 on
+    the slot route (as ``build.BODIES`` counts); two calls bit-equal; NaN in the trash page and past each
+    slot's position leaves the output bit-equal; each slot's output at
+    B 1 bit-equal to its row at B 8."""
+    q, k, v, pages, pos = _decode_case(cuda, h, kvh, hd, getattr(torch,
+                                                              dtype),
+                                       case, ps)
+    route = "slot" if h == kvh else "split"
+    tc = dtype == "bfloat16" and 8 <= h // kvh <= 16
+    before = dict(build.BODIES)
+    got = ops.paged_decode_attn(q, k, v, pages, pos)
+    assert build.BODIES[f"flash_decode/{route}"] == \
+        before[f"flash_decode/{route}"] + 1
+    assert build.BODIES["flash_decode/split_tc"] == \
+        before["flash_decode/split_tc"] + tc
+    want = fd.paged_attn_ref(q, k, v, pages, pos)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    assert torch.isfinite(got).all()
+    assert torch.equal(fd.flash_decode(q, k, v, pages, pos), got)
+    _poison_unread(k, v, pages, pos.tolist())
+    assert torch.equal(fd.flash_decode(q, k, v, pages, pos), got)
+    for i in range(q.shape[0]):
+        one = fd.flash_decode(q[i:i + 1].contiguous(), k, v,
+                              pages[i:i + 1].contiguous(),
+                              pos[i:i + 1].contiguous())
+        assert torch.equal(one[0], got[i]), f"slot {i}"
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("h,kvh,hd", [(32, 32, 64), (8, 8, 64),
+                                      (4, 4, 112), (2, 2, 256)], ids=str)
+def test_flash_decode_g1_is_the_slot_body(cuda, h, kvh, hd, dtype, atol):
+    """G = 1 decodes through the slot route's body, within its limit, and
+    only G = 1 does: the slot entry point refuses the same q over half the
+    KV heads (G = 2). Its bits against the parent's body are held by
+    ``scripts/paged_attn_times.py --g1-bits``."""
+    q, k, v, pages, pos = _decode_case(cuda, h, kvh, hd,
+                                       getattr(torch, dtype), "short", 16)
+    before = dict(build.BODIES)
+    got = fd.flash_decode(q, k, v, pages, pos)
+    assert build.BODIES["flash_decode/slot"] == \
+        before["flash_decode/slot"] + 1
+    assert build.BODIES["flash_decode/split"] == before["flash_decode/split"]
+    torch.testing.assert_close(got.float(),
+                               fd.paged_attn_ref(q, k, v, pages, pos).float(),
+                               rtol=0, atol=atol)
+    k2, v2 = k[:, :, :kvh // 2].contiguous(), v[:, :, :kvh // 2].contiguous()
+    out = torch.empty_like(q)
+    launches = build.LAUNCHES["flash_decode"]
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        build.launch("flash_decode", "repro_flash_decode", q.data_ptr(),
+                     k2.data_ptr(), v2.data_ptr(), pages.data_ptr(),
+                     pos.data_ptr(), out.data_ptr(), fd._DTYPES[q.dtype],
+                     q.shape[0], h, kvh // 2, hd, 16, pages.shape[1],
+                     hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+    assert build.LAUNCHES["flash_decode"] == launches
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("h,kvh,hd", [(8, 1, 256), (64, 8, 112),
+                                      (32, 2, 128), (2, 1, 16), (4, 1, 16),
+                                      (96, 3, 32)], ids=str)
+def test_flash_decode_split_empty_chunks_weigh_nothing(cuda, h, kvh, hd,
+                                                       dtype, atol):
+    """The split route holds to the plain version at G 2-32 (hd 16 and 32
+    too), and its empty chunks weigh nothing: a table 4x wider, its extra
+    chunks all past every slot's position, holds to the same limits."""
+    q, k, v, pages, pos = _decode_case(cuda, h, kvh, hd,
+                                       getattr(torch, dtype), "short", 16)
+    want = fd.paged_attn_ref(q, k, v, pages, pos).float()
+    torch.testing.assert_close(fd.flash_decode(q, k, v, pages, pos).float(),
+                               want, rtol=0, atol=atol)
+    wide = torch.zeros((pages.shape[0], 4 * pages.shape[1]),
+                       dtype=torch.int32, device=cuda)
+    wide[:, :pages.shape[1]] = pages
+    torch.testing.assert_close(fd.flash_decode(q, k, v, wide, pos).float(),
+                               want, rtol=0, atol=atol)
+
+
+# chip_smoke.py's limits for the tensor-core split body against its model
+# (the output's rounding; P rounded at each 16-key slice's running max
+# where the model rounds at the chunk's, noise that averages down over
+# more keys)
+SPLIT_TC_RTOL, SPLIT_TC_ATOL = 2 ** -8, {"short": 4e-3, "long": 1e-3}
+
+
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("case", ["short", "long"])
+@pytest.mark.parametrize("h,kvh,hd", [(8, 1, 256), (64, 8, 112),
+                                      (32, 2, 128)], ids=str)
+def test_flash_decode_split_tc_holds_to_its_rounded_model(cuda, h, kvh, hd,
+                                                          case, ps):
+    """bf16 at G 8-16 (the tensor-core split body) against the split model
+    with P rounded to bf16 for P V: within the output's rounding plus
+    SPLIT_TC_ATOL, far under the 2e-2 limit it also holds to the plain
+    version at (outputs of N(0, 1) data over ~1000 keys are ~0.03)."""
+    q, k, v, pages, pos = _decode_case(cuda, h, kvh, hd, torch.bfloat16,
+                                       case, ps)
+    before = build.BODIES["flash_decode/split_tc"]
+    got = fd.flash_decode(q, k, v, pages, pos).float()
+    assert build.BODIES["flash_decode/split_tc"] == before + 1
+    model = fd.paged_attn_split_ref(q, k, v, pages, pos, round_p=True)
+    over = (got - model).abs() - SPLIT_TC_RTOL * model.abs()
+    assert over.max().item() <= SPLIT_TC_ATOL[case]
 
 
 def test_attention_launchers_reject_what_they_do_not_take(cuda):

@@ -5,6 +5,10 @@ of ``decode_step`` (dense and paged) and ``prefill_chunk`` match the JAX
 package at atol 1e-5 (f32); adapter materialization matches at atol 0
 (Rademacher replay); the two ``ServeEngine``s emit identical greedy
 tokens; inside the port, paged == dense and chunked == whole-prompt.
+The port's reference loop ``serve()`` emits JAX's ``serve()`` greedy
+tokens exactly at reduced gemma-2b and OPT-1.3B, for a batch and for
+single prompts, and the port's engine emits the port's ``serve()``
+tokens.
 """
 
 import json
@@ -21,6 +25,7 @@ from repro.checkpoint import store as jstore  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.core import MezoConfig as JMezoConfig  # noqa: E402
 from repro.core.perturb import _path_str  # noqa: E402
+from repro.launch.serve import serve as j_serve  # noqa: E402
 from repro.models import build_model as j_build_model  # noqa: E402
 from repro.serve import AdapterStore as JAdapterStore  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
@@ -381,3 +386,78 @@ def test_adapter_store_files_and_lru_eviction(tmp_path, opt):
         st.materialize("nobody")
     with pytest.raises(ValueError):
         st.put("__base__", [])
+
+
+# ---------------------------------------------------------------------------
+# the reference per-token loop, serve()
+
+
+@pytest.fixture(scope="module")
+def crossed(tmp_path_factory):
+    """Reduced gemma-2b (MQA) and OPT-1.3B: JAX params and the same params
+    in the port, crossed through the checkpoint store."""
+    out = {}
+    for arch in ("gemma-2b", "opt-1.3b"):
+        jcfg = j_get_config(arch).reduced()
+        jparams = j_build_model(jcfg).init(jax.random.PRNGKey(0))
+        ckpt = str(tmp_path_factory.mktemp(arch))
+        jstore.save_params(ckpt, 1, jparams)
+        cfg = get_config(arch).reduced()
+        like = build_model(cfg).init(torch.Generator().manual_seed(0), CPU)
+        out[arch] = (jcfg, jparams, cfg, store.load_params(ckpt, 1, like))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "opt-1.3b"])
+def test_serve_loop_matches_jax_for_a_batch(crossed, arch):
+    """The JAX package's contract (tests/test_serve.py): greedy tokens of
+    the per-token loop, here the port's against JAX's, exactly."""
+    jcfg, jparams, cfg, params = crossed[arch]
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 9),
+                                                dtype=np.int32)
+    want = j_serve(jcfg, jparams, prompts, gen=6)
+    got = serve_cli.serve(cfg, params, prompts, gen=6, device=CPU)
+    assert got.dtype == np.int32 and got.shape == (2, 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "opt-1.3b"])
+def test_serve_loop_matches_jax_for_single_prompts(crossed, arch):
+    jcfg, jparams, cfg, params = crossed[arch]
+    for i, plen in enumerate((5, 9, 7)):
+        prompt = np.random.default_rng(10 + i).integers(
+            0, cfg.vocab, (1, plen), dtype=np.int32)
+        np.testing.assert_array_equal(
+            serve_cli.serve(cfg, params, prompt, gen=5, device=CPU),
+            np.asarray(j_serve(jcfg, jparams, prompt, gen=5)))
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged", "paged-chunked"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "opt-1.3b"])
+def test_engine_matches_serve_loop(crossed, arch, mode):
+    """The port's engine (fused or chunked prefill, dense or paged
+    decode, 2 slots for 4 requests) emits the port's serve() tokens."""
+    _, _, cfg, params = crossed[arch]
+    kw = {"dense": {}, "paged": dict(paged=True, page_size=4),
+          "paged-chunked": dict(paged=True, page_size=4,
+                                prefill_chunk=4)}[mode]
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (4, 9),
+                                                dtype=np.int32)
+    want = serve_cli.serve(cfg, params, prompts, gen=6, device=CPU)
+    eng = ServeEngine(cfg, AdapterStore(params, device=CPU), n_slots=2,
+                      max_len=15, seed=0, device=CPU, **kw)
+    rids = [eng.submit(Request(prompt=p, max_new=6)) for p in prompts]
+    outs = {c.rid: c.tokens for c in eng.run()}
+    np.testing.assert_array_equal(np.stack([outs[r] for r in rids]), want)
+
+
+def test_serve_loop_samples_seeded_in_support(crossed):
+    _, _, cfg, params = crossed["gemma-2b"]
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (2, 5),
+                                                dtype=np.int32)
+    a = serve_cli.serve(cfg, params, prompts, gen=4, greedy=False, topk=3,
+                        seed=7, device=CPU)
+    b = serve_cli.serve(cfg, params, prompts, gen=4, greedy=False, topk=3,
+                        seed=7, device=CPU)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (2, 4) and 0 <= a.min() and a.max() < cfg.vocab
