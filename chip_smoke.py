@@ -237,6 +237,31 @@ DR1. ``python -m repro_torch.launch.dryrun`` in a process a cell, started
    ``decode_32k`` and kimi-k2 ``train_4k`` on 256 fake ranks (16 x 16);
    each cell's per-device bytes and roofline terms on a line; fails if a
    cell fails or kimi-k2's parameters exceed 80 GB a device.
+EX1-EX3, the examples (``repro_torch.examples``) at full width, each
+phase printing its seconds, peak memory and launches by kernel and body,
+then running its example's ``main()`` at the reduced defaults with the
+example's own asserts:
+EX1. quickstart on OPT-1.3B (bf16, B 8 x 32, 4 of 100 steps an arm):
+   MeZO (the walk, K 8, attention on ``flash_attention``'s tensor-core
+   body) and Adam (autograd, plain attention): finite losses, step s,
+   peak memory, the train-state bytes beyond the parameters (0 and two
+   f32 moments + the count).
+EX2. finetune_sst2 on RoBERTa-large (f32, 16 x 32, K 8, the walk, 20 of
+   300 steps): accuracy before and after (not held), the replay log's
+   bytes beside the parameters', peak memory, ``flash_attention`` on its
+   SIMT body; the checkpoint (a snapshot + the log tail) restored within
+   ``EX2_DRIFT_ULPS`` of the live parameters (its ``main()`` is left to
+   the CPU tests).
+EX3. serve_personalized on gemma-2b (bf16): two users, 10 of 30
+   ``mezo-parallel`` steps each from the Trainer's seed-0 init on the
+   card, their logs imported by a fresh AdapterStore, materialized ==
+   trained at atol 0, the 6 interleaved requests (8 + 6 tokens) through
+   a dense engine of 2 slots, each user's tokens held to ``serve()`` on
+   its materialized parameters: every logits row the engine picked from
+   equal at atol 0 to its recipe outside the engine (each prompt
+   prefilled alone, then the dense decode_step, teacher-forced); beside
+   ``serve()``'s token-by-token rows and their f32 twins, the
+   differences and the near-tie gaps printed; one step profiled.
 Then one ``{"kernels": [...]}`` line (each kernel with its launches on
 every path above; each must have launched on one) and the final
 ``{"ok": true, ...}``.
@@ -1866,12 +1891,13 @@ def main_path(torch, paths):
 def _profiled(torch, fn):
     """Run ``fn`` under ``torch.profiler``: (wall us, device us by kernel
     name, device events). Kernels on one stream do not overlap, so their
-    durations add."""
+    durations add. Only the device is traced: CPU op events would slow
+    the window and take most of the time parsing the trace (3x on phase
+    5's window), and no reading uses them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1929,9 +1955,10 @@ GEMMA_ARGV = ["--arch", "gemma-2b", "--device", "cuda", "--slots", "4",
 
 def _engine_rows(torch, engine_mod, fn):
     """Call ``fn()`` recording every logits row the engine picks a greedy
-    token from (the base model only): rows[(rid, j)] for generated token
-    j -- the first from the prefill's row, the rest from each decode
-    step's. Returns (fn's result, rows)."""
+    token from: rows[(rid, j)] for generated token j -- the first from
+    the prefill's row, the rest from each decode step's (a slot's row
+    from the call that writes it: one call a step, or one an adapter
+    under a write mask). Returns (fn's result, rows)."""
     import dataclasses
     rows, last = {}, {}
     orig_build = engine_mod.build_model
@@ -1944,7 +1971,10 @@ def _engine_rows(torch, engine_mod, fn):
 
         def call(*a, **kw):
             lg, cache = step(*a, **kw)
-            last["lg"] = lg[:, -1].float().cpu()
+            mask = kw.get("write_mask")
+            for slot, row in enumerate(lg[:, -1].float().cpu()):
+                if mask is None or bool(mask[slot]):
+                    last[slot] = row
             return lg, cache
         return dataclasses.replace(model, decode_step=call)
 
@@ -1953,8 +1983,7 @@ def _engine_rows(torch, engine_mod, fn):
         return orig_activate(self, slot, req, logits_row, plen)
 
     def commit(self, slot, toks):
-        rows[(self._req[slot].rid, len(self._out[slot]))] = \
-            last["lg"][slot]
+        rows[(self._req[slot].rid, len(self._out[slot]))] = last[slot]
         return orig_commit(self, slot, toks)
 
     engine_mod.build_model = build
@@ -1984,6 +2013,39 @@ def _teacher_forced(torch, serve_mod, cfg, params, prompts, tokens):
             lg, cache = model.decode_step(params, cache, seq[:, t:t + 1], t)
             if t >= plen - 1:
                 out.append(lg[:, -1].float().cpu())
+    return torch.stack(out, dim=1)
+
+
+def _prefill_forced(torch, serve_mod, cfg, params, prompts, tokens):
+    """The serving engine's own recipe outside the engine: each prompt
+    prefilled alone (B = 1, as the engine admits a request) and its cache
+    installed into a batch cache, then the dense decode_step fed the
+    served tokens: (B, gen, vocab) f32 host logits, row j the one
+    generated token j is picked from."""
+    model = serve_mod.build_model(cfg)
+    plen, gen = prompts.shape[1], tokens.shape[1]
+    cache = model.init_cache(len(prompts), plen + gen, device="cuda")
+
+    def install(dst, src, i):
+        for name, leaf in dst.items():
+            if isinstance(leaf, dict):
+                install(leaf, src[name], i)
+            else:
+                leaf[:, i] = src[name][:, 0]
+    first = []
+    with torch.no_grad():
+        for i, prompt in enumerate(prompts):
+            one = model.init_cache(1, plen + gen, device="cuda")
+            lg, one = model.prefill(params, one, torch.as_tensor(
+                prompt[None], dtype=torch.long, device="cuda"))
+            install(cache, one, i)
+            first.append(lg[0, -1].float().cpu())
+        out = [torch.stack(first)]
+        seq = torch.as_tensor(tokens, dtype=torch.long, device="cuda")
+        for j in range(gen - 1):
+            lg, cache = model.decode_step(params, cache, seq[:, j:j + 1],
+                                          plen + j)
+            out.append(lg[:, -1].float().cpu())
     return torch.stack(out, dim=1)
 
 
@@ -4484,7 +4546,7 @@ def a1_adam(torch, paths, t1_peak_gib):
     Trainer step with compressed gradients; RoBERTa-large (f32):
     autograd's gradient projected on z against the fused SPSA gs over
     the same z and batch."""
-    from repro_torch.core import MezoConfig, add_scaled_z, engine, rng
+    from repro_torch.core import MezoConfig, dot_with_z, engine, rng
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_mod
@@ -4546,12 +4608,7 @@ def a1_adam(torch, paths, t1_peak_gib):
     rbatch = _first_batch(torch, rcfg, TRAIN_B, TRAIN_S)
     loss, grads = adam.value_and_grad(rmodel.loss, rparams, rbatch)
     seed = rng.fold_seed(2024, 0)
-    s0 = rng.fold_seed(seed, 0)          # direction 0's z
-    gz = 0.0
-    for k, p in rparams.items():
-        z = add_scaled_z({k: torch.zeros_like(p)}, s0, 1.0)[k]
-        gz += float((grads[k].double() * z.double()).sum())
-        del z
+    gz = float(dot_with_z(rparams, rng.fold_seed(seed, 0), grads))
     del grads
     gs = {eps: float(engine._eval_fused(
         rmodel.loss, rparams, rbatch, seed,
@@ -5041,6 +5098,312 @@ def dr1_finish(procs, t0, out_dir: Path):
                       "seconds": time.perf_counter() - t0}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# EX1-EX3: the examples (repro_torch.examples) at full width
+
+# the examples' step counts, cut from 100 (quickstart), 300 (finetune_sst2)
+# and 30 a user (serve_personalized) to fit the script's time
+EX1_STEPS, EX2_STEPS, EX3_STEPS = 4, 20, 10
+# EX2 restores the walk's run from its checkpoint (a snapshot + the log
+# tail replayed) against the live parameters. The walk is not pristine:
+# each step's K in-place +eps, -2 eps, +eps sweeps round three times and
+# the update once, each at most half an ulp of the leaf's largest value
+# (+ 2 eps) in f32, so a leaf may sit up to 2 ulps a direction from its
+# replay: 2 * steps * K * 2^-23 * (max |leaf| + 2 eps), per leaf
+EX2_DRIFT_ULPS = 2
+# EX3 holds every logits row the engine picked a token from, at atol 0,
+# to the engine's recipe run outside it (_prefill_forced: each prompt
+# prefilled alone, then the dense decode_step of that user's requests
+# fed the served tokens): a row from the wrong adapter, a write the mask
+# let through or a slot's cache mixed up changes its bits. Against the
+# reference loop serve(), which feeds the prompt token by token, the
+# rows are printed and not held: there a trained user's bf16 rows part
+# from the engine's from the first row on, by 0.03-0.47 after 4-10
+# steps, each of the two about as far from the f32 rows as the other
+# (measured on an NVIDIA H100 80GB HBM3, 700 W); the base's do not part
+
+
+def _quiet(_msg):
+    pass
+
+
+def ex1_quickstart(torch, paths):
+    """EX1: the quickstart's two arms at full-width OPT-1.3B (bf16, the
+    example's B 8 x 32 and hyperparameters, EX1_STEPS steps each): MeZO
+    (the walk; attention on ``flash_attention``'s tensor-core body) and
+    Adam (autograd, plain attention). Each arm's losses (finite), peak
+    memory and train-state bytes beyond the parameters (MeZO: the sgd
+    rule's empty state; Adam: two f32 moments and the count). Then the
+    example's ``main()`` at its reduced defaults on the card."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.kernels import ops
+    cfg = get_config("opt-1.3b")
+    # the seed-0 tree's bytes and its Adam moments', counted before the
+    # arms so that their peaks hold no extra moments
+    p_bytes, a_bytes = qs.state_memory(cfg, "cuda")
+    for opt in qs.OPTIMIZERS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        tr = qs.train_arm(cfg, opt, steps=EX1_STEPS, device="cuda",
+                          log_fn=_quiet)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        label = f"EX1 quickstart {opt}"
+        launches = paths[label] = _snapshot(ops)
+        beyond = (a_bytes if opt == "adam"
+                  else qs.state_bytes(tr.strategy.update.init_fn(tr.tcfg.mezo)))
+        check(len(tr.losses) == EX1_STEPS
+              and all(math.isfinite(x) for x in tr.losses),
+              f"{label}: losses {tr.losses}")
+        if opt == "mezo":
+            _check_tc(label, launches, ["flash_attention"])
+            check(launches["zo_add"] > 0, f"{label}: no zo_add launch")
+        else:
+            check(launches["flash_attention"] == 0 and launches["zo_add"] == 0,
+                  f"{label}: the gradient arm launched a ZO kernel")
+        _phase_line(torch, label, dt, launches, arch=cfg.name,
+                    dtype=cfg.dtype, steps=EX1_STEPS, example_steps=qs.STEPS,
+                    batch=qs.BATCH, seq=qs.SEQ, losses=tr.losses,
+                    step_s=dt / EX1_STEPS, param_bytes=p_bytes,
+                    state_bytes_beyond_params=beyond,
+                    resident_before_gib=resident / 2**30,
+                    arm_peak_gib=(torch.cuda.max_memory_allocated()
+                                  - resident) / 2**30)
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qs.main(["--device", "cuda"])
+    print(json.dumps({"phase": "EX1 quickstart main (reduced)",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def ex2_finetune_sst2(torch, paths):
+    """EX2: finetune_sst2 at full-width RoBERTa-large (f32, the example's
+    16 x 32 batches, 8 directions, the walk, snapshots every 100 steps)
+    for EX2_STEPS steps: accuracy before and after (printed, not held),
+    losses, the replay log's bytes against the parameters', peak memory,
+    every ``flash_attention`` launch on the SIMT body; the checkpoint
+    restored (snapshot + log tail) within EX2_DRIFT_ULPS of the live
+    parameters. The example's ``main()`` (300 reduced steps) is left to
+    the CPU tests: it took 17-37 s on the card."""
+    import gc
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.examples import finetune_sst2 as sst2
+    from repro_torch.kernels import ops
+    from repro_torch.serve.adapters import tree_bytes
+    label = "EX2 finetune_sst2"
+    cfg = get_config("roberta-large")
+    ckpt = WORK / "ex2_sst2"
+    tr = sst2.make_trainer(cfg, str(ckpt), steps=EX2_STEPS, device="cuda",
+                           log_fn=_quiet)
+    p0 = tr.init_params()
+    toks, labels = sst2.eval_set(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    acc0, acc1, params = sst2.finetune(tr, p0, toks, labels)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = paths[label] = _snapshot(ops)
+    check(cfg.dtype == "float32" and len(tr.losses) == EX2_STEPS
+          and all(math.isfinite(x) for x in tr.losses),
+          f"{label}: {cfg.dtype} losses {tr.losses}")
+    check(launches["flash_attention/simt"] > 0
+          and launches["flash_attention/tc"] == 0
+          and launches["zo_add"] > 0 and launches["zo_matmul"] == 0,
+          f"{label}: launches {launches}")
+    mcfg = tr.tcfg.mezo
+    _phase_line(torch, label, dt, launches, arch=cfg.name, dtype=cfg.dtype,
+                steps=EX2_STEPS, example_steps=sst2.STEPS,
+                directions=mcfg.n_directions, batch=sst2.BATCH, seq=sst2.SEQ,
+                losses=tr.losses, step_s=dt / EX2_STEPS, accuracy=[acc0, acc1],
+                replay_log_bytes=sst2.log_bytes(str(ckpt)),
+                param_bytes=tree_bytes(p0))
+    mgr = CheckpointManager(str(ckpt), mezo_cfg=mcfg,
+                            update_rule=tr.strategy.update)
+    like = tr.strategy.init_state(
+        {k: torch.empty_like(v) for k, v in params.items()}, mcfg)
+    restored, nxt = mgr.restore(like)
+    mgr.log.close()
+    check(nxt == EX2_STEPS, f"{label}: restore resumes at {nxt}")
+    worst, worst_err = 0.0, 0.0
+    for k, live in params.items():
+        limit = (EX2_DRIFT_ULPS * EX2_STEPS * mcfg.n_directions * 2.0 ** -23
+                 * (float(live.abs().max()) + 2 * mcfg.eps))
+        err = float((restored.params[k] - live).abs().max())
+        worst_err = max(worst_err, err)
+        worst = max(worst, err / limit)
+        check(err <= limit, f"{label}: restored {k} is {err} from the live "
+              f"parameters > {limit}")
+    print(json.dumps({"phase": f"{label} restore", "snapshot_every":
+                      sst2.SNAPSHOT_EVERY, "max_abs_err": worst_err,
+                      "max_err_over_limit": worst,
+                      "drift_ulps": EX2_DRIFT_ULPS}), flush=True)
+    del tr, p0, params, restored, like
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def ex3_personalized(torch, paths):
+    """EX3: serve_personalized at full-width gemma-2b (bf16): two users
+    fine-tuned by ``mezo-parallel`` (vmapdir) for EX3_STEPS steps each
+    from the Trainer's seed-0 init on the card, checkpointed; a fresh
+    AdapterStore over that base imports both logs, each user's
+    materialized parameters equal its trained ones at atol 0; a dense
+    engine of 2 slots serves the 6 interleaved requests (8 + 6 tokens).
+    Every logits row the engine picked a token from equals, at atol 0,
+    the engine's recipe outside it on that user's materialized
+    parameters (``_prefill_forced``). Each user's tokens are set beside
+    the reference loop ``serve()``: its first difference, and
+    teacher-forced, the engine's rows against its token-by-token rows and
+    both against their f32 twins, with the served tokens' gaps under
+    its best (printed, not held). The checkpoints are removed once
+    imported. One vmapdir step under the profiler; then the
+    example's ``main()`` at its reduced defaults."""
+    import dataclasses
+    import gc
+    import shutil
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import fold_seed, get_strategy
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.examples import serve_personalized as sp
+    from repro_torch.models import build_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import engine as engine_mod
+    label = "EX3 serve_personalized"
+    cfg = get_config("gemma-2b")
+    ckpts = sp.ckpt_dirs(str(WORK))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    base = sp.serving_base(cfg, "cuda")
+    trained, losses = {}, {}
+    for user, seed in sp.USERS.items():
+        tr, trained[user] = sp.finetune(cfg, user, seed, ckpts[user],
+                                        steps=EX3_STEPS, device="cuda",
+                                        params=base)
+        losses[user] = tr.losses
+        check(len(tr.losses) == EX3_STEPS
+              and all(math.isfinite(x) for x in tr.losses),
+              f"{label} {user}: losses {tr.losses}")
+        del tr
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    store = sp.adapter_store(base, ckpts, "cuda")
+    sp.check_materialized(store, trained)
+    del trained
+    for d in ckpts.values():
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (engine, comps, rids), rows = _engine_rows(
+        torch, engine_mod, lambda: sp.serve(cfg, store, "cuda"))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    launches = paths[label] = _snapshot(ops)
+    _check_tc(label, launches, ["flash_attention"])
+    check(launches["zo_add"] > 0 and launches["flash_decode"] == 0
+          and launches["flash_prefill"] == 0,
+          f"{label}: launches {launches}")
+    sp.report(engine, store, comps, rids)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    first_diff, exact, errs, floor, ties = {}, [], [], [], []
+    for user in sp.USERS:
+        mine = sorted((c for c in comps if c.user == user),
+                      key=lambda c: c.rid)
+        params = store.materialize(user)
+        prompts = np.stack([c.prompt for c in mine])
+        served = np.stack([c.tokens for c in mine])
+        recipe = _prefill_forced(torch, serve_mod, cfg, params, prompts,
+                                 served)
+        ref = serve_mod.serve(cfg, params, prompts, sp.MAX_NEW,
+                              device="cuda")
+        dense = _teacher_forced(torch, serve_mod, cfg, params, prompts,
+                                served)
+        wide = _teacher_forced(torch, serve_mod, f32, {
+            k: v.float() for k, v in params.items()}, prompts, served)
+        for i, c in enumerate(mine):
+            ne = np.flatnonzero(c.tokens != ref[i])
+            same = int(ne[0]) if ne.size else sp.MAX_NEW
+            if ne.size:
+                first_diff[c.rid] = same
+            check(np.array_equal(dense[i, :same].argmax(-1).numpy(),
+                                 ref[i, :same]),
+                  f"{label} rid {c.rid}: the teacher-forced loop parts "
+                  f"from serve() within its first {same} tokens")
+            for j in range(sp.MAX_NEW):
+                row, want = rows[(c.rid, j)], dense[i, j]
+                tok, best = int(c.tokens[j]), int(want.argmax())
+                check(int(row.argmax()) == tok,
+                      f"{label} rid {c.rid} token {j}: not the recorded "
+                      f"row's argmax")
+                exact.append(float((row - recipe[i, j]).abs().max()))
+                errs.append(float((row - want).abs().max()))
+                floor.append(float((want - wide[i, j]).abs().max()))
+                top = float(want[best])
+                # one bf16 step at |top|: 2^(floor(log2 |top|) - 7)
+                step = 2.0 ** (math.frexp(top)[1] - 8)
+                gap = top - float(want[tok])
+                ties.append({"rid": c.rid, "token": j, "gap": gap,
+                             "gap_bf16_steps": gap / step,
+                             "serve_best": top, "serve_served": float(
+                                 want[tok]),
+                             "engine_best": float(row[best]),
+                             "engine_served": float(row[tok])})
+        del recipe, dense, wide
+    widest = max(ties, key=lambda t: t["gap"])
+    st = engine.stats
+    _phase_line(torch, label, train_s + serve_s, launches, arch=cfg.name,
+                dtype=cfg.dtype, steps=EX3_STEPS, example_steps=sp.STEPS,
+                losses=losses, train_seconds=train_s, serve_seconds=serve_s,
+                materialized_equals_trained=True,
+                adapter_bytes={u: store._adapters[u].nbytes
+                               for u in sp.USERS},
+                decode_tok_s=st.decode_tps, prefill_tok_s=st.prefill_tps,
+                requests=len(comps), rows_held=len(exact),
+                recipe_max_abs_err=max(exact), first_diff_from_serve={
+                    str(r): j for r, j in first_diff.items()},
+                serve_logits_max_abs_err=max(errs),
+                serve_vs_f32_max_abs_err=max(floor),
+                near_tie_max_gap=widest["gap"], near_tie_widest=widest,
+                gaps_over_bf16_rule=sum(t["gap"] > LOGITS_BF16_ATOL
+                                        for t in ties))
+    check(max(exact) == 0.0,
+          f"{label}: the engine's rows are {max(exact)} from its recipe "
+          f"run outside it on the same tokens (atol 0)")
+    del engine, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one training step under the profiler: where a vmapdir step goes
+    strat = get_strategy("mezo-parallel")
+    model = build_model(dataclasses.replace(cfg, attn_impl="flash"))
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in
+             next(lm_batches(8, 32, cfg.vocab, seed=11)).items()}
+    state = strat.init_state(base, sp.MZ)
+    wall_us, by_name, n_events = _profiled(torch, lambda: strat.step(
+        model.loss, state, batch, fold_seed(0, 0), sp.MZ))
+    _profile_line(f"{label} profile", wall_us, by_name, n_events, steps=1,
+                  directions=sp.MZ.n_directions)
+    del base, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sp.main(["--device", "cuda"])
+    print(json.dumps({"phase": "EX3 serve_personalized main (reduced)",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -5177,6 +5540,14 @@ def main():
         torch.cuda.empty_cache()
         phase()
     dr1_finish(*dr1, WORK / "dryrun")
+
+    # EX1-EX3: the examples at full width
+    for phase in (lambda: ex1_quickstart(torch, paths),
+                  lambda: ex2_finetune_sst2(torch, paths),
+                  lambda: ex3_personalized(torch, paths)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase()
 
     # 6. the kernels line, then the result
     from repro_torch.kernels import ops

@@ -38,11 +38,12 @@ Params = Dict[str, torch.Tensor]
 def _flatten(state: Union[TrainState, Params]) -> Params:
     """A TrainState as one flat ``/``-keyed dict (the JAX pytree's paths:
     an Adam state's moments under ``opt/0``, ``opt/1`` and its count at
-    ``opt/2``); a bare params dict as it is."""
+    ``opt/2``; the step a uint32, as JAX's TrainState carries it); a
+    bare params dict as it is."""
     if not isinstance(state, TrainState):
         return state
     flat = {f"params/{k}": v for k, v in state.params.items()}
-    flat["step"] = torch.tensor(state.step, dtype=torch.int64)
+    flat["step"] = torch.tensor(state.step, dtype=torch.uint32)
     opt = (state.opt.flat() if isinstance(state.opt, AdamState)
            else state.opt)
     flat.update({f"opt/{k}": torch.as_tensor(v) for k, v in opt.items()})

@@ -156,3 +156,10 @@ def load_params(ckpt_dir: str, step: int, like: Dict[str, object]
                 out[path] = read(data, path, leaf)
     return out
 
+
+def load_manifest(ckpt_dir: str, step: int) -> dict:
+    """The ``manifest.json`` of snapshot ``step`` (keys, dtypes, shapes,
+    extra), as either package wrote it."""
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        return json.load(f)

@@ -18,6 +18,9 @@ Dispatch follows the device: a CUDA leaf goes through the hand-written
 ``zo_add`` kernel -- every floating leaf, of any shape, since the kernel
 masks its own edges -- and a CPU leaf through its plain version. The
 values are the same either way (bit for bit with Rademacher z).
+
+:func:`dot_with_z` is ``<tangent, z(seed)>``, the estimator cross-check:
+autograd's gradient projected on the z a direction perturbs along.
 """
 
 from __future__ import annotations
@@ -51,6 +54,14 @@ def _path_str(path) -> str:
 def leaf_salts(params: Params) -> Dict[str, int]:
     """Per-leaf salts (python ints), keyed like ``params``."""
     return {path: zrng.leaf_salt(path) for path in params}
+
+
+def is_perturbable(path_str: str) -> bool:
+    """The JAX package's filter of the leaves that receive ZO noise, which
+    passes every one. The port keeps no filter: :func:`add_scaled_z`,
+    the user-axis sweep and :class:`~repro_torch.core.PerturbCtx` perturb
+    every floating leaf, and :func:`dot_with_z` projects on those."""
+    return True
 
 
 def add_scaled_z(params: Params, seed, coeff, dist: str = "rademacher",
@@ -114,3 +125,23 @@ def add_scaled_z_users(params: Params, seeds, coeffs,
         out[path] = kops.zo_add_users(leaf, seeds, salt, coeffs, dist=dist,
                                       out=dst, lanes=lanes)
     return out
+
+
+def dot_with_z(params_like: Params, seed, tangent: Params,
+               dist: str = "rademacher") -> torch.Tensor:
+    """``<tangent, z(seed)>`` as an f32 0-dim tensor on the tangents'
+    device: each floating leaf of ``params_like`` salts z by its path, as
+    :func:`add_scaled_z` does, and its tangent (keyed alike; a
+    :class:`~repro_torch.optim.quant.QuantizedLeaf` dequantized to f32)
+    is dotted with it in f32. Non-floating leaves are skipped."""
+    acc = None
+    for path, leaf in params_like.items():
+        if not leaf.dtype.is_floating_point:
+            continue
+        t = tangent[path]
+        t = t.dequantize_f32() if is_quantized(t) else t.to(torch.float32)
+        z = zrng.z_field(seed, zrng.leaf_salt(path), tuple(leaf.shape),
+                         torch.float32, dist, device=t.device)
+        d = torch.dot(t.reshape(-1), z.reshape(-1))
+        acc = d if acc is None else acc + d
+    return acc if acc is not None else torch.zeros((), dtype=torch.float32)

@@ -26,7 +26,9 @@ allocates nothing.
     ops'), by the HLO kinds (``all-reduce``, ``all-gather``,
     ``reduce-scatter``, ``all-to-all``; ``broadcast`` as itself); the
     total counts an all-reduce twice (ring traffic), as
-    ``hlo.collective_bytes`` does;
+    ``hlo.collective_bytes`` does; :attr:`Tracer.by_group` splits the
+    same bytes by the process group's name (:func:`groups_crossing`
+    picks the groups that span more than one index of a mesh axis);
   * ``peak_bytes`` (:attr:`Tracer.peak`): the most bytes of this rank's
     storages alive at once -- every op's outputs from their creation until
     their last tensor is freed, plus what :meth:`Tracer.track` registers
@@ -96,6 +98,16 @@ def dot_flops(name: str, args, out) -> float:
     return 2.0 * float(out.numel()) * float(a.shape[-1])
 
 
+def _group_name(args, kwargs) -> str:
+    """The ``group_name`` a ``_c10d_functional`` collective runs on (its
+    last string argument); ``"unknown"`` for the legacy ``c10d`` ops,
+    which carry a process-group object instead."""
+    if isinstance(kwargs.get("group_name"), str):
+        return kwargs["group_name"]
+    names = [a for a in args if isinstance(a, str)]
+    return names[-1] if names else "unknown"
+
+
 class Tracer(TorchDispatchMode):
     """Counts dots, bytes and collectives of what runs inside it; read
     them with :meth:`result`."""
@@ -105,6 +117,7 @@ class Tracer(TorchDispatchMode):
         self.flops = 0.0
         self.hbm = 0.0
         self.coll: Dict[str, float] = defaultdict(float)
+        self.by_group: Dict[str, float] = defaultdict(float)
         self.n_ops = 0
         self._muted = 0
         self._saved = None
@@ -176,7 +189,9 @@ class Tracer(TorchDispatchMode):
         name = func._overloadpacket.__name__
         self.n_ops += 1
         if name in _COLL:
-            self.coll[_COLL[name]] += sum(_nbytes(t) for t in _tensors(out))
+            n = sum(_nbytes(t) for t in _tensors(out))
+            self.coll[_COLL[name]] += n
+            self.by_group[_group_name(args, kwargs)] += n
         elif name in _DOTS:
             self.flops += dot_flops(name, args, out)
         if name not in _FREE:
@@ -214,3 +229,24 @@ def collective_bytes(result: Dict[str, float]) -> Dict[str, int]:
             if k.startswith("coll_")}
     sums["total"] = int(result["collective_bytes"])
     return sums
+
+
+def groups_crossing(group_names, mesh, axis: str):
+    """The names among ``group_names`` whose process group holds ranks
+    at more than one index of ``mesh``'s ``axis`` (e.g. the collectives
+    that cross pods); an unresolvable name counts as crossing."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    along = mesh.mesh.movedim(mesh.mesh_dim_names.index(axis), 0)
+    coord = {int(r): i for i, ranks in enumerate(along)
+             for r in ranks.flatten()}
+    out = []
+    for name in group_names:
+        try:
+            ranks = dist.get_process_group_ranks(_resolve_process_group(name))
+        except Exception:          # a legacy op's group: not resolvable
+            out.append(name)
+            continue
+        if len({coord.get(r) for r in ranks}) > 1:
+            out.append(name)
+    return out

@@ -77,6 +77,17 @@ def test_multi_device_modules_import_without_jax(module):
     _import_alone(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.examples",
+                                    "repro_torch.examples.quickstart",
+                                    "repro_torch.examples.finetune_sst2",
+                                    "repro_torch.examples."
+                                    "serve_personalized",
+                                    "repro_torch.examples."
+                                    "multipod_directions"])
+def test_example_modules_import_without_jax(module):
+    _import_alone(module)
+
+
 def _import_alone(module):
     """``module`` imports in a fresh interpreter with JAX blocked, and
     loads nothing of JAX or the JAX package."""
