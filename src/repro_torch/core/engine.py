@@ -57,6 +57,7 @@ from repro_torch.core import rng as zrng
 from repro_torch.core.batching import take_user
 from repro_torch.core.perturb import add_scaled_z, add_scaled_z_users
 from repro_torch.core.perturb_ctx import PerturbCtx, host_to
+from repro_torch.core.spans import span
 from repro_torch.optim.quant import is_quantized
 
 _F32 = torch.float32
@@ -237,12 +238,17 @@ def _eval_walk(loss_fn: LossFn, params: Params, batch: Any, seed,
     gs, ls = [], []
     for k in range(cfg.n_directions):
         s = zrng.fold_seed(seed, k)
-        add_scaled_z(params, s, eps, dist=cfg.dist, inplace=True)
-        lp = loss_fn(params, batch)
-        add_scaled_z(params, s, -2.0 * eps, dist=cfg.dist, inplace=True)
-        lm = loss_fn(params, batch)
+        with span("zo.perturb"):
+            add_scaled_z(params, s, eps, dist=cfg.dist, inplace=True)
+        with span("zo.forward"):
+            lp = loss_fn(params, batch)
+        with span("zo.perturb"):
+            add_scaled_z(params, s, -2.0 * eps, dist=cfg.dist, inplace=True)
+        with span("zo.forward"):
+            lm = loss_fn(params, batch)
         # restore to the base point for the next direction
-        add_scaled_z(params, s, eps, dist=cfg.dist, inplace=True)
+        with span("zo.perturb"):
+            add_scaled_z(params, s, eps, dist=cfg.dist, inplace=True)
         g, l = _projected(lp, lm, eps)
         gs.append(g)
         ls.append(l)
@@ -257,9 +263,14 @@ def _eval_vmapdir(loss_fn: LossFn, params: Params, batch: Any, seed,
     gs, ls = [], []
     for k in range(cfg.n_directions):
         s = zrng.fold_seed(seed, k)
-        lp = loss_fn(add_scaled_z(params, s, eps, dist=cfg.dist), batch)
-        lm = loss_fn(add_scaled_z(params, s, -eps, dist=cfg.dist), batch)
-        g, l = _projected(lp, lm, eps)
+        sides = []
+        for c in (eps, -eps):
+            with span("zo.perturb"):
+                moved = add_scaled_z(params, s, c, dist=cfg.dist)
+            with span("zo.forward"):
+                sides.append(loss_fn(moved, batch))
+            del moved
+        g, l = _projected(*sides, eps)
         gs.append(g)
         ls.append(l)
     return params, torch.stack(gs), torch.stack(ls)
@@ -275,9 +286,11 @@ def _eval_fused(loss_fn: LossFn, params: Params, batch: Any, seed,
     for k in range(cfg.n_directions):
         ctx = PerturbCtx(seed=zrng.fold_seed(seed, k), coeff=eps,
                          dist=cfg.dist)
-        lp = loss_fn(params, batch, perturb=ctx)
-        lm = loss_fn(params, batch,
-                     perturb=dataclasses.replace(ctx, coeff=-eps))
+        with span("zo.forward"):
+            lp = loss_fn(params, batch, perturb=ctx)
+        with span("zo.forward"):
+            lm = loss_fn(params, batch,
+                         perturb=dataclasses.replace(ctx, coeff=-eps))
         g, l = _projected(lp, lm, eps)
         gs.append(g)
         ls.append(l)
@@ -295,8 +308,9 @@ def _eval_fused_users(loss_fn: LossFn, params: Params, batch: Any, seeds,
     gs, ls = [], []
     for k in range(cfg.n_directions):
         sk = [zrng.fold_seed(s, k) for s in seeds]
-        l = loss_fn(params, both, perturb=PerturbCtx(
-            seed=sk + sk, coeff=coeffs, dist=cfg.dist))
+        with span("zo.forward"):        # both signs in one forward
+            l = loss_fn(params, both, perturb=PerturbCtx(
+                seed=sk + sk, coeff=coeffs, dist=cfg.dist))
         g, m = _projected(l[:u], l[u:], eps)
         gs.append(g)
         ls.append(m)
@@ -314,11 +328,13 @@ def _eval_vmapdir_users(loss_fn: LossFn, params: Params, batch: Any, seeds,
         sk = [zrng.fold_seed(s, k) for s in seeds]
         sides = []
         for c in (eps, -eps):
-            moved = add_scaled_z_users(params, sk, c, dist=cfg.dist)
-            sides.append(torch.stack([
-                loss_fn(take_user(moved, i),
-                        {key: v[i] for key, v in batch.items()})
-                for i in range(u)]))
+            with span("zo.perturb"):
+                moved = add_scaled_z_users(params, sk, c, dist=cfg.dist)
+            with span("zo.forward"):
+                sides.append(torch.stack([
+                    loss_fn(take_user(moved, i),
+                            {key: v[i] for key, v in batch.items()})
+                    for i in range(u)]))
             del moved
         g, m = _projected(sides[0], sides[1], eps)
         gs.append(g)
@@ -540,12 +556,16 @@ class ZOStrategy:
              cfg: MezoConfig, direction_mask=None
              ) -> Tuple[TrainState, MezoAux]:
         seed = zrng._u32(seed)
-        params, gs, ls = self.estimator.eval_fn(
-            loss_fn, state.params, batch, seed, cfg, eps=_f32(None, cfg.eps))
-        gs = gs.to("cpu")                 # the one host sync of a step
-        params, opt = self.update.update_fn(
-            params, state.opt, seed, gs, direction_mask, cfg,
-            lr=_f32(None, cfg.lr), inplace=self.estimator.donate)
+        with span("zo.estimate"):
+            params, gs, ls = self.estimator.eval_fn(
+                loss_fn, state.params, batch, seed, cfg,
+                eps=_f32(None, cfg.eps))
+        with span("zo.sync"):
+            gs = gs.to("cpu")             # the one host sync of a step
+        with span("zo.update"):
+            params, opt = self.update.update_fn(
+                params, state.opt, seed, gs, direction_mask, cfg,
+                lr=_f32(None, cfg.lr), inplace=self.estimator.donate)
         aux = MezoAux(loss=ls.mean(), gs=gs, seed=seed,
                       grad_norm_est=gs.abs().mean())
         return TrainState(params=params, step=state.step + 1, opt=opt), aux
@@ -583,14 +603,17 @@ class ZOStrategy:
         lr = torch.as_tensor(_f32(lr, cfg.lr)).expand(u).contiguous()
         lanes = (list(range(u)) if active is None else
                  [i for i in range(u) if bool(active[i])])
-        params, gs, ls = self.estimator.users_fn(
-            loss_fn, state.params, batch, seeds, cfg, eps)
-        gs = gs.to("cpu")                 # the one host sync of a dispatch
+        with span("zo.estimate"):
+            params, gs, ls = self.estimator.users_fn(
+                loss_fn, state.params, batch, seeds, cfg, eps)
+        with span("zo.sync"):
+            gs = gs.to("cpu")             # the one host sync of a dispatch
         opt = state.opt
         if lanes:
-            params, opt = self.update.users_fn(
-                params, state.opt, seeds, gs, cfg, lr, lanes,
-                inplace=self.estimator.donate)
+            with span("zo.update"):
+                params, opt = self.update.users_fn(
+                    params, state.opt, seeds, gs, cfg, lr, lanes,
+                    inplace=self.estimator.donate)
         step = torch.as_tensor(state.step, dtype=torch.int64).clone()
         step[lanes] += 1
         aux = MezoAux(loss=torch.stack([ls[i].mean() for i in range(u)]),

@@ -317,7 +317,8 @@ class PerturbCtx:
         rows = take_rows_f32(table, ids)
         z = zrng.z_rows(base, ids, table.shape[1], torch.float32, self.dist,
                         prime_offset=off)
-        return (rows + self._coeff().to(rows.device) * z).to(table.dtype)
+        c = host_to(self.coeff, torch.float32, rows.device)
+        return (rows + c * z).to(table.dtype)
 
     def materialize(self, subtree: Dict[str, Any],
                     name: str = "") -> Dict[str, torch.Tensor]:
@@ -365,7 +366,7 @@ def take_sharded(table, ids, base=None, off: int = 0, coeff=None,
     if base is not None:
         z = zrng.z_rows(base, ids_l, table.shape[1], torch.float32, dist,
                         prime_offset=off)
-        rows = rows + coeff.to(rows.device) * z
+        rows = rows + host_to(coeff, torch.float32, rows.device) * z
     rows = torch.where(mine[..., None], rows, 0.0).to(table.dtype)
     shape = tuple(ids.shape) + (table.shape[1],)
     return settle(DTensor.from_local(rows, table.device_mesh, pl,

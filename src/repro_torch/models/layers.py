@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.perturb_ctx import sub as _sub
+from repro_torch.core.spans import span
 from repro_torch.kernels import ops as kops
 from repro_torch.models import sharding as shd
 from repro_torch.optim.quant import deq as _deq
@@ -119,15 +120,16 @@ def lane_einsum(ctx, eq, *xs):
 
 
 def norm_apply(cfg, p, x, ctx=None):
-    if ctx is not None:
-        p = {k: ctx.perturb(k, v) for k, v in p.items()}
-    if _batched(ctx):
+    with span("model.norm"):
+        if ctx is not None:
+            p = {k: ctx.perturb(k, v) for k, v in p.items()}
+        if _batched(ctx):
+            if cfg.norm == "layernorm":
+                return _lanes(ctx, x, layernorm, p["scale"], p["bias"])
+            return _lanes(ctx, x, rmsnorm, p["scale"])
         if cfg.norm == "layernorm":
-            return _lanes(ctx, x, layernorm, p["scale"], p["bias"])
-        return _lanes(ctx, x, rmsnorm, p["scale"])
-    if cfg.norm == "layernorm":
-        return layernorm(x, p["scale"], p["bias"])
-    return rmsnorm(x, p["scale"])
+            return layernorm(x, p["scale"], p["bias"])
+        return rmsnorm(x, p["scale"])
 
 
 # ---------------------------------------------------------------------------

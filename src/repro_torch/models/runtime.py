@@ -51,6 +51,7 @@ import torch
 
 from repro_torch.core.batching import user_leaf_axes
 from repro_torch.core.perturb_ctx import sub as _sub
+from repro_torch.core.spans import span
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as shd
 from repro_torch.models.blocks import RunCtx, get_block
@@ -178,14 +179,16 @@ def _stack_apply(cfg, stack: StackPlan, params, x, rc: RunCtx, ctx=None):
     # the aux loss: per lane under a user-axis ctx
     aux = torch.zeros((ctx.n_lanes,) if batched else (),
                       dtype=torch.float32, device=x.device)
+    spans = ["model.mixer." + sl.block for sl in stack.sublayers]
     for li in range(stack.n_layers):
         bp = _index(blocks, li, axes)
         bctx = None if sctx is None else sctx.at_layer(li)
-        for sl in stack.sublayers:
+        for sl, name in zip(stack.sublayers, spans):
             bt = get_block(sl.block)
             z = L.norm_apply(cfg, _get(bp, sl.ln), x, _sub(bctx, sl.ln))
-            y, a = bt.apply(cfg, _get(bp, sl.mixer), z, rc,
-                            ctx=_sub(bctx, sl.mixer), **dict(sl.opts))
+            with span(name):
+                y, a = bt.apply(cfg, _get(bp, sl.mixer), z, rc,
+                                ctx=_sub(bctx, sl.mixer), **dict(sl.opts))
             x = x + shd.settle(y)
             aux = aux + a
     return x, aux
@@ -281,6 +284,13 @@ def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
     the token embeddings and cut off again before the LM head; an
     enc-dec plan runs its encoder over ``enc_embeds`` (B, T_enc, d), the
     audio frontend stub."""
+    x, aux, n_prefix = _trunk(plan, params, batch, perturb)
+    return _head(plan, params, x, n_prefix, last_only, perturb), aux
+
+
+def _trunk(plan: ModelPlan, params, batch, perturb=None):
+    """:func:`forward` up to the final norm: (x, aux, the number of
+    prefix positions the head cuts off)."""
     cfg = plan.cfg
     batched = perturb is not None and perturb.batched
     if batched:
@@ -297,8 +307,9 @@ def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
             patches = patches.reshape(-1, *patches.shape[-2:])
         if frames is not None:
             frames = frames.reshape(-1, *frames.shape[-2:])
-    x = L.embed_apply(cfg, nest(params, "embed"), tokens,
-                      ctx=_sub(perturb, "embed"))
+    with span("model.embed"):
+        x = L.embed_apply(cfg, nest(params, "embed"), tokens,
+                          ctx=_sub(perturb, "embed"))
     n_prefix = 0
     if patches is not None:            # vlm: prepend the stub patches
         x = torch.cat([patches.to(x.dtype), x], dim=1)
@@ -314,15 +325,22 @@ def forward(plan: ModelPlan, params, batch, last_only=False, perturb=None):
     rc = RunCtx(positions=positions, kv_mask=kv_mask, enc_out=enc_out)
     x, aux = _stack_apply(cfg, plan.stack, params, x, rc, perturb)
     x = L.norm_apply(cfg, nest(params, "ln_f"), x, _sub(perturb, "ln_f"))
-    if cfg.n_classes:                  # CLS pooling + head (roberta/SST-2)
+    return x, aux, n_prefix
+
+
+def _head(plan: ModelPlan, params, x, n_prefix=0, last_only=False,
+          perturb=None):
+    """The final-normed ``x`` to logits: the CLS head (roberta/SST-2),
+    or the LM head over the positions past the prefix."""
+    if plan.cfg.n_classes:             # CLS pooling + head
         cls = x[:, 0].to(torch.float32)
         return L.dense(nest(params, "cls_head"), torch.tanh(cls),
-                       _sub(perturb, "cls_head")), aux
+                       _sub(perturb, "cls_head"))
     if n_prefix:
         x = x[:, n_prefix:]
     if last_only:
         x = x[:, -1:]
-    return _logits(plan, params, x, perturb), aux
+    return _logits(plan, params, x, perturb)
 
 
 def _logits(plan: ModelPlan, params, x, ctx=None):
@@ -354,17 +372,20 @@ def loss(plan: ModelPlan, params, batch, perturb=None):
     its own (B, S) exactly as a lone forward reduces it. Under a mesh
     (DTensor parameters) the loss comes back as a plain tensor, the global
     scalar every rank holds, as the reference's replicated loss is."""
-    logits, aux = forward(plan, params, batch, perturb=perturb)
-    if perturb is not None and perturb.batched:
-        lanes = perturb.lane_view(logits).unbind(0)
-        keys = ("label",) if plan.cfg.n_classes else ("targets",
-                                                      "loss_mask")
-        per_lane = [dict(zip(keys, vals)) for vals in zip(*[
-            batch[k].unbind(0) if k in batch else [None] * len(lanes)
-            for k in keys])]
-        return torch.stack([_ce(plan, lg, b, a) for lg, b, a in
-                            zip(lanes, per_lane, aux.unbind(0))])
-    out = _ce(plan, logits, batch, aux)
+    x, aux, n_prefix = _trunk(plan, params, batch, perturb)
+    with span("model.head_loss"):
+        logits = _head(plan, params, x, n_prefix, perturb=perturb)
+        del x                          # freed before the loss, as in forward()
+        if perturb is not None and perturb.batched:
+            lanes = perturb.lane_view(logits).unbind(0)
+            keys = ("label",) if plan.cfg.n_classes else ("targets",
+                                                          "loss_mask")
+            per_lane = [dict(zip(keys, vals)) for vals in zip(*[
+                batch[k].unbind(0) if k in batch else [None] * len(lanes)
+                for k in keys])]
+            return torch.stack([_ce(plan, lg, b, a) for lg, b, a in
+                                zip(lanes, per_lane, aux.unbind(0))])
+        out = _ce(plan, logits, batch, aux)
     return out.full_tensor() if shd.is_dtensor(out) else out
 
 

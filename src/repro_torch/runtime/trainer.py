@@ -45,6 +45,7 @@ from repro_torch.core import rng as zrng
 from repro_torch.core.engine import (MezoConfig, TrainState,
                                      build_strategy, get_strategy,
                                      strategy_names)
+from repro_torch.core.spans import span
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import resolve_device
@@ -153,7 +154,8 @@ class Trainer:
         """Host-sync the buffered device scalars (one transfer per batch
         of steps instead of one per step)."""
         if self._pending:
-            self.losses.extend(float(x) for x in self._pending)
+            with span("trainer.losses.sync"):
+                self.losses.extend(float(x) for x in self._pending)
             self._pending.clear()
 
     # -- main loop --------------------------------------------------------
@@ -179,29 +181,33 @@ class Trainer:
         for step in range(start, self.tcfg.n_steps):
             if fail_at is not None and step == fail_at:
                 raise RuntimeError(f"injected failure at step {step}")
-            batch = {k: torch.as_tensor(v).to(self.device)
-                     for k, v in next(self.batches).items()}
-            mask = aux = None
-            if self.strategy is None:
-                p, opt, loss = grad_train_step(
-                    self.model.loss, state.params, batch, state.opt,
-                    self.tcfg.adam)
-                state = TrainState(params=p, step=step + 1, opt=opt)
-                self._pending.append(loss)
-            else:
-                if self._straggler:
-                    mask = self._straggler.mask()
-                seed = zrng.fold_seed(self.tcfg.seed, step)
-                state, aux = self.strategy.step(self.model.loss, state,
-                                                batch, seed, mcfg, mask)
-                self._pending.append(aux.loss)
-            if self.ckpt:
-                self.ckpt.on_step(step, state, aux, direction_mask=mask)
-            if step % self.tcfg.log_every == 0:
-                self._sync_losses()
-                dt = time.perf_counter() - t0
-                self.log(f"[trainer] step={step} loss={self.losses[-1]:.4f} "
-                         f"({dt:.1f}s)")
+            with span("trainer.step"):
+                with span("trainer.batch"):
+                    raw = next(self.batches)
+                    with span("trainer.batch.sync"):   # a host copy waits
+                        batch = {k: torch.as_tensor(v).to(self.device)
+                                 for k, v in raw.items()}
+                mask = aux = None
+                if self.strategy is None:
+                    p, opt, loss = grad_train_step(
+                        self.model.loss, state.params, batch, state.opt,
+                        self.tcfg.adam)
+                    state = TrainState(params=p, step=step + 1, opt=opt)
+                    self._pending.append(loss)
+                else:
+                    if self._straggler:
+                        mask = self._straggler.mask()
+                    seed = zrng.fold_seed(self.tcfg.seed, step)
+                    state, aux = self.strategy.step(self.model.loss, state,
+                                                    batch, seed, mcfg, mask)
+                    self._pending.append(aux.loss)
+                if self.ckpt:
+                    self.ckpt.on_step(step, state, aux, direction_mask=mask)
+                if step % self.tcfg.log_every == 0:
+                    self._sync_losses()
+                    dt = time.perf_counter() - t0
+                    self.log(f"[trainer] step={step} "
+                             f"loss={self.losses[-1]:.4f} ({dt:.1f}s)")
         self._sync_losses()
         return state.params
 

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.checkpoint.replay_log import ReplayLog, apply_record
 from repro_torch.core.engine import MezoConfig, UpdateRule, check_rule
+from repro_torch.core.spans import span
 from repro_torch.models.transformer import resolve_device
 from repro_torch.optim.quant import (int8_dequantize, int8_quantize,
                                      is_quantized, leaf_nbytes,
@@ -116,7 +117,7 @@ class AdapterStore:
         self._deltas: Dict[str, list] = {}
         self._cache: "OrderedDict[str, Params]" = OrderedDict()
         self.stats = {"hits": 0, "misses": 0, "evictions": 0,
-                      "materialize_s": 0.0, "last_materialize_s": 0.0}
+                      "materialize_s": 0.0}
 
     # ---- registration ----------------------------------------------------
     def put(self, user: str, records: List[dict]) -> ZOAdapter:
@@ -180,11 +181,10 @@ class AdapterStore:
             params = self._apply_delta(self._deltas[user])
         else:
             raise KeyError(f"unknown adapter {user!r}; have {self.users()}")
-        _sync(params)
-        dt = time.perf_counter() - t0
+        with span("store.sync"):
+            _sync(params)
         self.stats["misses"] += 1
-        self.stats["materialize_s"] += dt
-        self.stats["last_materialize_s"] = dt
+        self.stats["materialize_s"] += time.perf_counter() - t0
         self._cache[user] = params
         self._evict()
         return params

@@ -49,6 +49,7 @@ from repro_torch.checkpoint.replay_log import ReplayLog
 from repro_torch.core import rng as zrng
 from repro_torch.core.batching import install_user, stack_users
 from repro_torch.core.engine import MezoConfig, TrainState, build_strategy
+from repro_torch.core.spans import span
 from repro_torch.models import build_model
 
 #: a job's data: a sequence indexed by the user's GLOBAL step, or a
@@ -187,22 +188,23 @@ class TrainEngine:
                 # resident job frees its slot
                 return
             job = self.queue.popleft()
-            params, opt, done = self.store.materialize_state(job.user)
-            self._prior[slot] = list(self.store.records(job.user))
-            seed = (derive_user_seed(self.seed, job.user)
-                    if job.seed is None else zrng._u32(job.seed))
-            resident = {self._user_seed[i] for i in range(self.n_slots)
-                        if self._active[i]}
-            if seed in resident:
-                raise ValueError(
-                    f"per-user seed collision admitting {job.user!r} "
-                    f"(seed {seed}): set an explicit TrainJob.seed -- two "
-                    f"co-resident users sharing a base seed would draw "
-                    f"identical z streams")
-            install_user(self._state,
-                         TrainState(params=params, step=done, opt=opt),
-                         slot)
-            del params, opt
+            with span("engine.admit"):
+                params, opt, done = self.store.materialize_state(job.user)
+                self._prior[slot] = list(self.store.records(job.user))
+                seed = (derive_user_seed(self.seed, job.user)
+                        if job.seed is None else zrng._u32(job.seed))
+                resident = {self._user_seed[i] for i in range(self.n_slots)
+                            if self._active[i]}
+                if seed in resident:
+                    raise ValueError(
+                        f"per-user seed collision admitting {job.user!r} "
+                        f"(seed {seed}): set an explicit TrainJob.seed -- "
+                        f"two co-resident users sharing a base seed would "
+                        f"draw identical z streams")
+                install_user(self._state,
+                             TrainState(params=params, step=done, opt=opt),
+                             slot)
+                del params, opt
             self._job[slot] = job
             self._active[slot] = True
             self._user_seed[slot] = seed
@@ -224,34 +226,37 @@ class TrainEngine:
     def _flush(self, slot: int) -> JobResult:
         """Host-sync the slot's pending rows into replay records, push
         the grown log to the store (and log_dir), build the result."""
-        job = self._job[slot]
-        lr, eps = float(self._lr[slot]), float(self._eps[slot])
-        records, losses = list(self._prior[slot]), []
-        for step, seed, gs, loss in self._pending[slot]:
-            # ReplayLog.append's key order and values: the engine's
-            # records are line-identical to a sequential Trainer's log
-            records.append({
-                "step": int(step), "seed": int(seed),
-                "gs": np.asarray(gs, np.float32).reshape(-1).tolist(),
-                "lr": lr, "eps": eps})
-            losses.append(float(loss))
-        self._pending[slot] = []
-        if records:
-            self.store.put(job.user, records)
-        if self.log_dir and losses:
-            # append only this residency's new records: across
-            # evict/re-admit cycles the file accumulates the user's whole
-            # stream, and AdapterStore.load rebuilds it after a crash
-            log = ReplayLog(os.path.join(self.log_dir,
-                                         f"{job.user}.jsonl"))
-            for rec in records[len(self._prior[slot]):]:
-                log.append(rec["step"], rec["seed"], rec["gs"],
-                           rec["lr"], rec["eps"])
-            log.close()
-        return JobResult(user=job.user, jid=job.jid,
-                         start_step=int(self._start[slot]),
-                         n_steps=int(self._step[slot]), losses=losses,
-                         records=records)
+        with span("engine.flush"):
+            job = self._job[slot]
+            lr, eps = float(self._lr[slot]), float(self._eps[slot])
+            records = list(self._prior[slot])
+            for step, seed, gs, _ in self._pending[slot]:
+                # ReplayLog.append's key order and values: the engine's
+                # records are line-identical to a sequential Trainer's log
+                records.append({
+                    "step": int(step), "seed": int(seed),
+                    "gs": np.asarray(gs, np.float32).reshape(-1).tolist(),
+                    "lr": lr, "eps": eps})
+            with span("engine.flush.sync"):   # the device losses come over
+                losses = [float(row[3]) for row in self._pending[slot]]
+            self._pending[slot] = []
+            if records:
+                self.store.put(job.user, records)
+            if self.log_dir and losses:
+                # append only this residency's new records: across
+                # evict/re-admit cycles the file accumulates the user's
+                # whole stream, and AdapterStore.load rebuilds it after a
+                # crash
+                log = ReplayLog(os.path.join(self.log_dir,
+                                             f"{job.user}.jsonl"))
+                for rec in records[len(self._prior[slot]):]:
+                    log.append(rec["step"], rec["seed"], rec["gs"],
+                               rec["lr"], rec["eps"])
+                log.close()
+            return JobResult(user=job.user, jid=job.jid,
+                             start_step=int(self._start[slot]),
+                             n_steps=int(self._step[slot]), losses=losses,
+                             records=records)
 
     def _release(self, slot: int):
         self._job[slot] = None
@@ -283,40 +288,46 @@ class TrainEngine:
     def step(self) -> bool:
         """Admit whatever fits, then advance every active slot one user
         step in ONE batched dispatch. Returns False when idle."""
-        self._admit()
-        if not self._active.any():
-            return False
-        t0 = time.perf_counter()
-        lane_batch = {}
-        for slot in np.flatnonzero(self._active):
-            b = self._batch_at(self._job[slot], int(self._step[slot]))
-            if self._template_batch is None:
-                self._template_batch = {
-                    k: np.zeros_like(v) for k, v in b.items()}
-            lane_batch[int(slot)] = b
-        lanes = [lane_batch.get(slot, self._template_batch)
-                 for slot in range(self.n_slots)]
-        batch = {k: torch.from_numpy(np.stack([b[k] for b in lanes])).to(
-            self.device) for k in lanes[0]}
-        seeds = [zrng.fold_seed(self._user_seed[slot], int(self._step[slot]))
-                 for slot in range(self.n_slots)]
-        self._state, aux = self.strategy.step_users(
-            self.model.loss, self._state, batch, seeds, self.mz,
-            self._active.copy(),
-            eps=torch.tensor(self._eps, dtype=torch.float32),
-            lr=torch.tensor(self._lr, dtype=torch.float32))
-        for slot in np.flatnonzero(self._active):
-            self._pending[slot].append(
-                (int(self._step[slot]), seeds[slot], aux.gs[slot],
-                 aux.loss[slot]))
-            self._step[slot] += 1
-        self.stats.dispatches += 1
-        self.stats.user_steps += int(self._active.sum())
-        for slot in np.flatnonzero(self._active):
-            if self._step[slot] >= self._target[slot]:
-                self._finish(slot)
-        self.stats.train_s += time.perf_counter() - t0
-        return True
+        with span("engine.dispatch"):
+            self._admit()
+            if not self._active.any():
+                return False
+            t0 = time.perf_counter()
+            with span("engine.batch"):
+                lane_batch = {}
+                for slot in np.flatnonzero(self._active):
+                    b = self._batch_at(self._job[slot], int(self._step[slot]))
+                    if self._template_batch is None:
+                        self._template_batch = {
+                            k: np.zeros_like(v) for k, v in b.items()}
+                    lane_batch[int(slot)] = b
+                lanes = [lane_batch.get(slot, self._template_batch)
+                         for slot in range(self.n_slots)]
+                stacked = {k: np.stack([b[k] for b in lanes])
+                           for k in lanes[0]}
+                with span("engine.batch.sync"):   # a pageable copy waits
+                    batch = {k: torch.from_numpy(v).to(self.device)
+                             for k, v in stacked.items()}
+            seeds = [zrng.fold_seed(self._user_seed[slot],
+                                    int(self._step[slot]))
+                     for slot in range(self.n_slots)]
+            self._state, aux = self.strategy.step_users(
+                self.model.loss, self._state, batch, seeds, self.mz,
+                self._active.copy(),
+                eps=torch.tensor(self._eps, dtype=torch.float32),
+                lr=torch.tensor(self._lr, dtype=torch.float32))
+            for slot in np.flatnonzero(self._active):
+                self._pending[slot].append(
+                    (int(self._step[slot]), seeds[slot], aux.gs[slot],
+                     aux.loss[slot]))
+                self._step[slot] += 1
+            self.stats.dispatches += 1
+            self.stats.user_steps += int(self._active.sum())
+            for slot in np.flatnonzero(self._active):
+                if self._step[slot] >= self._target[slot]:
+                    self._finish(slot)
+            self.stats.train_s += time.perf_counter() - t0
+            return True
 
     def drain_results(self) -> List[JobResult]:
         out, self._results = self._results, []
