@@ -270,7 +270,10 @@ Launch counts are reset just before each path and read just after, by
 kernel and, for the two-body kernels, by body (``ops.BODIES``): T1-T4,
 R1, Q1, U1, U3, UF1-UF4, FL1, ST1 and SH2 must run every ``zo_matmul*`` /
 ``flash_attention``
-launch on the body the dtype picks (bf16: tensor cores, f32: SIMT), and
+launch on the body the dtype picks (bf16: tensor cores, f32: SIMT; of
+the tensor-core ``zo_matmul`` / ``zo_matmul_users`` launches, those on
+the Hopper route are counted again as ``tc_tma``, in the phase lines and
+the kernels line's ``launches_by_body``), and
 the bf16 serving paths (phase 4, Q3, S1-S4, G1) every ``flash_prefill``
 and ``flash_verify`` launch on its tensor-core body; ``flash_decode`` is
 counted by route too (``flash_decode/slot``, ``flash_decode/split``). Any
@@ -2478,8 +2481,11 @@ def _check_bodies(label, launches, want, bf16):
         if f"{k}/tc" in launches:
             exp[f"{k}/{body}"], exp[f"{k}/{other}"] = n, 0
     got = {k: launches[k] for k in exp}
+    # of the tensor-core launches, those on zo_matmul's Hopper route
+    hopper = {k: launches[k] for k in (f"{n}/tc_tma" for n in want)
+              if k in launches}
     print(json.dumps({"phase": f"{label} bodies", "launches": got,
-                      "expected": exp}), flush=True)
+                      "expected": exp, "tc_tma": hopper}), flush=True)
     check(got == exp, f"{label}: launches by body {got} != expected {exp}")
 
 
@@ -5587,7 +5593,8 @@ def main():
                            if k in r},
                         **({"launches_by_body": {
                             b: sum(p[f"{name}/{b}"] for p in paths.values())
-                            for b in ("tc", "simt")}}
+                            for b in ("tc", "tc_tma", "simt")
+                            if f"{name}/{b}" in ops.BODIES}}
                            if f"{name}/tc" in ops.BODIES else {}),
                         **({"launches_by_route": {
                             r: sum(p[f"{name}/{r}"] for p in paths.values())

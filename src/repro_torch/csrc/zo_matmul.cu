@@ -16,8 +16,10 @@
 // lane stride: a layer slice of the multi-tenant state) -- every
 // projection of the multi-tenant step's user-axis forward in one launch.
 //
-// Two bodies, chosen by the launcher from X's dtype and z's dist alone
-// (repro_zo_matmul_body), for all four entry points alike:
+// Two bodies, chosen by the launcher from X's dtype and z's dist
+// (repro_zo_matmul_body), for all four entry points alike; the tensor-core
+// one has two routes, chosen from W's dtype, K, N, W's lane stride and the
+// bases' alignment -- never from M, a value or a setting:
 //
 // 1. bf16 X with Rademacher z: bf16 tensor cores. The decomposition
 //    X (W + c z) = X W + c (X z) is exact term by term on these inputs:
@@ -29,18 +31,57 @@
 //    rounding of W' that they skip -- the class of difference that the
 //    2e-5 / 1e-2 of max|Y| limits already admit. The f32 W' is never
 //    formed. Bound on this card: max(bytes / 3.35 TB/s, 2 M K N / 989
-//    TFLOP/s) -- 0.213 ms for OPT-1.3B's LM head at M = 1024, 0.035 ms
-//    for a w_in slice -- where the SIMT body's f32 bound was 3.147 and
-//    0.513 ms.
-//    The design: wgmma (sm_90a; m64n64k16, bf16 in, f32 accumulators)
+//    TFLOP/s) -- 0.0695 ms for OPT-1.3B's q/k/v/o at M = 8192 (B 16 x S
+//    512), 0.278 ms for its w_in and w_out -- where the SIMT body's f32
+//    bound would be ~15x that.
+//    a. The Hopper body (namespace tma), where TMA can load X and W: a
+//    bf16 W (not an int8 q), K, N and W's lane stride multiples of 8
+//    bf16 (16-byte rows) and 16-byte bases (use_tma) -- every bf16
+//    projection of the training paths. What bounds it is the SM's
+//    shared memory and the hash, not the tensor cores: a CTA's output
+//    tile is 128 x 128, and for every k16 step each of two consumer
+//    warpgroups issues one wgmma.m64n256k16 over its 64 rows of X and the
+//    joint 64 x 256 B tile [W | z] of the stage (W's 128 columns beside
+//    z's, four MN-major 128-byte-swizzled [64][64] chunks, LBO the chunk
+//    stride), so the first 128 accumulator columns are X W and the last
+//    128 X z, still two accumulators, 128 registers a thread. That is 80
+//    KB of shared-memory reads a 64-k stage for 2.1 M MACs (the 256 x 64
+//    body below read 128 KB for the same), beside the stage's 48 KB of
+//    writes; X is read once per 128 columns (not 64). The ring has 4
+//    stages of 48 KB with a full and an empty mbarrier each (transaction
+//    bytes on the full one); X and W arrive by TMA (cp.async.bulk.tensor,
+//    each issued by lane 0 of its own producer warp), and the producer
+//    warpgroup otherwise only hashes; setmaxnreg gives the consumers 216
+//    registers and the producers 72. The two CTAs of a 2-CTA cluster
+//    take the two 128-row halves of a 256-row block of one column strip:
+//    each loads half of every stage's W rows by TMA multicast into both,
+//    and hashes half of its z rows (zo_hash.cuh's folds at the ABSOLUTE
+//    (k, n) coordinates, the plain version's bits) and writes them as
+//    bf16 +-1 into both rings by st.async, whose bytes complete on the
+//    full barriers like TMA's -- so each weight is hashed once per 256
+//    rows of X, as in the 256 x 64 body. A CTA whose rows lie past M
+//    still loads and hashes its half for its peer. The grid is
+//    persistent: as many clusters as the card holds at once walk the
+//    tiles, lanes outermost, then groups of 8 row blocks, row blocks
+//    fastest, so the clusters that run together share W strips and a
+//    group's rows of X stay in L2. Measured (scripts/zo_matmul_ablation.py,
+//    H100): 1.40-1.60x the 256 x 64 body at the OPT cells' shapes,
+//    2.7-3.1x bf16 cuBLAS; without the hash it would run 1.34-1.7x
+//    faster, without the X z half another 1.00-1.09x, so the producers'
+//    hash and z writes, contending with the consumers' products for the
+//    shared-memory pipe, are the largest remaining part; 4-CTA clusters
+//    (kCluster 4: z hashed once per 512 rows) ran 4-10 % faster.
+//    b. The 256 x 64 body (namespace tc) for the rest: an int8 q, whose
+//    tile is widened in the producers, and ragged or unaligned rows.
+//    wgmma (sm_90a; m64n64k16, bf16 in, f32 accumulators)
 //    on a 4-stage ring in shared memory (192 KB, tiles in wgmma's
 //    128-byte-swizzled layouts); 384 threads, warp specialised. Two
 //    consumer warpgroups own a 256 x 64 output block, 128 rows (two
 //    64-row tiles) each, with two accumulators, X W (or X q) and X z,
 //    both read by wgmma straight from the ring. One producer warpgroup
-//    fills it, tile by tile (BK = 64): X and a bf16 W by 16-byte cp.async
-//    (zero-filled at the edges), an int8 q tile loaded 16 bytes a thread
-//    and widened to bf16 on the way into shared memory, and the z tile
+//    fills it, tile by tile (BK = 64): with an int8 q, X by 16-byte
+//    cp.async (zero-filled at the edges) and the q tile loaded 16 bytes a
+//    thread and widened to bf16 on the way into shared memory; the z tile
 //    hashed with zo_hash.cuh's folds at the ABSOLUTE (k, n) coordinates
 //    -- the same bits as the SIMT body and the plain version -- written
 //    as bf16 +-1. Named barriers (full / empty per stage) hand stages
@@ -56,9 +97,10 @@
 //    (scripts/zo_matmul_ablation.py): the hash and the second product
 //    each still cost a fraction of the time, and a single product
 //    through this ring is well behind cuBLAS's bf16 GEMM, whose larger
-//    tiles read X and W fewer times. Rows of X whose length or base is
-//    not a multiple of 16 bytes (K = 33) take element loads into the
-//    same ring: a load route does not change a value. Blocks walk M
+//    tiles read X and W fewer times. A bf16 W comes here only with rows
+//    or bases that are not a multiple of 16 bytes (K = 33), and it, X and
+//    an unaligned int8 q take element loads into the same ring: a load
+//    route does not change a value. Blocks walk M
 //    fastest, so the blocks that share a W column strip run together
 //    and W is read from device memory about once.
 //    Y = acc_W (* s_n) + c * acc_z.
@@ -91,15 +133,20 @@
 //    X, W and Y take element loads and stores where K or N is not a
 //    multiple of 4 or a base is not aligned.
 //
-// Lanes: in both bodies the lane is blockIdx.z and the per-lane scalars
-// travel in the Lanes struct; the k order and the per-element arithmetic
-// depend neither on the number of lanes nor on the entry point (a lone
-// launch is the one-lane case of the same kernel in both bodies), so
-// every lane's bits are those of a lone zo_matmul (or zo_matmul_q) launch
-// with that lane's seed and coefficient.
+// Lanes: the lane is blockIdx.z (the Hopper body: the tile walk's
+// outermost index) and the per-lane scalars travel in the Lanes struct;
+// the k order and the per-element arithmetic depend neither on the number
+// of lanes, M, nor on the entry point (a lone launch is the one-lane case
+// of the same kernel), so every lane's bits are those of a lone
+// zo_matmul (or zo_matmul_q) launch with that lane's seed and
+// coefficient. Both tensor-core routes take the same k16 steps in the
+// same order, and on an H100 their outputs were equal bit for bit.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -542,12 +589,17 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ int sw_off(int r, int c) {
   return r * 64 + ((c ^ (r & 7)) << 3);
 }
-// wgmma shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t gmma_desc(const bf16* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+// wgmma shared-memory matrix descriptor, 128-byte swizzle, of the tile at
+// shared address a
+__device__ __forceinline__ uint64_t gmma_desc_at(uint32_t a, uint32_t lbo,
+                                                 uint32_t sbo) {
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
          static_cast<uint64_t>(lbo >> 4) << 16 |
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ uint64_t gmma_desc(const bf16* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return gmma_desc_at(smem_u32(p), lbo, sbo);
 }
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -620,7 +672,8 @@ __device__ __forceinline__ uint4 load8_elems(const bf16* p, int64_t row,
 }
 
 // the block's X rows [m0, m0 + BM) and W columns [n0, n0 + BN) of lane
-// blockIdx.z; VEC: 16-byte loads (K, N, bases and lane strides allow them)
+// blockIdx.z; VEC (int8 q only): 16-byte loads of X and q (K, N, bases and
+// lane strides allow them)
 template <typename TW, bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
 zo_matmul_tc_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
@@ -675,13 +728,7 @@ zo_matmul_tc_kernel(const bf16* __restrict__ x, const TW* __restrict__ w,
           const int col = (c % (BN / 8)) * 8;
           bf16* dst = ws + sw_off(r, col / 8);
           const int gk = k0 + r, gn = n0 + col;
-          if constexpr (VEC) {
-            const bool ok = gk < k && gn < n;
-            cp_async16(dst, ok ? w + static_cast<int64_t>(gk) * n + gn : w,
-                       ok ? 16 : 0);
-          } else {
-            *reinterpret_cast<uint4*>(dst) = load8_elems(w, gk, k, gn, n);
-          }
+          *reinterpret_cast<uint4*>(dst) = load8_elems(w, gk, k, gn, n);
         }
       }
     };
@@ -885,27 +932,525 @@ int launch_vec(const void* x, const void* w, const float* scale, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// TW: bf16 (W of X's dtype) or int8_t (with column scales)
+// TW: bf16 (W of X's dtype) or int8_t (with column scales). A bf16 W
+// reaches this body only where the Hopper body cannot load it (use_tma),
+// so it always takes element loads; an int8 q takes 16-byte loads where
+// K, N, the bases and the lane stride allow them.
 template <typename TW>
 int launch(const void* x, const void* w, const float* scale, void* y, int m,
            int k, int n, int64_t w_stride, int w_lanes, const Lanes& lanes,
            int n_lanes, int prime_offset, cudaStream_t st) {
-  constexpr int w_vec = std::is_same_v<TW, int8_t> ? 16 : 8;
-  const bool vec = k % 8 == 0 && n % w_vec == 0 && w_stride % w_vec == 0 &&
-                   aligned(x, 16) && aligned(w, 16);
-  return vec ? launch_vec<TW, true>(x, w, scale, y, m, k, n, w_stride,
-                                    w_lanes, lanes, n_lanes, prime_offset,
-                                    st)
-             : launch_vec<TW, false>(x, w, scale, y, m, k, n, w_stride,
-                                     w_lanes, lanes, n_lanes, prime_offset,
-                                     st);
+  if constexpr (std::is_same_v<TW, int8_t>) {
+    if (k % 8 == 0 && n % 16 == 0 && w_stride % 16 == 0 && aligned(x, 16) &&
+        aligned(w, 16))
+      return launch_vec<TW, true>(x, w, scale, y, m, k, n, w_stride, w_lanes,
+                                  lanes, n_lanes, prime_offset, st);
+  }
+  return launch_vec<TW, false>(x, w, scale, y, m, k, n, w_stride, w_lanes,
+                               lanes, n_lanes, prime_offset, st);
 }
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// the Hopper tensor-core body (bf16 X and W, Rademacher z, 16-byte rows)
+
+namespace tma {
+
+using bf16 = __nv_bfloat16;
+using tc::gmma_desc_at;
+using tc::smem_u32;
+using tc::sw_off;
+using tc::wgmma_commit;
+using tc::wgmma_fence;
+using tc::wgmma_wait;
+
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4;
+constexpr int kConsumerGroups = 2, kProducerWarps = 4;
+constexpr int kConsumers = kConsumerGroups * 128;                 // 256
+constexpr int kThreads = kConsumers + kProducerWarps * 32;        // 384
+constexpr int kProducers = kThreads - kConsumers;                 // 128
+// CTAs a cluster: they take consecutive 128-row tiles of one column
+// strip, so each loads and hashes 1 / kCluster of every stage's W and z
+// rows and z is hashed once per kCluster * BM rows of X
+constexpr int kCluster = 2;
+constexpr int kGroup = 8;      // clusters' row blocks a raster group (place)
+// registers a thread after setmaxnreg: the producers give up what the
+// consumers take (168 a thread at launch, 384 threads an SM); more would
+// leave the consumers' setmaxnreg.inc waiting for ever
+constexpr int kProducerRegs = 72, kConsumerRegs = 216;
+static_assert(kProducerRegs + kConsumerGroups * kConsumerRegs ==
+                  (kConsumerGroups + 1) * (65536 / kThreads / 8 * 8),
+              "setmaxnreg moves registers, it does not add them");
+// A stage: X [BM][BK] K-major (one 128-byte swizzled row a row of X), then
+// the joint B tile as four [BK][64] MN-major chunks (one 128-byte swizzled
+// row a k): W columns n0 .. n0 + 63, W n0 + 64 .. n0 + 127, then z's two.
+// Every chunk starts 1024-byte aligned, the swizzle's period.
+constexpr int X_TILE = BM * BK, CHUNK = BK * 64;                  // bf16s
+constexpr int STAGE = X_TILE + 4 * CHUNK;
+constexpr int SMEM_BYTES = STAGES * STAGE * 2 + 1024;   // + alignment slack
+static_assert(BK == 64 && BN == 2 * 64 && BM == kConsumerGroups * 64,
+              "one n256 product a consumer warpgroup and k16 step");
+static_assert(SMEM_BYTES <= 232448, "shared memory a block can use");
+// each CTA's share of a stage's k rows of W and z: ROWS rows of each
+// 64-column chunk, 128 bytes a row, rows ROWS * rank .. + ROWS - 1
+constexpr int ROWS = BK / kCluster;
+static_assert(ROWS % 8 == 0, "whole 8-row swizzle periods a share");
+// a stage's bytes, every one of which completes on its full barrier: X by
+// TMA (a live CTA), W by TMA multicast, z by st.async
+constexpr uint32_t X_BYTES = X_TILE * 2, W_BYTES = 2 * CHUNK * 2;
+constexpr uint32_t Z_BYTES = 2 * CHUNK * 2;
+// z: each producer thread hashes Z_CHUNKS 8-column chunks of one row
+constexpr int Z_CHUNKS = 16 * ROWS / kProducers, Z_ROW_THREADS = 16 / Z_CHUNKS;
+static_assert(Z_ROW_THREADS == 4 || Z_ROW_THREADS == 8, "a quarter warp's rows");
+// full: the local expect_tx arrival alone (the rest is bytes); empty:
+// each consumer warpgroup of every CTA of the cluster
+constexpr uint32_t FULL_ARRIVALS = 1;
+constexpr uint32_t EMPTY_ARRIVALS = kCluster * kConsumerGroups;
+
+// two z as bf16 +-1, tc::z_pair's bits in two instructions: the permute
+// copies bit 31 of sa into bits 8-15 and of sb into bits 24-31
+__device__ __forceinline__ uint32_t z_pair(uint32_t sa, uint32_t sb) {
+  return (__byte_perm(sa, sb, 0xF0B0) & 0x80008000u) | 0x3F803F80u;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the address of local shared address `a` in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+// The consumers' wait on a full stage acquires at cluster scope: its z
+// rows arrive by st.async from every CTA of the cluster (then fenced for
+// wgmma's async proxy), its X and W by TMA. The producers' wait on an
+// empty stage, and the consumers' arrivals that free it, order reads
+// before writes and stay at CTA scope.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+// an arrival on a barrier of either CTA (a shared::cluster address)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+// box (c0, c1, c2) of a 3-D tensor map into this CTA's shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+// the same into every CTA of the cluster, at the same offsets, each on
+// its own barrier
+__device__ __forceinline__ void tma_load_all(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             uint32_t bar, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "h"(static_cast<uint16_t>((1 << kCluster) - 1))
+      : "memory");
+}
+// four words into shared::cluster address a (this CTA's or another's),
+// completing 16 bytes on that CTA's barrier bar (a shared::cluster
+// address too)
+__device__ __forceinline__ void st_async(uint32_t a, const uint32_t (&v)[4],
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(a), "r"(v[0]), "r"(v[1]), "r"(v[2]),
+      "r"(v[3]), "r"(bar)
+      : "memory");
+}
+
+#define REPRO_F8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+// d (64 x 256 f32, a warpgroup's fragment) = A (64 x 16, K-major) *
+// B (16 x 256, MN-major) (+ d if accumulate), both from shared memory:
+// the joint product. Only wgmma defines d (no zeroing), so ptxas keeps
+// the products in flight.
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
+                                          uint64_t db, bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : REPRO_F8(0), REPRO_F8(8), REPRO_F8(16), REPRO_F8(24), REPRO_F8(32),
+        REPRO_F8(40), REPRO_F8(48), REPRO_F8(56), REPRO_F8(64),
+        REPRO_F8(72), REPRO_F8(80), REPRO_F8(88), REPRO_F8(96),
+        REPRO_F8(104), REPRO_F8(112), REPRO_F8(120)
+      : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
+}
+#undef REPRO_F8
+
+// Output tile `tile` of a launch: lane u, X rows [m0, m0 + BM) of this
+// CTA (the cluster's row block is kCluster tiles of BM rows, one a CTA),
+// W columns [n0, n0 + BN). Lanes outermost; inside a lane, groups of
+// kGroup row blocks, and inside a group row blocks fastest, then column
+// strips: the clusters that run together share W strips, and a group's
+// X rows stay in L2 while its strips go by.
+struct Place {
+  int u, m0, n0;
+};
+__device__ __forceinline__ Place place(int tile, int m_blocks, int n_strips,
+                                       uint32_t rank) {
+  const int per_lane = m_blocks * n_strips;
+  const int u = tile / per_lane, r = tile % per_lane;
+  const int first = r / (kGroup * n_strips) * kGroup;
+  const int blocks = min(kGroup, m_blocks - first);
+  const int local = r - first * n_strips;
+  return {u, ((first + local % blocks) * kCluster + static_cast<int>(rank)) *
+                 BM,
+          local / blocks * BN};
+}
+
+// Persistent: each cluster walks the tiles cluster, cluster + clusters,
+// ...; its CTAs take the row block's kCluster tiles of one column strip.
+// Each CTA loads its X rows by TMA, ROWS k rows of the stage's W (both
+// chunks, multicast into every CTA) and hashes ROWS k rows of z, which
+// it writes into every CTA's ring: z is hashed once per kCluster * BM
+// rows of X. A CTA whose rows lie past M still loads and hashes its share
+// for the others.
+__global__ void __launch_bounds__(kThreads, 1)
+zo_matmul_tc_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tw,
+                    bf16* __restrict__ y, int m, int k, int n, int w_lanes,
+                    int n_lanes, Lanes lanes, int prime_offset) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  // the same offsets in every CTA: multicast and copies rely on it
+  unsigned char* const ring_p =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = smem_u32(ring_p);
+  const int tid = threadIdx.x;
+  const uint32_t rank = cluster_rank();
+  const int m_blocks = (m + kCluster * BM - 1) / (kCluster * BM);
+  const int n_strips = (n + BN - 1) / BN;
+  const int tiles = m_blocks * n_strips * n_lanes;
+  const int k_tiles = (k + BK - 1) / BK;
+  const int cluster = blockIdx.x / kCluster;
+  const int clusters = gridDim.x / kCluster;
+  const uint32_t full0 = smem_u32(&full[0]), empty0 = smem_u32(&empty[0]);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, FULL_ARRIVALS);
+      mbar_init(empty0 + 8 * s, EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();     // every CTA's barriers exist before any arrival
+
+  if (tid >= kConsumers) {
+    // ------------------------------------------------------------ producers
+    // Every stage: thread pt hashes Z_CHUNKS 8-column chunks c = q +
+    // Z_ROW_THREADS j (q = pt % Z_ROW_THREADS; z's chunk c / 8, column
+    // group c % 8) of one of this CTA's ROWS z rows, and writes each into
+    // every CTA's ring by st.async, whose bytes complete on that CTA's
+    // full barrier as TMA bytes do: no local store to wait for, no fence,
+    // no hand-over. A quarter warp's rows differ in bit 2, so its 16-byte
+    // writes land on eight distinct swizzled bank groups.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs)
+                 : "memory");
+    const int pt = tid - kConsumers;
+    const uint32_t p1 = dim_prime(prime_offset + 1);
+    const int row0 = ROWS * static_cast<int>(rank);   // this CTA's k rows
+    const int lane = pt % 32, q = pt % Z_ROW_THREADS;
+    const int zrow = row0 + pt / 32 * (32 / Z_ROW_THREADS) + lane / 8 +
+                     4 * (lane % 8 / Z_ROW_THREADS);
+    uint32_t zoff[Z_CHUNKS];
+#pragma unroll
+    for (int j = 0; j < Z_CHUNKS; ++j) {
+      const int c = q + Z_ROW_THREADS * j;
+      zoff[j] = 2 * (X_TILE + (2 + c / 8) * CHUNK + sw_off(zrow, c % 8));
+    }
+    uint32_t rings[kCluster], fulls[kCluster];        // every CTA's
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      rings[r] = map_rank(ring, r);
+      fulls[r] = map_rank(full0, r);
+    }
+    uint32_t it = 0;                  // stages used so far, over all tiles
+    for (int tile = cluster; tile < tiles; tile += clusters) {
+      const Place at = place(tile, m_blocks, n_strips, rank);
+      const uint32_t base = lanes.base[at.u];
+      const bool live = at.m0 < m;
+      uint32_t np0[Z_CHUNKS];
+#pragma unroll
+      for (int j = 0; j < Z_CHUNKS; ++j)
+        np0[j] = (static_cast<uint32_t>(at.n0 + 8 * (q + Z_ROW_THREADS * j)) +
+                  lanes.col0) * p1;
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        const uint32_t s = it % STAGES;
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t st = ring + 2 * s * STAGE;
+        // every CTA's consumers are done with stage s (first pass: free)
+        mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1u) ^ 1u);
+        // a TMA issue holds its warp up to hundreds of cycles, so the
+        // three go to three warps' lane 0 and each warp's hash starts late
+        // by one issue alone
+        if (pt == 0) {
+          mbar_expect_tx(full, (live ? X_BYTES : 0u) + W_BYTES + Z_BYTES);
+          if (live) tma_load(st, &tx, full, kt * BK, at.m0, at.u);
+        } else if (pt == 32 || pt == 64) {
+          // W rows row0 .. + ROWS - 1 of chunk h, into every CTA
+          const int h = pt / 32 - 1;
+          tma_load_all(st + 2 * (X_TILE + h * CHUNK + row0 * 64), &tw, full,
+                       at.n0 + 64 * h, kt * BK + row0, at.u % w_lanes);
+        }
+        // the stage's z rows at the ABSOLUTE (k, n) coordinates, as bf16
+        // +-1
+        const uint32_t h_row =
+            fold(base, static_cast<uint32_t>(kt * BK + zrow) + lanes.row0,
+                 prime_offset);
+#pragma unroll
+        for (int j = 0; j < Z_CHUNKS; ++j) {
+          uint32_t np = np0[j];
+          uint32_t o[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e, np += 2u * p1)
+            o[e] = z_pair(z_sign(h_row, np), z_sign(h_row, np + p1));
+#pragma unroll
+          for (int r = 0; r < kCluster; ++r)
+            st_async(rings[r] + 2 * s * STAGE + zoff[j], o, fulls[r] + 8 * s);
+        }
+      }
+    }
+    cluster_sync();   // no CTA leaves while another may write into it
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
+               : "memory");
+  // warpgroup wg owns rows wg * 64 .. + 63 of the CTA's tile; its
+  // fragment's first 128 columns are X W, the last 128 X z
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  // thread r < kCluster of a warpgroup frees stage s in CTA r
+  const uint32_t empty_r = map_rank(empty0, tid % 128 % kCluster);
+  auto release = [&](uint32_t s) {
+    if (tid % 128 < kCluster) mbar_arrive(empty_r + 8 * s);
+  };
+  float acc[128];
+  uint32_t it = 0;
+  for (int tile = cluster; tile < tiles; tile += clusters) {
+    const Place at = place(tile, m_blocks, n_strips, rank);
+    const bool live = at.m0 < m;
+    for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+      const uint32_t s = it % STAGES;
+      mbar_wait_cluster(full0 + 8 * s, (it / STAGES) & 1u);
+      tc::fence_async_smem();         // the st.async z rows, for wgmma
+      if (live) {
+        const uint32_t xs = ring + 2 * (s * STAGE + wg * 64 * BK);
+        const uint32_t bs = ring + 2 * (s * STAGE + X_TILE);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK; kk += 16) {
+          // A: k16 steps 32 bytes along the swizzled row (SBO: 8 rows);
+          // B: 16 k rows (2 x SBO) a step, LBO the 64-column chunks
+          wgmma_256(acc, gmma_desc_at(xs + 2 * kk, 16, 1024),
+                    gmma_desc_at(bs + 2 * kk * 64, 2 * CHUNK, 1024),
+                    kt > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();              // the previous stage's products done
+      }
+      if (kt >= 1) release((it - 1) % STAGES);
+    }
+    wgmma_wait<0>();
+    release((it - 1) % STAGES);
+    if (!live) continue;
+
+    // Y = acc_W + c * acc_z; the fragment holds rows warp * 16 + lane / 4
+    // (+ 8) and columns 8 j + 2 (lane % 4) (+ 1); N % 8 == 0, so a pair
+    // is whole
+    const float coeff = lanes.coeff[at.u];
+    bf16* yl = y + static_cast<int64_t>(at.u) * m * n;
+    const int col0 = at.n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = at.m0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
+      if (row >= m) continue;
+      bf16* yr = yl + static_cast<int64_t>(row) * n;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = col0 + 8 * j;
+        if (col >= n) continue;
+        const float v0 = __fmaf_rn(coeff, acc[4 * (j + 16) + 2 * h],
+                                   acc[4 * j + 2 * h]);
+        const float v1 = __fmaf_rn(coeff, acc[4 * (j + 16) + 2 * h + 1],
+                                   acc[4 * j + 2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(yr + col) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+  cluster_sync();
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 (d2, d1, d0) tensor, rows of d0 at s1 bytes, planes at s2 bytes,
+// boxes of (1, b1, b0) in the 128-byte swizzle; zeros past every edge
+bool encode(CUtensorMap* map, const void* p, uint64_t d0, uint64_t d1,
+            uint64_t d2, uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaLaunchConfig_t config(unsigned clusters, cudaStream_t st,
+                          cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(kCluster * clusters, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters the card holds at once (queried once a device)
+int max_clusters() {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  int c = cached[dev].load(std::memory_order_relaxed);
+  if (c == 0) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        config(sm_count() / kCluster, nullptr, &attr);
+    if (cudaOccupancyMaxActiveClusters(&c, zo_matmul_tc_kernel, &cfg) !=
+        cudaSuccess)
+      return 0;
+    cached[dev].store(c, std::memory_order_relaxed);
+  }
+  return c;
+}
+
+int launch(const void* x, const void* w, void* y, int m, int k, int n,
+           int64_t w_stride, int w_lanes, const Lanes& lanes, int n_lanes,
+           int prime_offset, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      zo_matmul_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap tx, tw;
+  const uint64_t plane = w_lanes > 1 ? w_stride : static_cast<int64_t>(k) * n;
+  if (!encode(&tx, x, k, m, n_lanes, 2ull * k, 2ull * m * k, BK, BM) ||
+      !encode(&tw, w, n, k, w_lanes, 2ull * n, 2 * plane, 64, ROWS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cap = max_clusters();
+  if (cap <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int64_t tiles =
+      static_cast<int64_t>((m + kCluster * BM - 1) / (kCluster * BM)) *
+      ((n + BN - 1) / BN) * n_lanes;
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg =
+      config(static_cast<unsigned>(std::min<int64_t>(tiles, cap)), st,
+             &cluster);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, zo_matmul_tc_kernel, tx, tw, static_cast<bf16*>(y), m, k, n,
+      w_lanes, n_lanes, lanes, prime_offset);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace tma
+
 // the body rule: bf16 X (dtype 1) with Rademacher z (dist 0) runs on the
 // tensor cores, everything else on the SIMT body
 bool use_tc(int dtype, int dist) { return dtype == 1 && dist == 0; }
+
+// The tensor-core route: the Hopper body (tma::) where TMA can load X and
+// W -- a bf16 W, 16-byte rows (K, N and W's lane stride multiples of 8)
+// and 16-byte bases -- else the 256 x 64 body (tc::): int8 q, ragged or
+// unaligned rows. Values do not decide it, nor M.
+bool use_tma(bool int8, int k, int n, int64_t w_stride, const void* x,
+             const void* w) {
+  return !int8 && k % 8 == 0 && n % 8 == 0 && w_stride % 8 == 0 &&
+         aligned(x, 16) && aligned(w, 16);
+}
 
 Lanes one_lane(uint32_t base, float coeff, uint32_t row0, uint32_t col0) {
   Lanes lanes{};
@@ -928,13 +1473,17 @@ int run(const void* x, const void* w, const float* scale, void* y,
         const Lanes& lanes, int n_lanes, int prime_offset, int dist,
         cudaStream_t st) {
   using bf16 = __nv_bfloat16;
-  if (use_tc(dtype, dist))
+  if (use_tc(dtype, dist)) {
+    if (use_tma(scale != nullptr, k, n, w_stride, x, w))
+      return tma::launch(x, w, y, m, k, n, w_stride, w_lanes, lanes, n_lanes,
+                         prime_offset, st);
     return scale == nullptr
                ? tc::launch<bf16>(x, w, nullptr, y, m, k, n, w_stride,
                                   w_lanes, lanes, n_lanes, prime_offset, st)
                : tc::launch<int8_t>(x, w, scale, y, m, k, n, w_stride,
                                     w_lanes, lanes, n_lanes, prime_offset,
                                     st);
+  }
   if (dtype == 0)
     return scale == nullptr
                ? simt::launch<float, float>(x, w, nullptr, y, m, k, n,
@@ -974,11 +1523,17 @@ int users(const void* x, const void* w, const float* scale, void* y,
 }  // namespace
 }  // namespace repro_torch
 
-// 1 when a launch with this X dtype (0 float32, 1 bfloat16) and z dist
-// (0 Rademacher, 1 Gaussian) runs the tensor-core body, 0 for the SIMT
-// body: the rule every zo_matmul entry point below follows.
-extern "C" int repro_zo_matmul_body(int dtype, int dist) {
-  return repro_torch::use_tc(dtype, dist) ? 1 : 0;
+// The body a launch with this X dtype (0 float32, 1 bfloat16), z dist (0
+// Rademacher, 1 Gaussian), W (int8: 1 for an int8 q), K, N, W lane stride
+// (elements; 0 for one W) and X / W bases (lane 0's) runs: 0 the SIMT
+// body, 1 the 256 x 64 tensor-core body, 2 the Hopper tensor-core body --
+// the rule every zo_matmul entry point below follows.
+extern "C" int repro_zo_matmul_body(int dtype, int dist, int int8, int k,
+                                    int n, int64_t w_stride, const void* x,
+                                    const void* w) {
+  using namespace repro_torch;
+  if (!use_tc(dtype, dist)) return 0;
+  return use_tma(int8 != 0, k, n, w_stride, x, w) ? 2 : 1;
 }
 
 // The SIMT body's tile for a launch of m x n outputs a lane on `lanes`

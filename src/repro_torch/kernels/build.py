@@ -44,7 +44,9 @@ LAUNCHES: Dict[str, int] = {"zo_add": 0, "flash_decode": 0,
                             "flash_verify": 0}
 
 #: launches of the two-body kernels by body: ``"<kernel>/tc"`` (bf16
-#: tensor cores) and ``"<kernel>/simt"``; ``flash_decode`` by route:
+#: tensor cores) and ``"<kernel>/simt"``, the tensor-core launches of
+#: ``zo_matmul`` and ``zo_matmul_users`` on the Hopper body (TMA, 2-CTA
+#: clusters) also in ``"<kernel>/tc_tma"``; ``flash_decode`` by route:
 #: ``"flash_decode/slot"`` (G = 1) and ``"flash_decode/split"`` (G >= 2),
 #: the split launches on the tensor-core body (bf16, G 8-16) also in
 #: ``"flash_decode/split_tc"``
@@ -52,6 +54,7 @@ BODIES: Dict[str, int] = {**{f"{k}/{b}": 0 for k in (
     "zo_matmul", "zo_matmul_q", "zo_matmul_users", "zo_matmul_users_q",
     "flash_attention", "flash_prefill", "flash_verify")
     for b in ("tc", "simt")},
+    "zo_matmul/tc_tma": 0, "zo_matmul_users/tc_tma": 0,
     "flash_decode/slot": 0, "flash_decode/split": 0,
     "flash_decode/split_tc": 0}
 
@@ -94,7 +97,7 @@ _SIGNATURES = {
                                 ctypes.POINTER(ctypes.c_uint32),
                                 ctypes.POINTER(ctypes.c_float), _I, _I, _I,
                                 _P),
-    "repro_zo_matmul_body": (_I, _I),
+    "repro_zo_matmul_body": (_I, _I, _I, _I, _I, ctypes.c_int64, _P, _P),
     "repro_zo_matmul_simt_tile": (_I, _I, _I, _I),
     "repro_flash_attention_body": (_I,),
     "repro_flash_prefill_body": (_I,),

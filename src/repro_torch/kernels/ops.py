@@ -6,7 +6,8 @@ tensor on a CUDA device -- never a fallback: a CUDA input the kernel
 does not take, a failed build or a failed launch raises. Launches are
 counted in :data:`LAUNCHES` (``LAUNCHES["zo_add"]`` and so on), and
 the two-body kernels' launches by body in :data:`BODIES`
-(``BODIES["zo_matmul/tc"]``: bf16 tensor cores; ``.../simt``; also
+(``BODIES["zo_matmul/tc"]``: bf16 tensor cores, of them the Hopper
+body's launches also in ``.../tc_tma``; ``.../simt``; also
 ``flash_attention``, ``flash_prefill`` and ``flash_verify``).
 
 A DTensor (the sharded step: ``models/sharding.py``; the tensor-level

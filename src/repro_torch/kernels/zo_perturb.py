@@ -30,8 +30,14 @@ up to summation order because every product of these inputs is exact
 in f32; f32 ``X`` or Gaussian z takes the SIMT body of the f32 W', whose
 tile (:data:`SIMT_TILES`, :func:`simt_tile`) the launcher picks from the
 shape, the lane count and the card's SMs -- each output one f32 FMA
-chain in k order whatever the tile. The body depends on dtype and dist
-only, so a user lane still equals a lone launch bit for bit.
+chain in k order whatever the tile. The tensor cores have two routes
+(:data:`MM_BODIES`): the Hopper body -- TMA loads, 128 x 128 tiles on
+2-CTA clusters that hash z once per 256 rows, one n256 ``wgmma`` over
+the joint [W | z] tile -- wherever TMA can load X and a bf16 W (K, N
+and W's lane stride multiples of 8, 16-byte bases), and the 256 x 64
+body for an int8 q or ragged or unaligned rows. Neither M nor the lane
+count decides the body, and both routes take the same k16 steps in the
+same order, so a user lane still equals a lone launch bit for bit.
 
 Seed conventions (the Pallas kernel's): ``prehashed=False`` takes the
 step seed and folds the leaf ``salt`` in; ``prehashed=True`` takes a base
@@ -55,16 +61,27 @@ import numpy as np
 import torch
 
 from repro_torch.core import rng as zrng
-from repro_torch.kernels.build import body, launch, library
+from repro_torch.kernels.build import launch, library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DISTS = {"rademacher": 0, "gaussian": 1}
 
+#: the ``BODIES`` names of each body ``repro_zo_matmul_body`` returns: the
+#: SIMT body, the 256 x 64 tensor-core body, the Hopper one (tensor cores
+#: too, so counted under ``"tc"`` as well)
+MM_BODIES = ("simt", "tc", ("tc", "tc_tma"))
 
-def _mm_body(x: torch.Tensor, dist: str) -> str:
-    """The ``zo_matmul`` body a launch runs (``csrc/zo_matmul.cu``'s
-    rule): ``"tc"`` for bf16 x with Rademacher z, else ``"simt"``."""
-    return body("repro_zo_matmul_body", _DTYPES[x.dtype], _DISTS[dist])
+
+def _mm_body(x_ptr: int, w: torch.Tensor, dist: str, dtype: torch.dtype,
+             k: int, n: int, w_stride: int = 0, w_ptr=None):
+    """The ``zo_matmul`` body a launch runs, as ``BODIES`` names it
+    (``csrc/zo_matmul.cu``'s rule): the tensor cores for bf16 x with
+    Rademacher z -- the Hopper body where TMA can load X and a bf16 W
+    (K, N and W's lane stride multiples of 8, 16-byte bases) -- else the
+    SIMT body."""
+    return MM_BODIES[library().repro_zo_matmul_body(
+        _DTYPES[dtype], _DISTS[dist], int(w.dtype == torch.int8), k, n,
+        w_stride, x_ptr, w.data_ptr() if w_ptr is None else w_ptr)]
 
 
 #: the SIMT body's output tiles (BM, BN), as ``csrc/zo_matmul.cu``'s
@@ -212,7 +229,7 @@ def zo_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed, salt: int,
            _base(seed, salt, prehashed), prime_offset, coeff_f32,
            _DISTS[dist], row0, col0,
            torch.cuda.current_stream(x.device).cuda_stream,
-           body=_mm_body(x, dist))
+           body=_mm_body(x.data_ptr(), w, dist, x.dtype, k, n))
     return out
 
 
@@ -328,7 +345,7 @@ def zo_matmul_q_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
            scale.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], m, k, n,
            _base(seed, salt, prehashed), prime_offset, coeff_f32,
            _DISTS[dist], torch.cuda.current_stream(x.device).cuda_stream,
-           body=_mm_body(x, dist))
+           body=_mm_body(x.data_ptr(), q, dist, x.dtype, k, n))
     return out
 
 
@@ -573,10 +590,10 @@ def zo_matmul_users_cuda(x: torch.Tensor, w: torch.Tensor, seeds,
             launch(kernel, "repro_zo_matmul_users", xp, wp, yp,
                    _DTYPES[x.dtype], m, k, n, w_stride, w_lanes, bases, cf,
                    cnt, prime_offset, _DISTS[dist], stream,
-                   body=_mm_body(x, dist))
+                   body=_mm_body(xp, w, dist, x.dtype, k, n, w_stride, wp))
         else:
             launch(kernel, "repro_zo_matmul_users_q", xp, w.data_ptr(),
                    scale.data_ptr(), yp, _DTYPES[x.dtype], m, k, n, bases,
                    cf, cnt, prime_offset, _DISTS[dist], stream,
-                   body=_mm_body(x, dist))
+                   body=_mm_body(xp, w, dist, x.dtype, k, n))
     return out

@@ -45,6 +45,7 @@ atol 0, and ``zo_matmul``'s column- and row-parallel shards hold to its
 limits against the whole product.
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -58,6 +59,7 @@ from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import zo_perturb as zp  # noqa: E402
+from test_torch_zo_matmul_route import route  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1003,6 +1005,190 @@ def test_zo_matmul_body_follows_dtype_and_dist(cuda, kernel, dtype, dist):
     _mm_launch(kernel, x, dist, cuda)
     assert build.BODIES[f"{kernel}/{want}"] == before[f"{kernel}/{want}"] + 1
     assert build.BODIES[f"{kernel}/{other}"] == before[f"{kernel}/{other}"]
+
+
+# ---------------------------------------------------------------------------
+# the Hopper tensor-core body (TMA loads, 2-CTA clusters, one n256 wgmma
+# over the joint [W | z] tile): bf16 W with 16-byte rows and bases
+
+# (dtype, dist, int8 W, K, N, W lane stride, X base, W base) -> the body
+# (0 SIMT, 1 the 256 x 64 tensor-core body, 2 the Hopper body), each
+# also route()'s answer (tests/test_torch_zo_matmul_route.py)
+ROUTES = {(1, 0, 0, 2048, 2048, 0, 0x1000, 0x2000): 2,
+          (1, 0, 0, 8192, 2048, 8192 * 2048 * 2, 0x1000, 0x2000): 2,
+          (1, 0, 0, 72, 8, 0, 0x10, 0x20): 2,
+          (1, 0, 1, 2048, 2048, 0, 0x1000, 0x2000): 1,
+          (1, 0, 0, 33, 2048, 0, 0x1000, 0x2000): 1,
+          (1, 0, 0, 2048, 130, 0, 0x1000, 0x2000): 1,
+          (1, 0, 0, 2048, 2048, 2048 * 2048 + 4, 0x1000, 0x2000): 1,
+          (1, 0, 0, 2048, 2048, 0, 0x1002, 0x2000): 1,
+          (1, 0, 0, 2048, 2048, 0, 0x1000, 0x2008): 1,
+          (0, 0, 0, 2048, 2048, 0, 0x1000, 0x2000): 0,
+          (1, 1, 0, 2048, 2048, 0, 0x1000, 0x2000): 0}
+
+
+def _route_model(dtype, dist, *rest):
+    return route(("float32", "bfloat16")[dtype],
+                 ("rademacher", "gaussian")[dist], *rest)
+
+
+@pytest.mark.parametrize("args", sorted(ROUTES), ids=str)
+def test_zo_matmul_body_rule_matches_the_route_model(cuda, args):
+    assert build.library().repro_zo_matmul_body(*args) == ROUTES[args]
+    assert _route_model(*args) == ROUTES[args]
+
+
+def test_zo_matmul_body_rule_equals_the_route_model_on_random_launches(cuda):
+    """The launcher's rule and the CPU tests' model agree over random
+    dtypes, dists, W kinds, K, N, lane strides and base offsets."""
+    r = np.random.default_rng(29)
+    body = build.library().repro_zo_matmul_body
+    seen = set()
+    for _ in range(3000):
+        k, n = (int(v) * int(r.choice([1, 8]))
+                for v in r.integers(1, 1100, 2))
+        args = (int(r.integers(2)), int(r.integers(2)), int(r.integers(2)),
+                k, n, int(r.choice([0, k * n, k * n + int(r.integers(1, 8))])),
+                *(0x10000 + int(v) for v in r.choice([0, 2, 8, 16], 2)))
+        got = body(*args)
+        assert got == _route_model(*args), args
+        seen.add(got)
+    assert seen == {0, 1, 2}
+
+
+# (M a lane, N, lanes), K 64: the OPT cells' tile counts (8192 x 2048 and
+# 8192 x 8192 single-lane, 16 lanes of 1024 x 2048), M a multiple of 128
+# but not of 256 (a pair with an idle CTA), M <= 128 (every pair's second
+# CTA idle), M off 128, N off 128 and under 128, more tiles than the
+# card's clusters and fewer
+TMA_WALKS = [(8192, 2048, 1), (8192, 8192, 1), (1024, 2048, 16),
+             (384, 256, 1), (100, 512, 3), (128, 128, 1), (1, 8, 1),
+             (300, 200, 2), (2000, 72, 5), (129, 2048, 16)]
+
+
+@pytest.mark.parametrize("m,n,lanes", TMA_WALKS, ids=str)
+def test_zo_matmul_tma_body_writes_every_output_tile(cuda, m, n, lanes):
+    """The Hopper body's persistent walk over the 128 x 128 output tiles
+    of every lane (2-CTA clusters on pairs of row tiles, a CTA past M
+    idle): Y filled with NaN before the launch holds none after it, and
+    every lane is within the bf16 limit of the plain version."""
+    k = 64
+    gen = torch.Generator(device=cuda).manual_seed(m + n + lanes)
+    x = torch.randn((lanes, m, k), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((lanes, k, n), generator=gen, device=cuda) * 0.02
+         ).bfloat16()
+    seeds = list(range(40, 40 + lanes))
+    coeffs = [0.05] * lanes
+    salt = rng.leaf_salt("blocks/mlp/w_in/w")
+    y = torch.full((lanes, m, n), float("nan"), dtype=torch.bfloat16,
+                   device=cuda)
+    lib = build.library()
+    assert lib.repro_zo_matmul_body(1, 0, 0, k, n, k * n, x.data_ptr(),
+                                    w.data_ptr()) == 2
+    rc = lib.repro_zo_matmul_users(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), 1, m, k, n, k * n, lanes,
+        (ctypes.c_uint32 * lanes)(*[zp._base(s, salt, False) for s in seeds]),
+        (ctypes.c_float * lanes)(*coeffs), lanes, 0, 0,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize(cuda)
+    assert not torch.isnan(y).any()
+    want = zp.zo_matmul_users_ref(x, w, seeds, salt, coeffs)
+    err = (y.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err <= MM_RTOL["bfloat16"], err
+
+
+# (M, K, N): OPT-1.3B's fused-cell products at B 16 x S 512 (q/k/v/o,
+# w_in, w_out); M a multiple of 128 but not of 256 (a pair's second CTA
+# idle); M <= 128 (every second CTA idle) and M 1; N off 128, N 8; K off 64
+TMA_SHAPES = [(8192, 2048, 2048), (8192, 2048, 8192), (8192, 8192, 2048),
+              (384, 256, 384), (100, 128, 256), (1, 64, 128),
+              (512, 256, 200), (300, 72, 8)]
+
+
+@pytest.mark.parametrize("coeff", [0.0, 0.05])
+@pytest.mark.parametrize("mkn", TMA_SHAPES, ids=str)
+def test_zo_matmul_tma_body_matches_plain(cuda, mkn, coeff):
+    """The Hopper body (as ``BODIES`` counts) within the bf16 limit of
+    the plain version, with z at 2.5 times W's scale (and without it: X W
+    alone), at the cells' shapes and every edge of its tiles."""
+    m, k, n = mkn
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((k, n), generator=gen, device=cuda) * 0.02).bfloat16()
+    salt = rng.leaf_salt("blocks/mlp/w_in/w")
+    before = dict(build.BODIES)
+    got = ops.zo_matmul(x, w, 99, salt, coeff)
+    for b in ("tc", "tc_tma"):
+        assert build.BODIES[f"zo_matmul/{b}"] == before[f"zo_matmul/{b}"] + 1
+    want = zp.zo_matmul_ref(x, w, 99, salt, coeff)
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err <= MM_RTOL["bfloat16"], err
+
+
+@pytest.mark.parametrize("mkn", [(8192, 2048, 2048), (300, 72, 8)], ids=str)
+def test_zo_matmul_tma_body_bits_equal_the_256x64_body(cuda, mkn):
+    """The two tensor-core routes take the same k16 steps in the same
+    order: X at a base 2 bytes off 16 takes the 256 x 64 body, X at an
+    aligned base the Hopper body, and the outputs are equal at atol 0."""
+    m, k, n = mkn
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((k, n), generator=gen, device=cuda) * 0.02).bfloat16()
+    off = torch.empty(m * k + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    x_off = off.view(m, k)
+    x_off.copy_(x)
+    salt = rng.leaf_salt("blocks/mlp/w_out/w")
+    before = dict(build.BODIES)
+    got = ops.zo_matmul(x, w, 21, salt, 0.05)
+    old = ops.zo_matmul(x_off, w, 21, salt, 0.05)
+    assert build.BODIES["zo_matmul/tc_tma"] == before["zo_matmul/tc_tma"] + 1
+    assert build.BODIES["zo_matmul/tc"] == before["zo_matmul/tc"] + 2
+    assert torch.equal(got, old)
+
+
+def test_zo_matmul_tma_body_at_large_shard_offsets(cuda):
+    """A (256, 200) shard at (row0, col0) = (4096, 12288) of a stacked
+    leaf (prime_offset 1): z is the whole leaf's slice there, within the
+    bf16 limit of the plain version at the same offsets."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((300, 256), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((256, 200), generator=gen, device=cuda) * 0.02
+         ).bfloat16()
+    base = rng.fold_leading(rng.leaf_base(5, rng.leaf_salt("lm_head/w")), 3)
+    kw = dict(prime_offset=1, prehashed=True, offsets=(4096, 12288))
+    before = build.BODIES["zo_matmul/tc_tma"]
+    got = ops.zo_matmul(x, w, base, 0, 0.05, **kw)
+    assert build.BODIES["zo_matmul/tc_tma"] == before + 1
+    want = zp.zo_matmul_ref(x, w, base, 0, 0.05, **kw)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err <= MM_RTOL["bfloat16"], err
+
+
+def test_zo_matmul_users_tma_body_16_lanes_equal_lone_launches(cuda):
+    """The tenants cell's launch: 16 lanes of (1024, 2048) @ (2048, 2048)
+    over 8 W lanes, a layer slice of a stacked (8, 2, K, N) state, on the
+    Hopper body; within the bf16 limit of the plain version, and every
+    lane equal to a lone launch at atol 0."""
+    m, k, n = 1024, 2048, 2048
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((16, m, k), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((8, 2, k, n), generator=gen, device=cuda) * 0.02
+         ).bfloat16()[:, 1]
+    seeds = list(range(100, 116))
+    coeffs = [0.05 * (i + 1) / 16 * (-1) ** i for i in range(16)]
+    salt = rng.leaf_salt("blocks/attn/wq/w")
+    before = build.BODIES["zo_matmul_users/tc_tma"]
+    got = ops.zo_matmul_users(x, w, seeds, salt, coeffs)
+    assert build.BODIES["zo_matmul_users/tc_tma"] == before + 1
+    want = zp.zo_matmul_users_ref(x, w, seeds, salt, coeffs)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err <= MM_RTOL["bfloat16"], err
+    for i in range(16):
+        lone = ops.zo_matmul(x[i].contiguous(), w[i % 8].contiguous(),
+                             seeds[i], salt, coeffs[i])
+        assert torch.equal(got[i], lone), i
 
 
 @pytest.mark.parametrize("causal", [True, False])
