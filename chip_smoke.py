@@ -59,6 +59,14 @@ Needs one CUDA card (written for an H100) and the CUDA toolkit. Phases:
    x 1500), and timed at every ``REAL_HEADS`` layout (B 8 x 128,
    causal); ``zo_matmul`` at jamba's ``x_proj`` (N 288) and whisper's
    width (512), against their plain versions at the same limits.
+   ``selective_scan`` (Mamba-1's scan, which replaces the JAX package's
+   ``lax.scan``) at the Jamba cell's shape (B 2 x S 4096, d_inner 8192,
+   d_state 16) against its plain version: in f32 within
+   ``SCAN_F32_RTOL`` of max|y|, in bf16 (x and z) every element within
+   ``SCAN_BF16_RTOL`` of its own |y| plus ``SCAN_BF16_RMS`` of rms(y);
+   timed beside it and beside its bound (the larger of its least bytes
+   over HBM and its exponentials and FMAs over the SFU and FP32 pipes,
+   ``scan_bound_s``); no PyTorch call computes it.
 4. serving: ``repro_torch.launch.serve.run`` on full-width, 24-layer
    OPT-1.3B (bf16, random weights from a seed), paged KV with page size 16
    and chunked prefill C = 32, 4 slots, 8 greedy requests (96-token
@@ -154,7 +162,8 @@ F2. rwkv6-7b (32 layers): the train CLI (2 steps), fused vs
    ``spec_k`` and ``prefill_chunk`` raise.
 F3. jamba-v0.1-52b cut to one super-block (8 of 32 sublayers: 1
    attention, 7 mamba, 4 MoE of 16 experts) through the Trainer and
-   ServeEngine APIs: 2 steps, fused vs materialized (with the routing
+   ServeEngine APIs: 2 steps, every Mamba forward on the
+   ``selective_scan`` kernel (4 x 7 launches), fused vs materialized (with the routing
    flips between the two forwards, again with capacity for every token
    and, below, with dense FFNs), paged serving with chunked prefill (one
    replayed user beside the base), ``spec_k`` 3 with its tokens held to
@@ -184,7 +193,8 @@ UF2. rwkv6-7b, full depth, through the CLI: 3 users on 2 slots, 2
    steps, B 4 x 128, against lone Trainers.
 UF3. jamba-v0.1-52b cut as F3 (8 sublayers): the user-axis fused loss
    over one shared 27 GB base, U = 2 lanes, each against the scalar
-   fused loss; peak memory.
+   fused loss, every Mamba forward one ``selective_scan`` launch over
+   both lanes; peak memory.
 UF4. whisper-base, full depth, through the ``TrainEngine`` with batches
    that carry ``enc_embeds`` (8 x 1500 frames): 4 users on 4 slots, 3
    steps, B 8 x 128, against lone Trainers.
@@ -298,6 +308,15 @@ WORK = ROOT / "build" / "chip_smoke"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+SFU_EXP_PER_S = 16 * 132 * 1.98e9   # ex2 a clock an SM, 132 SMs, boost
+FMA_OPS_PER_S = 128 * 132 * 1.98e9  # FP32 lanes a clock an SM
+SCAN_F32_RTOL = 1e-4     # of max|y|: fast exp (ex2.approx) and FMA
+SCAN_BF16_RTOL = 2e-2    # of each |y|: four bf16 roundings (2^-8 each) lie
+#                          between the two, three in the plain version
+#                          (C.h + D x, silu(z), their product), one in the
+#                          kernel (after the gate)
+SCAN_BF16_RMS = 1e-3     # of rms(y): room for the f32 differences where
+#                          y is near 0
 # instructions a thread can issue a second, chip-wide: the f32 peak at two
 # flops an FMA instruction (132 SMs x 128 lanes x 1.98 GHz)
 INSTR_RATE = PEAK_FLOPS["f32"] / 2
@@ -1243,6 +1262,81 @@ def _flash_cost(b, s, t, h, kvh, hd, causal, item):
     flops = 4.0 * hd * b * h * pairs
     n_bytes = (2 * b * s * h * hd + 2 * b * t * kvh * hd) * item
     return n_bytes, flops
+
+
+def scan_bound_s(b, s, di, n):
+    """Least time of one Mamba layer's scan (``perfbench/flops_hybrid.py``
+    counts it so): the larger of its least bytes (x, z, y, dt's input, B,
+    C at 2 bytes) over HBM and its ``b s di n`` exponentials, each with 2
+    FP32 operations beside it, split between the SFUs and the FP32 pipe
+    (3 operations an exponential there) so that both finish together."""
+    n_bytes = 2 * b * s * (3 * di + di // 32 + 2 * n)
+    n_exp = b * s * di * n
+    x = min(1.0, SFU_EXP_PER_S * 5 / (FMA_OPS_PER_S + 3 * SFU_EXP_PER_S))
+    compute = max(x * n_exp / SFU_EXP_PER_S,
+                  ((1 - x) * 3 + 2) * n_exp / FMA_OPS_PER_S)
+    by = "bytes" if n_bytes / HBM_BYTES_PER_S >= compute else "arithmetic"
+    return max(n_bytes / HBM_BYTES_PER_S, compute), by
+
+
+def kernel_selective_scan(torch, results):
+    """T0: ``selective_scan`` against its plain version at the Jamba
+    cell's shape (one Mamba layer of B 2 x S 4096), f32 and bf16, timed
+    beside it in bf16."""
+    from repro_torch.kernels import selective_scan as ss
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, s, di, n = 2, 4096, 8192, 16
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+    xz32 = rnd(b, s, 2 * di)
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=dev)).expand(di, n).contiguous()
+    rest = (rnd(b, s, di, std=0.3), rnd(di, std=0.1), a_log, rnd(b, s, n),
+            rnd(b, s, n), torch.ones(di, device=dev))
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xz = xz32.to(dtype)
+        args = (xz[..., :di].contiguous(), *rest, xz[..., di:])
+        got, _ = ss.selective_scan_cuda(*args)
+        want, _ = ss.selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        scale = want.abs().max().item()
+        ok = torch.isfinite(got).all().item()
+        if dtype == torch.float32:
+            ok = ok and err.max().item() <= SCAN_F32_RTOL * scale
+        else:
+            rms = want.square().mean().sqrt().item()
+            ok = ok and bool((err <= SCAN_BF16_RTOL * want.abs()
+                              + SCAN_BF16_RMS * rms).all())
+        key = str(dtype).split(".")[1]
+        errs[key] = {"max_abs_err": err.max().item(), "max_abs_y": scale,
+                     "max_err_over_y": (err / want.abs().clamp_min(
+                         1e-30)).max().item() if key == "bfloat16" else None}
+        check(ok, f"selective_scan {key}: {errs[key]} out of its limits")
+        del got, want, err
+    plain = time_ms(lambda: ss.selective_scan_ref(*args), iters=1,
+                    warmup=1)
+    ms = time_interleaved(torch, {"kernel": lambda: ss.selective_scan_cuda(
+        *args)}, iters=20)["kernel"]
+    bound_s, by = scan_bound_s(b, s, di, n)
+    row = {"phase": "kernel", "name": "selective_scan",
+           "shape": [b, s, di, n], "dtype": "bfloat16", "errors": errs,
+           "tolerance": {"f32_of_max_y": SCAN_F32_RTOL,
+                         "bf16_of_y": SCAN_BF16_RTOL,
+                         "bf16_of_rms_y": SCAN_BF16_RMS},
+           "kernel_ms": ms, "plain_ms": plain, "bound_ms": bound_s * 1e3,
+           "bound_by": by, "library_ms": None}
+    print(json.dumps(row), flush=True)
+    results["selective_scan"] = {
+        "max_abs_err": errs["bfloat16"]["max_abs_err"], "ms": ms,
+        "plain_ms": plain, "bound_ms": bound_s * 1e3, "bound_by": by,
+        "library_ms": None, "library": "none"}
+    del args, xz, xz32, rest
+    torch.cuda.empty_cache()
 
 
 # T0's f32 (SIMT body) attention, timed (PERF.md section 6, row 8-f32):
@@ -3719,20 +3813,19 @@ def _api_serve(torch, engine_mod, cfg, store, users, hook=None, **kw):
     return engine, comps, dt, first
 
 
-def f3_hybrid(torch, paths):
-    """F3: jamba-v0.1-52b at full width, one super-block deep, through
-    the Trainer and ServeEngine APIs."""
+def f3_train(torch, paths, cfg=None):
+    """F3's training phase: 2 fused steps through the Trainer, the fused
+    loss against the materialized one (every Mamba forward on the
+    ``selective_scan`` kernel), launches and one profiled step; ``cfg``
+    F3's cut by default."""
     import dataclasses
-    import gc
     from repro_torch.configs import get_config
     from repro_torch.core import MezoConfig
     from repro_torch.kernels import ops
-    from repro_torch.models import build_model
     from repro_torch.runtime import Trainer, TrainerConfig
-    from repro_torch.serve import AdapterStore
-    from repro_torch.serve import engine as engine_mod
-    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
-                              n_layers=JAMBA_LAYERS)
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                  n_layers=JAMBA_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(cfg, TrainerConfig(optimizer="mezo-fused",
                                     mezo=MezoConfig(eps=1e-3, lr=1e-4),
@@ -3759,6 +3852,12 @@ def f3_hybrid(torch, paths):
     check(len(tr.losses) == 2 and all(math.isfinite(x) for x in tr.losses),
           f"F3 losses {tr.losses}")
     _check_tc("F3 train", launches, ["zo_matmul"])
+    # every Mamba forward through the selective_scan kernel: the fused
+    # checks' forwards ran before the reset, the 2 steps' 4 after it
+    n_mamba = cfg.n_layers // cfg.block_len * (cfg.block_len - 1)
+    check(launches["selective_scan"] == 4 * n_mamba,
+          f"F3 train: {launches['selective_scan']} selective_scan launches "
+          f"for {4 * n_mamba} Mamba forwards")
     state = tr.strategy.init_state(params, tr.tcfg.mezo)
     step_s, state = _timed_steps(torch, tr.strategy, tr.model.loss, state,
                                  batch, tr.tcfg.mezo, 1)
@@ -3769,6 +3868,21 @@ def f3_hybrid(torch, paths):
                   count=False)
     del tr, state, batch, params
     torch.cuda.empty_cache()
+
+
+def f3_hybrid(torch, paths):
+    """F3: jamba-v0.1-52b at full width, one super-block deep, through
+    the Trainer and ServeEngine APIs."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import AdapterStore
+    from repro_torch.serve import engine as engine_mod
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=JAMBA_LAYERS)
+    f3_train(torch, paths, cfg)
 
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
@@ -4257,7 +4371,8 @@ def uf2_rwkv_fleet(torch, paths):
 def uf3_hybrid_shared_base(torch, paths):
     """UF3: jamba-v0.1-52b cut to one super-block (F3's 8 sublayers): the
     user-axis fused loss over one shared bf16 base, U = 2 lanes (two
-    seeds, one sign each), each lane's MoE dispatch alone; every lane's
+    seeds, one sign each), each lane's MoE dispatch alone, each Mamba
+    forward one ``selective_scan`` launch over both lanes; every lane's
     loss against the scalar fused loss at atol 0; peak memory."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -4303,6 +4418,11 @@ def uf3_hybrid_shared_base(torch, paths):
     _check_tc(label, launches, ["zo_matmul_users"])
     check(launches["zo_add"] > 0 and launches["zo_matmul"] == 0,
           f"{label}: launches {launches}")
+    # every Mamba forward through the kernel, one launch over both lanes
+    n_mamba = cfg.n_layers // cfg.block_len * (cfg.block_len - 1)
+    check(launches["selective_scan"] == n_mamba,
+          f"{label}: {launches['selective_scan']} selective_scan launches "
+          f"for {n_mamba} Mamba forwards")
 
 
 def _enc_batches(cfg, user, bsz):
@@ -5450,6 +5570,7 @@ def main():
     kernel_zo_add_users(torch, results)
     kernel_zo_matmul_users(torch, results)
     kernel_flash_verify(torch, results)                   # S0
+    kernel_selective_scan(torch, results)
     torch.cuda.empty_cache()
 
     # 4-5. the serving path, and where its time goes
@@ -5567,7 +5688,9 @@ def main():
                 "zo_add_users": "src/repro/kernels/zo_perturb.py:165",
                 "zo_matmul_users": "src/repro/kernels/zo_perturb.py:332",
                 "zo_matmul_users_q": "src/repro/kernels/zo_perturb.py:352",
-                "flash_verify": "src/repro/kernels/flash_verify.py:38"}
+                "flash_verify": "src/repro/kernels/flash_verify.py:38",
+                "selective_scan": "src/repro/models/mamba.py:71 (lax.scan; "
+                                  "no Pallas kernel)"}
     sources = {"zo_add_q": "zo_add", "zo_matmul_q": "zo_matmul",
                "zo_add_users": "zo_add", "zo_matmul_users": "zo_matmul",
                "zo_matmul_users_q": "zo_matmul"}

@@ -14,6 +14,15 @@ turning the recorder on changes neither the arithmetic nor the host
 syncs of what runs inside. Names ending in ``.sync`` mark the places
 where the host waits for the device. The module imports only the
 standard library, so every layer of the port may import it.
+
+:data:`COUNTS` holds the program's counters of work, host numbers the
+program knows without reading the device (``count``, ``count_max``),
+kept whether or not the recorder is on and zeroed with the kernels'
+launch counts (``kernels.build.reset_launches``). The MoE layer's:
+``moe.calls``, ``moe.assignments`` (tokens x k routed), ``moe.rows``
+(expert rows computed, E x C), ``moe.max_load`` (the largest expert load
+read to the host, by dropless routing) and ``moe.materialized_bytes``
+(the experts' perturbed copies).
 """
 
 from __future__ import annotations
@@ -22,6 +31,19 @@ import time
 from typing import List, NamedTuple, Tuple
 
 _perf_ns = time.perf_counter_ns
+
+COUNTS = {"moe.calls": 0, "moe.assignments": 0, "moe.rows": 0,
+          "moe.max_load": 0, "moe.materialized_bytes": 0}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``."""
+    COUNTS[name] += n
+
+
+def count_max(name: str, value: int) -> None:
+    """Raise counter ``name`` to ``value`` if it is below."""
+    COUNTS[name] = max(COUNTS[name], value)
 
 
 class Span(NamedTuple):

@@ -41,7 +41,7 @@ LAUNCHES: Dict[str, int] = {"zo_add": 0, "flash_decode": 0,
                             "flash_attention": 0, "zo_add_q": 0,
                             "zo_matmul_q": 0, "zo_add_users": 0,
                             "zo_matmul_users": 0, "zo_matmul_users_q": 0,
-                            "flash_verify": 0}
+                            "flash_verify": 0, "selective_scan": 0}
 
 #: launches of the two-body kernels by body: ``"<kernel>/tc"`` (bf16
 #: tensor cores) and ``"<kernel>/simt"``, the tensor-core launches of
@@ -103,6 +103,8 @@ _SIGNATURES = {
     "repro_flash_prefill_body": (_I,),
     "repro_flash_verify_body": (_I,),
     "repro_flash_decode_split_body": (_I, _I),
+    "repro_selective_scan": (_P,) * 11 + (_I,) * 6 + (ctypes.c_int64,
+                                                      ctypes.c_int64, _P),
 }
 
 _lock = threading.Lock()
@@ -206,6 +208,9 @@ def body(fn_name: str, *args) -> str:
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BODIES):
+    """Zero :data:`LAUNCHES`, :data:`BODIES` and the program's counters
+    (``core.spans.COUNTS``)."""
+    from repro_torch.core import spans   # core imports the kernels
+    for counts in (LAUNCHES, BODIES, spans.COUNTS):
         for k in counts:
             counts[k] = 0

@@ -33,12 +33,14 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import flash_verify as _fv
+from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import zo_perturb as _zo
 from repro_torch.kernels.build import BODIES, LAUNCHES, reset_launches
 
 __all__ = ["BODIES", "LAUNCHES", "reset_launches", "zo_add", "zo_matmul",
            "zo_add_users", "zo_matmul_users", "flash_attention",
-           "paged_decode_attn", "paged_prefill_attn", "paged_verify_attn"]
+           "paged_decode_attn", "paged_prefill_attn", "paged_verify_attn",
+           "selective_scan"]
 
 
 def _on_cpu(kernel: str, t) -> bool:
@@ -282,3 +284,16 @@ def paged_verify_attn(q, k_pages, v_pages, pages, pos):
     if _on_cpu("flash_verify", q):
         return _fv.verify_attn_ref(q, k_pages, v_pages, pages, pos)
     return _fv.flash_verify(q, k_pages, v_pages, pages, pos)
+
+
+def selective_scan(x, dt, dt_bias, a_log, bmat, cmat, d, z, h0=None):
+    """Mamba-1's selective scan (``kernels/selective_scan.py``): x, z (B,
+    S, di), dt (B, S, di) before its bias and softplus, B, C (B, S, n),
+    leaves dt_bias (di,), A_log (di, n), D (di,) or each with a leading
+    lane axis (U lanes of B / U rows), optional h0 (B, di, n) f32 -> (y in
+    x's dtype, the last state f32). Forward only."""
+    if _on_cpu("selective_scan", x):
+        return _ss.selective_scan_ref(x, dt, dt_bias, a_log, bmat, cmat, d,
+                                      z, h0)
+    return _ss.selective_scan_cuda(x, dt, dt_bias, a_log, bmat, cmat, d, z,
+                                   h0)

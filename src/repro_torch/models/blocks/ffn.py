@@ -7,14 +7,17 @@ weights are 3/4-D stacked leaves consumed inside sort-based dispatch,
 so there is no 2-D use site for ``zo_matmul`` to fuse into. With a ctx
 the block perturbs its expert sub-dict into a transient
 (``ctx.materialize``: the ``zo_add`` kernel on the card, one launch a
-leaf; the int8 kernels for a quantized one); without one it dequantizes
-an int8 base -- per block and layer slice, never the whole model."""
+leaf; the int8 kernels for a quantized one), under the span
+``moe.materialize`` and counted in ``moe.materialized_bytes``; without
+one it dequantizes an int8 base -- per block and layer slice, never the
+whole model."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.batching import take_lane
+from repro_torch.core.spans import count, span
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MoE
 from repro_torch.models.blocks.base import BlockType, register_block
@@ -47,12 +50,27 @@ def _moe_apply(cfg, p, x, rc, ctx=None):
         outs, aux = [], []
         for i, (lctx, xl) in enumerate(zip(ctx.lanes(),
                                            ctx.split_lanes(x))):
-            y, a = fn(cfg, lctx.materialize(take_lane(p, i)), xl)
+            y, a = fn(cfg, _materialize(lctx, take_lane(p, i)), xl)
             outs.append(y)
             aux.append(a)
         return torch.cat(outs), torch.stack(aux)
-    p = dequantize_tree(p) if ctx is None else ctx.materialize(p)
+    p = dequantize_tree(p) if ctx is None else _materialize(ctx, p)
     return fn(cfg, p, x)
+
+
+def _materialize(ctx, p):
+    """``ctx.materialize(p)`` under the span ``moe.materialize``, its
+    bytes counted in ``moe.materialized_bytes``."""
+    with span("moe.materialize"):
+        out = ctx.materialize(p)
+    count("moe.materialized_bytes", sum(
+        t.numel() * t.element_size() for t in _leaves(out)))
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
 MLP = register_block(BlockType(name="mlp", apply=_mlp_apply))

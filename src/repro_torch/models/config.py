@@ -39,7 +39,11 @@ class ModelConfig:
     topk: int = 0
     expert_dff: int = 0          # per-expert hidden dim (kimi: 2048)
     n_shared_experts: int = 0    # kimi-style always-on shared expert
-    capacity_factor: float = 1.25
+    # expert rows a call per expert: tokens * topk * factor / n_experts;
+    # None is dropless (Jamba): the call's largest load, read to the host
+    capacity_factor: Optional[float] = 1.25
+    moe_renorm: bool = True      # gates: top-k probs renormalized to sum 1
+                                 # (False: the softmax's probs as they are)
     moe_every: int = 1           # MoE replaces dense FFN every k-th layer
     moe_ep: bool = False         # shard_map expert parallelism (perf opt)
     fsdp_params: bool = False    # 2-D expert-weight sharding (model x data)
@@ -51,6 +55,7 @@ class ModelConfig:
     mamba_d_state: int = 16
     mamba_d_conv: int = 4
     mamba_expand: int = 2
+    mamba_inner_norm: bool = False   # Jamba: RMSNorm on dt's input, B, C
 
     # --- rwkv6 ---
     rwkv_head_dim: int = 64

@@ -1,9 +1,14 @@
 """Mamba (selective SSM) layer -- the recurrent sublayer of jamba.
 
-Port of the JAX package's ``models/mamba.py``. The selective scan runs
-over time in a Python loop (ZO fine-tuning never backpropagates through
-it); decode carries (conv window, ssm state) explicitly: the conv window
-in the model dtype, the SSM state in f32.
+Port of the JAX package's ``models/mamba.py``. The selective scan is
+``kernels.ops.selective_scan``: on the card the ``selective_scan``
+kernel, on the CPU its plain version, a Python loop over time (ZO
+fine-tuning never backpropagates through it); decode carries (conv
+window, ssm state) explicitly: the conv window in the model dtype, the
+SSM state in f32. ``cfg.mamba_inner_norm`` (Jamba's mixer, which the JAX
+package lacks) RMS-normalizes ``dt``'s low-rank input, B and C right
+after ``x_proj``, each with a scale leaf of its own (``dt_norm``,
+``b_norm``, ``c_norm``).
 
 The full-sequence apply threads an optional ``PerturbCtx``: dense
 projections through ``ctx``-aware ``L.dense`` (``zo_matmul`` on the
@@ -11,9 +16,10 @@ card), the conv / SSM leaves through a transient ``ctx.perturb``
 (``zo_add``) -- the hybrid family's fused ZO loss takes no transient
 copy of the parameters. Under a user-axis ctx (lanes flattened in the
 batch) the conv and SSM leaves meet only their own lane's rows
-(``L.per_row``), ``dt_proj`` and the scan's one contraction a step run
-lane by lane at the scalar path's shapes, and the rest of the selective
-scan, elementwise in the batch, runs over every lane at once.
+(``L.per_row``), ``dt_proj`` runs lane by lane at the scalar path's
+shapes, and the selective scan takes each lane's leaves for its rows: one
+launch of the kernel over every lane on the card, the plain version lane
+by lane on the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.perturb_ctx import sub as _sub
+from repro_torch.core.spans import span
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.optim.quant import deq as _deq
 
@@ -40,42 +48,31 @@ def dims(cfg, d_model=None):
     return d, cfg.mamba_expand * d, max(1, d // 16)
 
 
-def _softplus(x):
-    """``jax.nn.softplus``: log(1 + e^x) as max(x, 0) + log1p(e^-|x|)."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
-
-
 def _ssm_inputs(cfg, p, xc, d_model=None, ctx=None):
-    """xc: (B, S, di) post-conv. Returns dt, Bmat, Cmat (f32)."""
+    """xc: (B, S, di) post-conv. Returns dt before its bias and softplus
+    (f32), the ``dt_proj`` bias leaf, B and C (f32)."""
     _, _, dtr = dims(cfg, d_model)
     n = cfg.mamba_d_state
     proj = L.dense(p["x_proj"], xc, _sub(ctx, "x_proj")).to(_F32)
     dt_raw, bmat, cmat = torch.split(proj, [dtr, n, n], dim=-1)
+    if cfg.mamba_inner_norm:
+        dt_raw, bmat, cmat = (
+            L.rmsnorm(t, L.per_row(ctx, _leaf(p[name], "scale",
+                                              _sub(ctx, name)), t))
+            for name, t in (("dt_norm", dt_raw), ("b_norm", bmat),
+                            ("c_norm", cmat)))
     dtp = _sub(ctx, "dt_proj")
     dt = L.lane_matmul(ctx, dt_raw, _leaf(p["dt_proj"], "w", dtp).to(_F32))
-    dt = _softplus(dt + L.per_row(ctx, _leaf(p["dt_proj"], "b", dtp),
-                                  dt).to(_F32))
-    return dt, bmat, cmat
+    return dt, _leaf(p["dt_proj"], "b", dtp), bmat, cmat
 
 
-def _scan_ssm(p, xc, dt, bmat, cmat, h0=None, ctx=None):
-    """Selective scan. xc: (B, S, di); dt: (B, S, di); b/c: (B, S, n).
-    Returns (y (B, S, di) in xc's dtype, final state (B, di, n) f32)."""
-    a = -torch.exp(_leaf(p, "A_log", ctx))              # (di, n)
-    bsz, s, di = xc.shape
-    h = (torch.zeros((bsz, di, a.shape[-1]), dtype=_F32, device=xc.device)
-         if h0 is None else h0)
-    # the per-step decay and input, for every step at once (elementwise,
-    # the same products the reference forms a step at a time)
-    da = torch.exp(dt[..., None] * L.per_row(ctx, a, dt, 4))  # (B, S, di, n)
-    dbx = (dt * xc.to(_F32))[..., None] * bmat[:, :, None, :]
-    ys = []
-    for t in range(s):
-        h = da[:, t] * h + dbx[:, t]
-        ys.append(L.lane_einsum(ctx, "bdn,bn->bd", h, cmat[:, t]))
-    y = torch.stack(ys, dim=1) + xc.to(_F32) * L.per_row(
-        ctx, _leaf(p, "D", ctx), xc)
-    return y.to(xc.dtype), h
+def _scan_ssm(p, xc, z, dt, bias, bmat, cmat, h0=None, ctx=None):
+    """The selective scan gated by ``silu(z)``: (y (B, S, di) in xc's
+    dtype, final state (B, di, n) f32). Under a user-axis ctx the leaves
+    come per lane, each lane's on its own rows."""
+    with span("mamba.scan"):
+        return kops.selective_scan(xc, dt, bias, _leaf(p, "A_log", ctx),
+                                   bmat, cmat, _leaf(p, "D", ctx), z, h0)
 
 
 def _conv(p, window, s, d_conv, ctx=None):
@@ -95,9 +92,9 @@ def mamba_apply(cfg, p, x, d_model=None, ctx=None):
     xi, z = torch.chunk(xz, 2, dim=-1)
     window = F.pad(xi, (0, 0, d_conv - 1, 0))
     xc = F.silu(_conv(p, window, x.shape[1], d_conv, ctx))
-    dt, bmat, cmat = _ssm_inputs(cfg, p, xc, d_model, ctx)
-    y, _ = _scan_ssm(p, xc, dt, bmat, cmat, ctx=ctx)
-    return L.dense(p["out_proj"], y * F.silu(z), _sub(ctx, "out_proj"))
+    y, _ = _scan_ssm(p, xc, z, *_ssm_inputs(cfg, p, xc, d_model, ctx),
+                     ctx=ctx)
+    return L.dense(p["out_proj"], y, _sub(ctx, "out_proj"))
 
 
 def mamba_prefill(cfg, p, state, x, d_model=None):
@@ -111,7 +108,7 @@ def mamba_prefill(cfg, p, state, x, d_model=None):
     xi, z = torch.chunk(xz, 2, dim=-1)                  # (B, S, di)
     window = torch.cat([state["conv"].to(xi.dtype), xi], dim=1)
     xc = F.silu(_conv(p, window, s, d_conv))
-    dt, bmat, cmat = _ssm_inputs(cfg, p, xc, d_model)
-    y, h = _scan_ssm(p, xc, dt, bmat, cmat, h0=state["ssm"])
-    out = L.dense(p["out_proj"], y * F.silu(z))
+    y, h = _scan_ssm(p, xc, z, *_ssm_inputs(cfg, p, xc, d_model),
+                     h0=state["ssm"])
+    out = L.dense(p["out_proj"], y)
     return out, {"conv": window[:, s:, :], "ssm": h}

@@ -6,7 +6,18 @@ expert-parallel ``moe_apply_ep`` / ``_moe_ep_weights_stationary``. The
 first ``capacity`` rows are scattered into an (E, C, D) buffer -- O(T*k*D)
 memory, never a (T, E, C) one-hot. Assignments past capacity are
 dropped: their combine weight is zero, so the residual path carries
-those tokens unchanged.
+those tokens unchanged. ``capacity_factor`` None is dropless routing
+(Jamba's): a call's capacity is its largest expert load, read to the
+host once (``moe.route.sync``) and rounded up to 64 rows, so every
+assignment is kept through the same dispatch. The gates are the top-k
+softmax probabilities, renormalized to sum 1 unless ``moe_renorm`` is
+False.
+
+``moe_apply`` runs its stages under the spans ``moe.route`` (gates,
+capacity, dispatch), ``moe.experts`` and ``moe.combine``, and counts its
+calls, assignments, expert rows and (dropless) largest load in
+``core.spans.COUNTS``. :data:`ROUTES`, when a list, receives each call's
+top-k expert ids (T, k) on the device, in call order.
 
 Dispatch and combine are deterministic on the card: a kept assignment
 owns its buffer row (no two writes meet, and dropped ones go to one
@@ -43,8 +54,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import spans
+from repro_torch.core.spans import span
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as shd
+
+#: None, or a list that each ``moe_apply`` call appends its (T, k) expert
+#: ids to (the benchmark compares them with its reference's routing)
+ROUTES = None
+#: dropless capacity is the largest load rounded up to this many rows
+DROPLESS_ROWS = 64
 
 
 def _expert_ffn(cfg, w_in, w_out, x):
@@ -61,16 +80,29 @@ def _expert_ffn(cfg, w_in, w_out, x):
     return torch.einsum("ecf,efd->ecd", h, w_out)
 
 
-def capacity(n_tokens: int, cfg) -> int:
-    c = int(n_tokens * cfg.topk * cfg.capacity_factor / cfg.n_experts)
-    return max(8, c)
+def capacity(n_tokens: int, cfg, idx=None) -> int:
+    """Expert rows a call: from ``capacity_factor``, or dropless (None):
+    the largest load of the call's expert ids ``idx``, read to the host
+    and rounded up to :data:`DROPLESS_ROWS`."""
+    if cfg.capacity_factor is not None:
+        c = int(n_tokens * cfg.topk * cfg.capacity_factor / cfg.n_experts)
+        return max(8, c)
+    if idx is None:
+        raise ValueError("dropless routing (capacity_factor None) runs on "
+                         "moe_apply alone, not on the expert-parallel path")
+    with span("moe.route.sync"):
+        load = int(torch.bincount(idx.reshape(-1),
+                                  minlength=cfg.n_experts).max())
+    spans.count_max("moe.max_load", load)
+    return max(DROPLESS_ROWS, -(-load // DROPLESS_ROWS) * DROPLESS_ROWS)
 
 
 def _gates(cfg, xf, router):
     logits = xf.to(torch.float32) @ router                     # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, cfg.topk, dim=-1)            # (T, k)
-    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+    if cfg.moe_renorm:
+        gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
     density = F.one_hot(idx[:, 0], cfg.n_experts).to(torch.float32).mean(0)
     return probs, gate, idx, density
 
@@ -125,17 +157,25 @@ def moe_apply(cfg, p, x):
     b, s, d = x.shape
     tt = b * s
     e, k = cfg.n_experts, cfg.topk
-    c = capacity(tt, cfg)
     xf = x.reshape(tt, d)
-    probs, gate, idx, density = _gates(cfg, xf, p["router"])
-    # load-balancing auxiliary loss (Switch-style)
-    aux = e * torch.mean(probs.mean(0) * density)
-
-    order, st, slot, keep = _dispatch(idx.reshape(-1), e, c, k)
-    buf = _scatter(xf, st, slot, keep, e * c)
-    yexp = _expert_ffn(cfg, p["w_in"], p["w_out"],
-                       buf.reshape(e, c, d)).reshape(e * c, d)
-    out = _combine(yexp, order, slot, keep, gate, k, x.dtype).reshape(b, s, d)
+    with span("moe.route"):
+        probs, gate, idx, density = _gates(cfg, xf, p["router"])
+        # load-balancing auxiliary loss (Switch-style)
+        aux = e * torch.mean(probs.mean(0) * density)
+        if ROUTES is not None:
+            ROUTES.append(idx)
+        c = capacity(tt, cfg, idx)
+        order, st, slot, keep = _dispatch(idx.reshape(-1), e, c, k)
+        buf = _scatter(xf, st, slot, keep, e * c)
+    spans.count("moe.calls")
+    spans.count("moe.assignments", tt * k)
+    spans.count("moe.rows", e * c)
+    with span("moe.experts"):
+        yexp = _expert_ffn(cfg, p["w_in"], p["w_out"],
+                           buf.reshape(e, c, d)).reshape(e * c, d)
+    with span("moe.combine"):
+        out = _combine(yexp, order, slot, keep, gate, k,
+                       x.dtype).reshape(b, s, d)
     if cfg.n_shared_experts:
         out = out + L.mlp_apply(cfg, p["shared"], x)
     return out, aux
@@ -173,10 +213,10 @@ def _moe_apply_auto(cfg, p, x):
     b, s, d = x.shape
     tt = b * s
     e, k = cfg.n_experts, cfg.topk
-    c = capacity(tt, cfg)
     xf = _replicated(x).reshape(tt, d)               # the tokens, gathered
     probs, gate, idx, density = _gates(cfg, xf, _replicated(p["router"]))
     aux = e * torch.mean(probs.mean(0) * density)
+    c = capacity(tt, cfg, idx)
     order, st, slot, keep = _dispatch(idx.reshape(-1), e, c, k)
     buf = _scatter(xf, st, slot, keep, e * c).reshape(e, c, d)
     rep = [Replicate()] * mesh.ndim

@@ -207,6 +207,11 @@ class _Spec:
                   ("normal", 0.1))
         self.leaf(f"{prefix}/conv_b", lead + (di,), self.dt, "zeros")
         self.proj(f"{prefix}/x_proj", di, dtr + 2 * n, lead)
+        if cfg.mamba_inner_norm:
+            for name, width in (("dt_norm", dtr), ("b_norm", n),
+                                ("c_norm", n)):
+                self.leaf(f"{prefix}/{name}/scale", lead + (width,), f32,
+                          "ones")
         self.proj(f"{prefix}/dt_proj", dtr, di, lead, bias=True)
         self.leaf(f"{prefix}/A_log", lead + (di, n), f32, "a_log")
         self.leaf(f"{prefix}/D", lead + (di,), f32, "ones")

@@ -1849,3 +1849,121 @@ def test_data_pipeline_to_card(cuda):
     assert not pipe._thread.is_alive()
     with pytest.raises(RuntimeError, match="closed"):
         next(pipe)
+
+
+SCAN_F32_RTOL = 1e-4    # of max|y|: fast exp (ex2.approx) and FMA
+#                         contraction against the plain version's exact
+#                         exp, carried through the recurrence
+SCAN_BF16_RTOL = 2e-2   # of each |y|: four bf16 roundings (2^-8 each) lie
+#                         between the two, three in the plain version (C.h
+#                         + D x, silu(z), their product), one in the kernel
+SCAN_BF16_RMS = 1e-3    # of rms(y): the f32 differences where y is near 0
+
+
+def _scan_close(got, want, dtype):
+    """y within the f32 limit of max|y|, or in bf16 element by element."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        return err.max().item() <= SCAN_F32_RTOL * want.abs().max().item()
+    rms = want.square().mean().sqrt().item()
+    return bool((err <= SCAN_BF16_RTOL * want.abs() + SCAN_BF16_RMS * rms)
+                .all())
+
+
+def _scan_case(device, bsz, s, di, n, dtype, h0, seed=5):
+    """Scan inputs at a Mamba layer's scales: x and z a views of one
+    in_proj-shaped (B, S, 2 di) output (z strided), dt before its bias."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g) * std).to(device)
+    xz = rnd(bsz, s, 2 * di).to(dtype)
+    x, z = xz[..., :di].contiguous(), xz[..., di:]
+    a_log = (torch.log(torch.arange(1, n + 1, dtype=torch.float32))
+             .expand(di, n).to(device) + rnd(di, n, std=0.05))
+    args = (x, rnd(bsz, s, di, std=0.3), rnd(di, std=0.1).to(dtype), a_log,
+            rnd(bsz, s, n), rnd(bsz, s, n), 1.0 + rnd(di, std=0.1), z)
+    return args, (rnd(bsz, di, n) if h0 else None)
+
+
+@pytest.mark.parametrize("h0", [False, True], ids=["zeros", "h0"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_matches_plain_at_jamba_widths(cuda, dtype, h0):
+    """d_inner 8192, d_state 16, S 4096 (the benchmark's Jamba cell): y and
+    the last state within the f32 (bf16) limit of the plain scan, with
+    and without an initial state; no (B, S, di, n) tensor is allocated
+    (the allocator's peak over the call)."""
+    from repro_torch.kernels import selective_scan as ss
+    dt = getattr(torch, dtype)
+    args, h0 = _scan_case(cuda, 2, 4096, 8192, 16, dt, h0)
+    want_y, want_h = ss.selective_scan_ref(*args, h0=h0)
+    before = build.LAUNCHES["selective_scan"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y, h = ops.selective_scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert build.LAUNCHES["selective_scan"] == before + 1
+    state_bytes = 2 * 4096 * 8192 * 16 * 4
+    assert extra <= y.numel() * y.element_size() + (64 << 20), extra
+    assert extra < state_bytes // 8
+    err = (y.float() - want_y.float()).abs().max().item()
+    scale = want_y.float().abs().max().item()
+    print(f"selective_scan {dtype} h0={h0 is not None}: max|dy| {err:.3e} "
+          f"of max|y| {scale:.3e}; max|dh| "
+          f"{(h - want_h).abs().max().item():.3e} of "
+          f"{want_h.abs().max().item():.3e}")
+    assert _scan_close(y, want_y, dt)
+    assert (h - want_h).abs().max().item() <= SCAN_F32_RTOL * \
+        want_h.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_lanes_equal_their_own_launches(cuda, dtype):
+    """Leaves per lane (the user-axis forward's: 3 lanes of 2 rows): one
+    launch equals each lane's launch on its rows with its leaves bit for
+    bit, and the plain version (lane by lane) within the limits."""
+    from repro_torch.kernels import selective_scan as ss
+    dt, u, rows = getattr(torch, dtype), 3, 2
+    args, h0 = _scan_case(cuda, u * rows, 300, 256, 16, dt, True)
+    x, dtr, bias, a_log, bmat, cmat, d, z = args
+    g = torch.Generator(device="cpu").manual_seed(9)
+    jitter = [(torch.randn(t.shape, generator=g) * 0.05).to(cuda)
+              for t in (bias, a_log, d)]
+    lanes = [torch.stack([t.float() + i * j for i in range(u)])
+             for t, j in zip((bias, a_log, d), jitter)]
+    before = build.LAUNCHES["selective_scan"]
+    y, h = ops.selective_scan(x, dtr, lanes[0], lanes[1], bmat, cmat,
+                              lanes[2], z, h0=h0)
+    assert build.LAUNCHES["selective_scan"] == before + 1
+    for i in range(u):
+        r = slice(i * rows, (i + 1) * rows)
+        yi, hi = ops.selective_scan(x[r], dtr[r], lanes[0][i], lanes[1][i],
+                                    bmat[r], cmat[r], lanes[2][i], z[r],
+                                    h0=h0[r])
+        assert torch.equal(y[r], yi) and torch.equal(h[r], hi), i
+    want_y, want_h = ss.selective_scan_ref(x, dtr, lanes[0], lanes[1], bmat,
+                                           cmat, lanes[2], z, h0=h0)
+    assert _scan_close(y, want_y, dt)
+    assert (h - want_h).abs().max().item() <= SCAN_F32_RTOL * \
+        want_h.abs().max().item()
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("shape", [(3, 37, 200), (1, 1, 129), (2, 9, 128)],
+                         ids=str)
+def test_selective_scan_ragged_edges(cuda, shape, n):
+    """Channels off the block's 128, lengths off the 8-step chunk, one
+    step (decode), every state width the kernel is built for."""
+    from repro_torch.kernels import selective_scan as ss
+    for h0 in (False, True):
+        args, h0 = _scan_case(cuda, *shape, n, torch.float32, h0)
+        want_y, want_h = ss.selective_scan_ref(*args, h0=h0)
+        y, h = ops.selective_scan(*args, h0=h0)
+        torch.cuda.synchronize()
+        assert (y - want_y).abs().max().item() <= SCAN_F32_RTOL * \
+            want_y.abs().max().item()
+        assert (h - want_h).abs().max().item() <= SCAN_F32_RTOL * \
+            want_h.abs().max().item()

@@ -72,12 +72,19 @@ def opt(tmp_path_factory):
     return jcfg, jparams, cfg, params
 
 
+# the port's fields the JAX package lacks (Jamba's inner norms and router),
+# at the values under which the port computes as the JAX package does
+PORT_ONLY = {"mamba_inner_norm": False, "moe_renorm": True}
+
+
 def test_configs_mirror_jax():
     from repro.configs import ALL_ARCHS
     for arch in ALL_ARCHS:
         j, t = j_get_config(arch), get_config(arch)
-        assert j.__dict__ == t.__dict__
-        assert j.reduced().__dict__ == t.reduced().__dict__
+        for jc, tc in ((j, t), (j.reduced(), t.reduced())):
+            fields = dict(tc.__dict__)
+            assert {k: fields.pop(k) for k in PORT_ONLY} == PORT_ONLY
+            assert jc.__dict__ == fields
 
 
 def test_checkpoint_crosses_and_init_matches_tree(opt):
